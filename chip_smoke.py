@@ -22,7 +22,22 @@ Phases (any failure exits non-zero; nothing is caught):
    version, one library call of the same function where there is one,
    and the least time the card could take;
 4. split the trainer's construction into its parts in a fresh process;
-5. print one JSON line of all kernels, then the device line last.
+5. run `senna bge` through the port's entry point with the JAX package's
+   CLI defaults (`-d 16`, 1,000 epochs, sort-dim 8, proj-dim 50, ETM on)
+   on the same simulated data without its batches (so the marginal is
+   unstratified and both NCE phases take K4), counts zeroed just before
+   and read just after; check that K1, K3 and K4 ran, K4 exactly
+   1,000 x levels + ceil(N / 2,048) x 100 times, that the latent and the
+   feature embedding are finite, that the phase-1 loss fell and that the
+   topic latent is a log-simplex;
+6. phase 1 of `fit_bge` alone at the NCE anchor (2,627 pseudobulks x
+   34,008 genes, H = 16, 1,000 epochs, counts made as `bench.py` makes
+   them) in f32 and in bf16; the two final losses agree within 1e-2;
+7. hold K4 against its plain version at the e2e phase-1 plane, one e2e
+   phase-2 block and the anchor in f32 and bf16, and K3 at the bge run's
+   own group plane (its first 8,192-cell block over its sort-dim groups),
+   and time both;
+8. print one JSON line of all kernels, then the device line last.
 
 TF32 is off for matmuls and cuDNN: every float32 product runs in full
 float32, as the reference package computes it.
@@ -50,6 +65,11 @@ WARMUP, REPS = 3, 15
 # (sums of non-negative values)
 RTOL_K1, RTOL_K2 = 2e-4, 1e-4
 ATOL_K3 = RTOL_K3 = 1e-5
+# K4 (tests/test_nce_pallas.py): the loss sum within a relative 2e-5 and
+# each gradient normwise, max|kernel - plain| <= 1e-4 * max|plain|
+RTOL_K4_LOSS, RTOL_K4_GRAD = 2e-5, 1e-4
+# bf16 against f32 final loss at the anchor (tests/test_nce_pallas.py)
+RTOL_BF16_LOSS = 1e-2
 
 # Run in a fresh process: splits `MixedTrainer`'s construction at the e2e
 # shapes into CUDA start-up, moving the modules to the card, the
@@ -169,6 +189,53 @@ def check_collapse(K, rows, ptr, vals, seg, *, num_genes: int, num_groups: int, 
     }
 
 
+def check_nce(K, c, q, e_f, b_f, e_a, b_a, m, *, shape: str) -> dict:
+    """K4 against its plain version on one plane; `max_abs_err` is the
+    largest over the four gradients, the loss is held by its relative
+    error."""
+    (p, d), h = c.shape, e_f.shape[1]
+    got = K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0)
+    want = K.nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, 5.0)
+    # the loss sum in float64 from the same inputs: how far each float32
+    # sum lies from it, in units of the float32 spacing at that value
+    exact = float(K.nce_epoch_plain(*(t.double() for t in (c, q, e_f, b_f, e_a, b_a, m)), 5.0)[0])
+    torch.cuda.synchronize()
+    loss_k, loss_p = float(got[0]), float(want[0])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    ulp = float(np.spacing(np.float32(abs(exact))))
+    errs = [float((g - w).abs().max()) for g, w in zip(got[1:], want[1:])]
+    scales = [float(w.abs().max()) for w in want[1:]]
+    ok = all(bool(torch.isfinite(g).all()) for g in got)
+    if not (ok and loss_rel <= RTOL_K4_LOSS
+            and all(e <= RTOL_K4_GRAD * sc for e, sc in zip(errs, scales))):
+        raise AssertionError(f"nce_epoch at {shape}: loss rel {loss_rel}, grads {errs} vs {scales}")
+    nbytes = p * d * c.element_size() + 4 * (2 * d * h + 3 * d + 2 * p * h + 3 * p)
+    flops = 6 * p * d * h + 20 * p * d
+    bound_ms, bound_by = bound(nbytes, flops)
+    return {
+        "shape": shape, "rows": p, "genes": d, "h": h, "count_dtype": str(c.dtype),
+        "max_abs_err": max(errs), "max_abs_plain": max(scales), "loss_rel_err": loss_rel,
+        "loss_sum": loss_k, "loss_sum_plain": loss_p, "loss_sum_f64": exact, "f32_ulp": ulp,
+        "loss_ulps_from_f64": (loss_k - exact) / ulp, "plain_ulps_from_f64": (loss_p - exact) / ulp,
+        "rtol_loss": RTOL_K4_LOSS, "rtol_grad": RTOL_K4_GRAD,
+        "ms": time_ms(lambda: K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0)),
+        "plain_ms": time_ms(lambda: K.nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, 5.0)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        # no single torch call computes the loss and the four gradients
+        "library_ms": None,
+    }
+
+
+def anchor_counts() -> np.ndarray:
+    """The NCE anchor plane of `bench.py`: 2,627 x 34,008, ~3% occupied,
+    Poisson(2) + 1 at random positions (numpy seed 11)."""
+    rng = np.random.default_rng(11)
+    counts = np.zeros(2_627 * 34_008, np.float32)
+    nnz = int(0.03 * counts.size)
+    counts[rng.integers(0, counts.size, nnz)] = rng.poisson(2.0, nnz) + 1.0
+    return counts.reshape(2_627, 34_008)
+
+
 def production_block(dev):
     """Synthetic block at the largest production shape: 8,192 cells with
     ~1,025 nonzeros each over 34,008 genes (~8.4M nonzeros)."""
@@ -197,10 +264,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support is in beta")
 
+    from legume_tpu_torch.cli.senna_cmds.embed_cmds import BgeArgs, run_bge
     from legume_tpu_torch.data import MemoryBackend, SparseIoVec
     from legume_tpu_torch.data.sim import simulate_topic
     from legume_tpu_torch.data.visitors import visit_columns_by_block
+    from legume_tpu_torch.embedding.nce import NceConfig, _neg_marginal, fit_bge
     from legume_tpu_torch.ops import kernels as K
+    from legume_tpu_torch.ops.sparse import col_ids_from_ptr, densify_block
     from legume_tpu_torch.ops.collapse import MATCHED_CELL_BLOCK, matched_block
     from legume_tpu_torch.ops.knn import matched_neighbors_across_batches
     from legume_tpu_torch.ops.random_projection import block_to_device
@@ -298,6 +368,7 @@ def main() -> int:
     }
     for row in checks["collapse"]:
         row["launches_in_e2e"] = plane_launches[row["shape"]]
+        row["path"] = "senna_topic"
     d, pbasis, prows, pptr, pvals, pseg = production_block(dev)
     production = {
         "project_normed": check_projection(K, pbasis, prows, pptr, pvals, normed=True, shape="production"),
@@ -316,21 +387,152 @@ def main() -> int:
     )
     print(probe.stdout.strip().splitlines()[-1], flush=True)
 
-    # ---- phase 5: the kernels line, then the device line ------------------
+    # ---- phase 5: senna bge end to end -----------------------------------
+    # The same simulated cells without their batches: with batches bge
+    # takes the stratified marginal, which has no kernel.
+    bvec = SparseIoVec()
+    bvec.push(MemoryBackend(sim.counts, sim.row_names, sim.col_names))
+    bargs = BgeArgs()
+    ncfg = NceConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        bargs.out = f"{tmp}/bge"
+        before_bytes = torch.cuda.memory_allocated()  # what the topic phase still holds
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.time()
+        bres = run_bge(bargs, vec=bvec, device=dev)
+        torch.cuda.synchronize()
+        bge_s = time.time() - t0
+        blaunches = dict(K.launch_counts)
+    n_blocks2 = -(-bvec.num_columns // ncfg.cell_batch)
+    k4_expected = bargs.epochs * 1 + n_blocks2 * ncfg.phase2_epochs
+    lat, fe, tl = bres["latent"], bres["feature_embedding"], bres["topic_latent"]
+    p1 = bres["phase1_losses"]
+    tl_err = float(np.abs(np.exp(tl.astype(np.float64)).sum(1) - 1.0).max())
+    print(json.dumps({
+        "phase": "senna_bge", "cells": bvec.num_columns, "genes": bvec.num_rows,
+        "groups": bres["num_groups"], "topics": int(tl.shape[1]), "run_s": bge_s,
+        **bres["timings"], "launches": blaunches, "nce_epoch_expected": k4_expected,
+        "phase1_losses": p1, "phase2_losses_first_last": [bres["phase2_losses"][0],
+                                                          bres["phase2_losses"][-1]],
+        "latent_shape": list(lat.shape), "feature_embedding_shape": list(fe.shape),
+        "topic_latent_simplex_max_err": tl_err,
+        "device_bytes_before": before_bytes,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(), "card": card,
+    }), flush=True)
+    if min(blaunches["project_normed"], blaunches["collapse"], blaunches["nce_epoch"]) == 0:
+        raise AssertionError(f"bge skipped a kernel: {blaunches}")
+    if blaunches["collapse"] != -(-bvec.num_columns // 8192):
+        raise AssertionError(f"bge K3 launches {blaunches['collapse']}: one per 8,192-cell block")
+    if blaunches["nce_epoch"] != k4_expected:
+        raise AssertionError(f"K4 launched {blaunches['nce_epoch']} times, expected {k4_expected}")
+    if lat.shape != (bvec.num_columns, bargs.embed_dim) or not np.isfinite(lat).all():
+        raise AssertionError("bge cell latent is not finite or has the wrong shape")
+    if fe.shape != (bvec.num_rows, bargs.embed_dim) or not np.isfinite(fe).all():
+        raise AssertionError("bge feature embedding is not finite or has the wrong shape")
+    if not p1[-1] < p1[0]:
+        raise AssertionError(f"bge phase-1 loss did not fall: {p1}")
+    if tl_err > 1e-3:
+        raise AssertionError(f"bge topic latent is not a log-simplex: {tl_err}")
+
+    # ---- phase 6: phase 1 at the NCE anchor, f32 and bf16 ------------------
+    acounts = anchor_counts()
+    anchor = {}
+    for dt in ("float32", "bfloat16"):
+        K.reset_launch_counts()
+        t0 = time.time()
+        ares = fit_bge([acounts], config=NceConfig(embedding_dim=16, epochs=1000, compute_dtype=dt),
+                       device=dev)
+        torch.cuda.synchronize()
+        anchor[dt] = ares
+        print(json.dumps({
+            "phase": "nce_anchor", "compute_dtype": dt, "rows": acounts.shape[0],
+            "genes": acounts.shape[1], "h": 16, "epochs": 1000, "fit_s": time.time() - t0,
+            "phase1_s": ares.timings["phase1_s"], "final_loss": ares.phase1_losses[-1],
+            "phase1_losses": ares.phase1_losses, "nce_epoch_launches": K.launch_counts["nce_epoch"],
+            "card": card,
+        }), flush=True)
+        if K.launch_counts["nce_epoch"] != 1000:
+            raise AssertionError(f"anchor {dt}: {K.launch_counts['nce_epoch']} K4 launches")
+    l32, l16 = anchor["float32"].phase1_losses[-1], anchor["bfloat16"].phase1_losses[-1]
+    if not abs(l16 - l32) <= RTOL_BF16_LOSS * abs(l32):
+        raise AssertionError(f"anchor bf16 final loss {l16} vs f32 {l32}")
+
+    # ---- phase 7: K4 against its plain version -----------------------------
+    # The e2e run's phase-1 plane (its groups x 2,000 genes) with its
+    # trained feature side, one of its phase-2 blocks (2,048 cells), and
+    # the anchor plane in f32 and bf16 with that run's trained sides; and
+    # K3 at the bge run's own group plane.
+    def dev32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    fit = bres["result"]
+    pb = bres["pb"]
+    pb_t = dev32(pb)
+    q_pb = dev32(_neg_marginal(pb, ncfg.neg_alpha))
+    e_f, b_f = dev32(fit.e_feat), dev32(fit.b_feat)
+    n_pb = pb.shape[0]
+    blk = next(iter(visit_columns_by_block(bvec, block_size=ncfg.cell_batch)))
+    r, pt, v = block_to_device(blk, dev)
+    x = densify_block(r, col_ids_from_ptr(pt), v, ncols=blk.ncols, num_genes=bvec.num_rows)
+    nb = blk.ncols
+    k4 = [
+        check_nce(K, pb_t, q_pb, e_f, b_f, dev32(fit.pb_embeddings[0]),
+                  dev32(fit.pb_biases[0]), pb_t.sum(1), shape="e2e_phase1_plane"),
+        check_nce(K, x, q_pb, e_f, b_f, dev32(fit.e_cell[:nb]), dev32(fit.b_cell[:nb]),
+                  x.sum(1), shape="e2e_phase2_block"),
+    ]
+    k4[0]["launches_in_e2e"] = bargs.epochs
+    k4[1]["launches_in_e2e"] = n_blocks2 * ncfg.phase2_epochs
+    for row in k4:
+        row["path"] = "senna_bge"
+    ac = dev32(acounts)
+    anchor_checks = []
+    for dt, cdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        ares = anchor[dt]
+        row = check_nce(
+            K, ac.to(cdt), dev32(_neg_marginal(acounts, ncfg.neg_alpha)), dev32(ares.e_feat),
+            dev32(ares.b_feat), dev32(ares.pb_embeddings[0]), dev32(ares.pb_biases[0]),
+            ac.sum(1), shape=f"anchor_{dt}",
+        )
+        row["launches_in_e2e"] = 0
+        row["launches_in_anchor_run"] = 1000
+        row["path"] = "nce_anchor"
+        anchor_checks.append(row)
+    for row in k4 + anchor_checks:
+        print(json.dumps({"kernel_check": "nce_epoch", "card": card, **row}), flush=True)
+    checks["nce_epoch"] = k4 + anchor_checks
+    # K3 in bge: one launch per 8,192-cell block over the sort-dim groups
+    cblk = next(iter(visit_columns_by_block(bvec, block_size=8192)))
+    cr, cp, cv = block_to_device(cblk, dev)
+    cseg = torch.from_numpy(np.asarray(bres["groups"][: cblk.ncols], np.int32)).to(dev)
+    row = check_collapse(K, cr, cp, cv, cseg, num_genes=bvec.num_rows,
+                         num_groups=bres["num_groups"], shape="bge_group_plane")
+    row["launches_in_e2e"] = blaunches["collapse"]
+    row["path"] = "senna_bge"
+    print(json.dumps({"kernel_check": "collapse", "card": card, **row}), flush=True)
+    checks["collapse"].append(row)
+
+    # ---- phase 8: the kernels line, then the device line ------------------
     # Each kernel's numbers are those of its main-path shape with the most
-    # e2e launches; `max_abs_err` is the largest over its main-path shapes,
-    # and `shapes` holds every main-path shape of K3.
+    # e2e launches; `max_abs_err` is the largest over its checked shapes,
+    # and `shapes` holds every checked shape of K3 and K4, each with the
+    # run (`path`) whose launches `launches_in_e2e` counts. `launches` is
+    # the count of the kernel's own main path: `senna topic` for K1-K3,
+    # `senna bge` for K4; `launches_bge` is each kernel's count in bge.
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
         "collapse": ("legume_tpu_torch/csrc/collapse.cu", "legume_tpu/ops/pallas_kernels.py:480"),
+        "nce_epoch": ("legume_tpu_torch/csrc/nce_epoch.cu", "legume_tpu/embedding/nce_pallas.py:101"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         main = max(checks[name], key=lambda r: r.get("launches_in_e2e", 0))
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "launches": blaunches[name] if name == "nce_epoch" else launches[name],
+            "launches_bge": blaunches[name],
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -339,7 +541,8 @@ def main() -> int:
         if len(checks[name]) > 1:
             keep = ("shape", "launches_in_e2e", "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms")
-            entry["shapes"] = [{k: r[k] for k in keep} for r in checks[name]]
+            entry["shapes"] = [{"path": r.get("path"), **{k: r[k] for k in keep}}
+                               for r in checks[name]]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

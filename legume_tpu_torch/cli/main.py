@@ -1,8 +1,10 @@
-"""Command line of the port: `python -m legume_tpu_torch.cli.main senna topic ...`.
+"""Command line of the port: `python -m legume_tpu_torch.cli.main senna
+{topic,bge} ...`.
 
-The flags are those of the JAX package's `senna topic`; the ones the
-port does not carry yet are accepted and raise `NotImplementedError`
-when set. `--device` picks the torch device (default `cuda`).
+The flags are those of the JAX package's `senna topic` and `senna bge`;
+the ones the port does not carry yet are accepted and raise
+`NotImplementedError` when set. `--device` picks the torch device
+(default `cuda`).
 """
 
 from __future__ import annotations
@@ -51,6 +53,30 @@ def _topic_parser(sub):
     return p
 
 
+def _bge_parser(sub):
+    p = sub.add_parser("bge", help="count-NCE joint embedding")
+    p.add_argument("--posterior", type=int, default=0)
+    p.add_argument("--data-files", nargs="+", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--embed-dim", "-d", type=int, default=16)
+    p.add_argument("--epochs", type=int, default=1000)
+    p.add_argument("--sort-dim", type=int, default=8)
+    p.add_argument("--proj-dim", type=int, default=50)
+    p.add_argument("--batch-files", nargs="+", default=None)
+    p.add_argument("--feature-qc", action="store_true")
+    p.add_argument("--hvg-min-excess", type=float, default=0.0)
+    p.add_argument("--min-nnz-rows", type=float, default=0.0)
+    p.add_argument("--multiome", action="store_true")
+    p.add_argument("--bridge-weight", type=float, default=1.0)
+    p.add_argument("--num-topics", type=int, default=0)
+    p.add_argument("--phase1-cells-per-pb", type=int, default=0)
+    p.add_argument("--skip-etm", action="store_true")
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32")
+    p.add_argument("--data-parallel", action="store_true")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    return p
+
+
 def run_senna(argv) -> dict:
     from ..senna.topic import TopicArgs, fit_topic_model
     from ..utils.prng import DEFAULT_PROJECTION_SEED
@@ -58,7 +84,13 @@ def run_senna(argv) -> dict:
     ap = argparse.ArgumentParser(prog="senna")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _topic_parser(sub)
+    _bge_parser(sub)
     a = ap.parse_args(argv)
+    if a.cmd == "bge":
+        from .senna_cmds.embed_cmds import BgeArgs, run_bge
+
+        fields = {k: v for k, v in vars(a).items() if k not in ("cmd", "device")}
+        return run_bge(BgeArgs(**fields), device=a.device)
     if not a.data_files and not a.from_run:
         raise SystemExit("topic: provide --data-files or --from <run prefix>")
     args = TopicArgs(
@@ -84,7 +116,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     logging.basicConfig(level=logging.INFO, format="[%(levelname)s %(name)s] %(message)s")
     if not argv or argv[0] != "senna":
-        print("usage: python -m legume_tpu_torch.cli.main senna topic ...")
+        print("usage: python -m legume_tpu_torch.cli.main senna {topic,bge} ...")
         return 1
     run_senna(argv[1:])
     return 0

@@ -137,3 +137,26 @@ def nb_fisher_weights(
     trend = DispersionTrend.fit(stats.mean, stats.var)
     avg_s = float(stats.mean.sum())
     return trend.fisher_weights(stats.pi, stats.mean, max(avg_s, 1.0)).astype(np.float32)
+
+
+def hvg_feature_qc(
+    counts_rows: np.ndarray,  # [R, D] count rows (cells or pseudobulks)
+    *,
+    min_excess: float = 0.0,
+    min_nnz: float = 0.0,
+) -> np.ndarray:
+    """Feature QC for the NCE engine (`feature_qc.rs` contract): keep
+    genes whose NB dispersion exceeds the fitted mean-dispersion trend by
+    more than `min_excess`, drop genes detected in fewer than `min_nnz`
+    rows, and keep every gene when the cut would drop 95% or more."""
+    x = np.asarray(counts_rows, np.float64)
+    mu = x.mean(axis=0)
+    var = x.var(axis=0)
+    nnz = (x > 0).sum(axis=0)
+    trend = DispersionTrend.fit(mu, var)
+    keep = trend.excess(mu, var) > min_excess
+    if min_nnz > 0:
+        keep &= nnz >= min_nnz
+    if keep.sum() < 0.05 * keep.size:
+        return np.ones(keep.size, bool)
+    return keep

@@ -6,6 +6,7 @@ torch versions.
 | `project(normed)`  | csrc/project.cu    | ops/pallas_kernels.py:352 `tiled_call` (K1)          |
 | `project(raw)`     | csrc/project.cu    | ops/pallas_kernels.py:93 `coo_project_pallas` (K2)   |
 | `collapse`         | csrc/collapse.cu   | ops/pallas_kernels.py:480 `collapse_tiled_call` (K3) |
+| `nce_epoch`        | csrc/nce_epoch.cu  | embedding/nce_pallas.py:101 `_epoch_call` (K4)       |
 
 The sources compile with nvcc for `sm_90a` into shared libraries with a
 plain C interface, at first use, into `legume_tpu_torch/_build/`, and
@@ -31,11 +32,12 @@ from .sparse import col_ids_from_ptr, collapse_block, project_block, project_blo
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("project", "collapse")
+SOURCES = ("project", "collapse", "nce_epoch")
 MAX_K = 128
+MAX_H = 128
 
 # launches per kernel; `chip_smoke.py` zeroes them before the main path
-launch_counts = {"project_normed": 0, "project_raw": 0, "collapse": 0}
+launch_counts = {"project_normed": 0, "project_raw": 0, "collapse": 0, "nce_epoch": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -92,15 +94,26 @@ def build_kernels() -> dict[str, str]:
     return reports
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry points of each source: symbol -> (argtypes, restype)
+_ENTRIES = {
+    "project": {"legume_project": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I)},
+    "collapse": {"legume_collapse": ([_P, _P, _P, _P, _P, _I, _I, _P], _I)},
+    "nce_epoch": {
+        "legume_nce_epoch": ([_P, _I] + [_P] * 6 + [_F, _I, _I, _I] + [_P] * 7, _I),
+        "legume_nce_epoch_scratch": ([_I, _I, _I], ctypes.c_longlong),
+    },
+}
+
+
 def _load(name: str, path: Path) -> ctypes.CDLL:
+    if name not in _ENTRIES:
+        raise KeyError(f"no C entry points declared for kernel source {name!r}")
     lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    if name == "project":
-        lib.legume_project.argtypes = [p, p, p, p, p, i, i, i, p]
-        lib.legume_project.restype = i
-    else:
-        lib.legume_collapse.argtypes = [p, p, p, p, p, i, i, p]
-        lib.legume_collapse.restype = i
+    for symbol, (argtypes, restype) in _ENTRIES[name].items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib
 
 
@@ -152,6 +165,19 @@ def collapse_plain(row_ids, col_ptr, vals, seg_of_col, *, num_genes: int, num_gr
     return collapse_block(
         row_ids, col_ids, vals, seg_of_col, num_genes=num_genes, num_groups=num_groups
     )
+
+
+def nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, k_neg: float):
+    """The closed form of K4 in torch ops: `(loss_sum, g_ef, g_bf, g_ea,
+    g_ba)`, unscaled. softplus is max(s, 0) + log1p(exp(-|s|)), which is
+    `jax.nn.softplus`; torch's own thresholds at 20."""
+    s = e_a @ e_f.T + b_f[None, :] + b_a[:, None]
+    c32 = c.float()
+    a = c32 + k_neg * (m[:, None] * q[None, :])
+    softplus = torch.clamp_min(s, 0.0) + torch.log1p(torch.exp(-s.abs()))
+    loss = (c32 * s - a * softplus).sum()
+    g_s = c32 - a * torch.sigmoid(s)
+    return loss, g_s.T @ e_a, g_s.sum(0), g_s @ e_f, g_s.sum(1)
 
 
 # ----------------------------------------------------------------------------
@@ -234,3 +260,52 @@ def collapse(
     _raise_on(err, "collapse")
     launch_counts["collapse"] += 1
     return out
+
+
+def nce_epoch(
+    c: torch.Tensor,  # [P, D] f32 or bf16 counts
+    q: torch.Tensor,  # [D] f32 negative marginal
+    e_f: torch.Tensor,  # [D, H] f32, H <= 128
+    b_f: torch.Tensor,  # [D] f32
+    e_a: torch.Tensor,  # [P, H] f32
+    b_a: torch.Tensor,  # [P] f32
+    m: torch.Tensor,  # [P] f32 row masses
+    k_neg: float,
+):
+    """`(loss_sum [], g_ef [D, H], g_bf [D], g_ea [P, H], g_ba [P])` of
+    one expected-NCE epoch, unscaled (K4)."""
+    if c.device.type == "cpu":
+        return nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, k_neg)
+    _require_cuda(c, "nce_epoch")
+    dev = c.device
+    if c.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"c has dtype {c.dtype}, expected float32 or bfloat16")
+    if c.dim() != 2 or not c.is_contiguous():
+        raise ValueError("c must be a contiguous [P, D] plane")
+    p, d = c.shape
+    h = e_f.shape[-1]
+    if not 1 <= h <= MAX_H:
+        raise ValueError(f"embedding width {h} is outside [1, {MAX_H}]")
+    if p < 1 or d < 1:
+        raise ValueError(f"count plane {tuple(c.shape)} is empty")
+    for what, t, shape in (("q", q, (d,)), ("e_f", e_f, (d, h)), ("b_f", b_f, (d,)),
+                           ("e_a", e_a, (p, h)), ("b_a", b_a, (p,)), ("m", m, (p,))):
+        _check(t, what, torch.float32, dev, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {shape}")
+    lib = _lib("nce_epoch")
+    scratch = torch.empty(lib.legume_nce_epoch_scratch(p, d, h), dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    g_ef = torch.empty(d, h, dtype=torch.float32, device=dev)
+    g_bf = torch.empty(d, dtype=torch.float32, device=dev)
+    g_ea = torch.empty(p, h, dtype=torch.float32, device=dev)
+    g_ba = torch.empty(p, dtype=torch.float32, device=dev)
+    err = lib.legume_nce_epoch(
+        c.data_ptr(), int(c.dtype == torch.bfloat16), q.data_ptr(), e_f.data_ptr(),
+        b_f.data_ptr(), e_a.data_ptr(), b_a.data_ptr(), m.data_ptr(), float(k_neg), p, d, h,
+        scratch.data_ptr(), loss.data_ptr(), g_ef.data_ptr(), g_bf.data_ptr(), g_ea.data_ptr(),
+        g_ba.data_ptr(), _stream(dev),
+    )
+    _raise_on(err, "nce_epoch")
+    launch_counts["nce_epoch"] += 1
+    return loss, g_ef, g_bf, g_ea, g_ba

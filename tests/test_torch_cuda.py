@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1, K2, K3) against their plain torch
-versions on the card, and the `senna topic` slice on the card against
-the same slice on the CPU.
+"""The port's CUDA kernels (K1, K2, K3, K4) against their plain torch
+versions on the card, and the `senna topic` and `fit_bge` slices on the
+card against the same slices on the CPU.
 
 Marked `cuda`: without a CUDA device every test skips. On a machine with
 one, run them (the JAX package need not be installed there) with
@@ -16,6 +16,7 @@ import torch
 from legume_tpu_torch.data import MemoryBackend, SparseIoVec
 from legume_tpu_torch.data.sim import simulate_topic
 from legume_tpu_torch.data.visitors import csc_to_coo_block
+from legume_tpu_torch.embedding.nce import NceConfig, fit_bge
 from legume_tpu_torch.ops import kernels
 from legume_tpu_torch.senna import topic as ttopic
 
@@ -124,3 +125,73 @@ def test_slice_on_the_card_matches_the_cpu(dev, tmp_path):
     assert z.shape == (600, 4) and np.isfinite(z).all()
     np.testing.assert_allclose(np.exp(z.astype(np.float64)).sum(1), 1.0, atol=1e-3)
     assert np.isfinite(gpu["scores"].llik).all()
+
+
+def _nce_inputs(dev, p, d, h, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    counts = torch.poisson(torch.full((p, d), 1.5), generator=g)
+    q = counts.sum(0) ** 0.75
+    q = q / q.sum()
+    t = [counts.to(dtype), q, 0.1 * torch.randn(d, h, generator=g),
+         0.01 * torch.randn(d, generator=g), 0.1 * torch.randn(p, h, generator=g),
+         0.01 * torch.randn(p, generator=g), counts.sum(1)]
+    return [x.to(dev).contiguous() for x in t]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 16, 128])
+@pytest.mark.parametrize("p,d", [(37, 200), (300, 1000)])
+def test_nce_epoch_kernel_matches_plain(dev, p, d, h, dtype):
+    """P and D that divide neither the 32-row chunk nor the 128-gene tile;
+    loss within a relative 2e-5, gradients normwise within 1e-4 (the
+    tolerances of tests/test_nce_pallas.py)."""
+    args = _nce_inputs(dev, p, d, h, dtype)
+    before = kernels.launch_counts["nce_epoch"]
+    got = kernels.nce_epoch(*args, 5.0)
+    want = kernels.nce_epoch_plain(*args, 5.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["nce_epoch"] == before + 1
+    assert abs(float(got[0]) - float(want[0])) <= 2e-5 * abs(float(want[0]))
+    for g_, w in zip(got[1:], want[1:]):
+        assert g_.shape == w.shape and bool(torch.isfinite(g_).all())
+        assert float((g_ - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    again = kernels.nce_epoch(*args, 5.0)  # deterministic: no atomics
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_nce_epoch_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    args = _nce_inputs(dev, 20, 50, 16, torch.float32)
+    with pytest.raises(TypeError):
+        kernels.nce_epoch(args[0].half(), *args[1:], 5.0)
+    with pytest.raises(TypeError):
+        kernels.nce_epoch(args[0], args[1].double(), *args[2:], 5.0)
+    with pytest.raises(ValueError):
+        kernels.nce_epoch(args[0], args[1][:-1].contiguous(), *args[2:], 5.0)
+    with pytest.raises(ValueError):
+        kernels.nce_epoch(args[0].T.contiguous().T, *args[1:], 5.0)
+    wide = _nce_inputs(dev, 20, 50, 129, torch.float32)
+    with pytest.raises(ValueError):
+        kernels.nce_epoch(*wide, 5.0)
+    with pytest.raises(ValueError):
+        kernels.nce_epoch(args[0], args[1].cpu(), *args[2:], 5.0)
+
+
+def test_fit_bge_on_the_card_matches_the_cpu(dev):
+    """Phase 1 through K4 on the card against the plain version on the
+    CPU, at the bar of tests/test_nce_pallas.py (embeddings atol 2e-4,
+    losses rtol 1e-4); phase 2 on a 600-cell backend likewise."""
+    vec = _small_vec()
+    x = vec.read_columns_csc(np.arange(vec.num_columns))
+    pb = np.stack([np.asarray(x[:, i::23].sum(1)).ravel() for i in range(23)]).astype(np.float32)
+    cfg = NceConfig(embedding_dim=6, epochs=40, learning_rate=0.05, seed=3, cell_batch=256,
+                    phase2_epochs=20)
+    kernels.reset_launch_counts()
+    gpu = fit_bge([pb], data=vec, config=cfg, device=dev)
+    assert kernels.launch_counts["nce_epoch"] == 40 + 3 * 20
+    cpu = fit_bge([pb], data=vec, config=cfg, device="cpu")
+    np.testing.assert_allclose(gpu.e_feat, cpu.e_feat, atol=2e-4)
+    np.testing.assert_allclose(gpu.pb_embeddings[0], cpu.pb_embeddings[0], atol=2e-4)
+    np.testing.assert_allclose(gpu.phase1_losses, cpu.phase1_losses, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(gpu.e_cell, cpu.e_cell, atol=2e-4)
+    np.testing.assert_allclose(gpu.phase2_losses, cpu.phase2_losses, rtol=1e-4)

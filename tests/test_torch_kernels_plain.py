@@ -181,7 +181,14 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError):
         kernels.collapse(rows, ptr, vals, torch.empty(2, dtype=torch.int32, device=dev),
                          num_genes=10, num_groups=2)
-    assert kernels.launch_counts == {"project_normed": 0, "project_raw": 0, "collapse": 0}
+    with pytest.raises(ValueError):
+        kernels.nce_epoch(torch.empty(3, 10, device=dev), torch.empty(10, device=dev),
+                          torch.empty(10, 4, device=dev), torch.empty(10, device=dev),
+                          torch.empty(3, 4, device=dev), torch.empty(3, device=dev),
+                          torch.empty(3, device=dev), 5.0)
+    assert kernels.launch_counts == {
+        "project_normed": 0, "project_raw": 0, "collapse": 0, "nce_epoch": 0,
+    }
 
 
 def test_cpu_path_takes_any_width():
