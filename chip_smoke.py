@@ -39,6 +39,13 @@ Phases (any failure exits non-zero; nothing is caught):
    and time both;
 8. print one JSON line of all kernels, then the device line last.
 
+Every kernel check launches the kernel twice on the same inputs and
+fails unless the two results are bit-equal (`deterministic`). Times are
+the guide's method: CUDA events around REPS back-to-back calls, divided
+by REPS, after warm-up; kernel, plain version and library call are timed
+in turns (ROUNDS rounds of each, in that order) and each reports the
+median of its rounds.
+
 TF32 is off for matmuls and cuDNN: every float32 product runs in full
 float32, as the reference package computes it.
 """
@@ -58,7 +65,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-WARMUP, REPS = 3, 15
+WARMUP, REPS, ROUNDS = 3, 20, 3
 
 # tolerances: normwise max|kernel - plain| / max|plain| for the
 # projections (sums with cancellation), elementwise for the collapse
@@ -106,19 +113,35 @@ def device_line() -> str:
 
 
 def time_ms(fn) -> float:
-    """Median of REPS single-call times by CUDA events, after warm-up."""
+    """Milliseconds per call: CUDA events around REPS back-to-back calls,
+    divided by REPS, after WARMUP calls."""
     for _ in range(WARMUP):
         fn()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
     for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / REPS
+
+
+def time_turns(**fns) -> dict:
+    """`time_ms` of each function in turns, ROUNDS rounds; the median of
+    each one's rounds (None for a missing function)."""
+    rounds = {name: [] for name, fn in fns.items() if fn is not None}
+    for _ in range(ROUNDS):
+        for name in rounds:
+            rounds[name].append(time_ms(fns[name]))
+    return {name: (float(np.median(rounds[name])) if name in rounds else None) for name in fns}
+
+
+def bit_equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -130,14 +153,18 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 def check_projection(K, basis, rows, ptr, vals, *, normed: bool, shape: str) -> dict:
     nnz, ncols, (d, k) = rows.shape[0], ptr.shape[0] - 1, basis.shape
     got = K.project(basis, rows, ptr, vals, normed=normed)
+    again = K.project(basis, rows, ptr, vals, normed=normed)
     want = K.project_plain(basis, rows, ptr, vals, normed=normed)
     torch.cuda.synchronize()
+    deterministic = bit_equal(got, again)
+    if not deterministic:
+        raise AssertionError(f"project(normed={normed}) at {shape}: two launches differ")
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     rtol = RTOL_K1 if normed else RTOL_K2
     if not (torch.isfinite(got).all() and err <= rtol * scale):
         raise AssertionError(f"project(normed={normed}) at {shape}: err {err} vs scale {scale}")
-    library_ms = None
+    library = None
     if not normed:  # the same function as one CSR x dense product
         csr = torch.sparse_csr_tensor(
             ptr.long(), rows.long(), vals, size=(ncols, d), check_invariants=True
@@ -145,16 +172,19 @@ def check_projection(K, basis, rows, ptr, vals, *, normed: bool, shape: str) -> 
         lib = torch.sparse.mm(csr, basis)
         if float((lib - want).abs().max()) > rtol * scale:
             raise AssertionError("torch.sparse.mm disagrees with the plain projection")
-        library_ms = time_ms(lambda: torch.sparse.mm(csr, basis))
+        library = lambda: torch.sparse.mm(csr, basis)  # noqa: E731
+    times = time_turns(
+        ms=lambda: K.project(basis, rows, ptr, vals, normed=normed),
+        plain_ms=lambda: K.project_plain(basis, rows, ptr, vals, normed=normed),
+        library_ms=library,
+    )
     nbytes = nnz * 8 + (ncols + 1) * 4 + d * k * 4 + ncols * k * 4
     flops = nnz * k * 2 + (nnz * 3 if normed else 0)
     bound_ms, bound_by = bound(nbytes, flops)
     return {
         "shape": shape, "nnz": nnz, "ncols": ncols, "genes": d, "k": k,
         "max_abs_err": err, "max_abs_plain": scale, "rtol": rtol,
-        "ms": time_ms(lambda: K.project(basis, rows, ptr, vals, normed=normed)),
-        "plain_ms": time_ms(lambda: K.project_plain(basis, rows, ptr, vals, normed=normed)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "deterministic": deterministic, **times, "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
 
@@ -163,7 +193,15 @@ def check_collapse(K, rows, ptr, vals, seg, *, num_genes: int, num_groups: int, 
     kw = dict(num_genes=num_genes, num_groups=num_groups)
     got = K.collapse(rows, ptr, vals, seg, **kw)
     want = K.collapse_plain(rows, ptr, vals, seg, **kw)
+    # counts are whole numbers, whose float sums come out the same in any
+    # order; the same entries scaled off the integers make the bit-equal
+    # check see the order of the sums
+    frac = vals * torch.linspace(0.3, 1.7, vals.shape[0], device=vals.device)
+    deterministic = bit_equal(K.collapse(rows, ptr, frac, seg, **kw),
+                              K.collapse(rows, ptr, frac, seg, **kw))
     torch.cuda.synchronize()
+    if not deterministic:
+        raise AssertionError(f"collapse at {shape}: two launches differ")
     err = float((got - want).abs().max())
     if not bool(((got - want).abs() <= ATOL_K3 + RTOL_K3 * want.abs()).all()):
         raise AssertionError(f"collapse at {shape}: max err {err}")
@@ -181,11 +219,14 @@ def check_collapse(K, rows, ptr, vals, seg, *, num_genes: int, num_groups: int, 
     bound_ms, bound_by = bound(nbytes, nnz)
     return {
         "shape": shape, "nnz": nnz, "ncols": ncols, "genes": num_genes, "groups": num_groups,
-        "max_abs_err": err, "atol": ATOL_K3, "rtol": RTOL_K3,
-        "ms": time_ms(lambda: K.collapse(rows, ptr, vals, seg, **kw)),
-        "plain_ms": time_ms(lambda: K.collapse_plain(rows, ptr, vals, seg, **kw)),
+        "max_abs_err": err, "atol": ATOL_K3, "rtol": RTOL_K3, "deterministic": deterministic,
+        "plan": K.collapse_plan(ncols, num_genes, num_groups).__dict__,
+        **time_turns(
+            ms=lambda: K.collapse(rows, ptr, vals, seg, **kw),
+            plain_ms=lambda: K.collapse_plain(rows, ptr, vals, seg, **kw),
+            library_ms=lambda: flat.zero_().index_add_(0, keys, kv),
+        ),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": time_ms(lambda: flat.zero_().index_add_(0, keys, kv)),
     }
 
 
@@ -195,11 +236,15 @@ def check_nce(K, c, q, e_f, b_f, e_a, b_a, m, *, shape: str) -> dict:
     error."""
     (p, d), h = c.shape, e_f.shape[1]
     got = K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0)
+    again = K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0)
     want = K.nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, 5.0)
     # the loss sum in float64 from the same inputs: how far each float32
     # sum lies from it, in units of the float32 spacing at that value
     exact = float(K.nce_epoch_plain(*(t.double() for t in (c, q, e_f, b_f, e_a, b_a, m)), 5.0)[0])
     torch.cuda.synchronize()
+    deterministic = bit_equal(got, again)
+    if not deterministic:
+        raise AssertionError(f"nce_epoch at {shape}: two launches differ")
     loss_k, loss_p = float(got[0]), float(want[0])
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     ulp = float(np.spacing(np.float32(abs(exact))))
@@ -217,12 +262,14 @@ def check_nce(K, c, q, e_f, b_f, e_a, b_a, m, *, shape: str) -> dict:
         "max_abs_err": max(errs), "max_abs_plain": max(scales), "loss_rel_err": loss_rel,
         "loss_sum": loss_k, "loss_sum_plain": loss_p, "loss_sum_f64": exact, "f32_ulp": ulp,
         "loss_ulps_from_f64": (loss_k - exact) / ulp, "plain_ulps_from_f64": (loss_p - exact) / ulp,
-        "rtol_loss": RTOL_K4_LOSS, "rtol_grad": RTOL_K4_GRAD,
-        "ms": time_ms(lambda: K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0)),
-        "plain_ms": time_ms(lambda: K.nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, 5.0)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        "rtol_loss": RTOL_K4_LOSS, "rtol_grad": RTOL_K4_GRAD, "deterministic": deterministic,
         # no single torch call computes the loss and the four gradients
-        "library_ms": None,
+        **time_turns(
+            ms=lambda: K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0),
+            plain_ms=lambda: K.nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, 5.0),
+            library_ms=None,
+        ),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
     }
 
 
@@ -273,7 +320,7 @@ def main() -> int:
     from legume_tpu_torch.ops.sparse import col_ids_from_ptr, densify_block
     from legume_tpu_torch.ops.collapse import MATCHED_CELL_BLOCK, matched_block
     from legume_tpu_torch.ops.knn import matched_neighbors_across_batches
-    from legume_tpu_torch.ops.random_projection import block_to_device
+    from legume_tpu_torch.ops.random_projection import block_to_device, projection_basis
     from legume_tpu_torch.senna.topic import TopicArgs, fit_topic_model
 
     dev = torch.device("cuda")
@@ -354,9 +401,18 @@ def main() -> int:
     }
     if sum(plane_launches.values()) != launches["collapse"]:
         raise AssertionError(f"K3 launches {launches['collapse']} are not {plane_launches}")
+    # K = 200 (past the first design's cap of 128): the same block with
+    # the port's seeded basis at that width
+    wide = torch.from_numpy(projection_basis(d_e2e, 200, 7)).to(dev)
     checks = {
-        "project_normed": [check_projection(K, basis, rows, ptr, vals, normed=True, shape="e2e_block")],
-        "project_raw": [check_projection(K, basis, rows, ptr, vals, normed=False, shape="e2e_block")],
+        "project_normed": [
+            check_projection(K, basis, rows, ptr, vals, normed=True, shape="e2e_block"),
+            check_projection(K, wide, rows, ptr, vals, normed=True, shape="e2e_block_k200"),
+        ],
+        "project_raw": [
+            check_projection(K, basis, rows, ptr, vals, normed=False, shape="e2e_block"),
+            check_projection(K, wide, rows, ptr, vals, normed=False, shape="e2e_block_k200"),
+        ],
         "collapse": [
             check_collapse(K, rows, ptr, vals, seg, num_genes=d_e2e, num_groups=n_fine,
                            shape="group_plane"),
@@ -369,6 +425,10 @@ def main() -> int:
     for row in checks["collapse"]:
         row["launches_in_e2e"] = plane_launches[row["shape"]]
         row["path"] = "senna_topic"
+    for name in ("project_normed", "project_raw"):
+        for row in checks[name]:
+            row["launches_in_e2e"] = launches[name] if row["shape"] == "e2e_block" else 0
+            row["path"] = "senna_topic"
     d, pbasis, prows, pptr, pvals, pseg = production_block(dev)
     production = {
         "project_normed": check_projection(K, pbasis, prows, pptr, pvals, normed=True, shape="production"),
@@ -377,8 +437,11 @@ def main() -> int:
                                    shape="production"),
     }
     for name, rows_ in checks.items():
+        production[name]["launches_in_e2e"] = 0
+        production[name]["path"] = "production_shape"
         for row in rows_ + [production[name]]:
             print(json.dumps({"kernel_check": name, "card": card, **row}), flush=True)
+        rows_.append(production[name])
 
     # ---- phase 4: where the trainer's construction spends its time ---------
     probe = subprocess.run(
@@ -534,13 +597,14 @@ def main() -> int:
             "launches": blaunches[name] if name == "nce_epoch" else launches[name],
             "launches_bge": blaunches[name],
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
+            "deterministic": all(r["deterministic"] for r in checks[name]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
         }
         if len(checks[name]) > 1:
-            keep = ("shape", "launches_in_e2e", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")
+            keep = ("shape", "launches_in_e2e", "max_abs_err", "deterministic", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")
             entry["shapes"] = [{"path": r.get("path"), **{k: r[k] for k in keep}}
                                for r in checks[name]]
         kernels.append(entry)

@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -33,8 +34,24 @@ from .sparse import col_ids_from_ptr, collapse_block, project_block, project_blo
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("project", "collapse", "nce_epoch")
-MAX_K = 128
 MAX_H = 128
+SMEM_BYTES = 232_448  # shared memory one CTA may use on an H100 (sm_90)
+
+# csrc/collapse.cu: 8 warps a CTA, each with a private gene column
+COLLAPSE_WARPS = 8
+COLLAPSE_SMEM = 98_304  # per CTA, so that two fit on an SM
+COLLAPSE_PARTIAL_BYTES = 8 << 20  # most scratch the chunk partials may take
+COLLAPSE_MIN_CHUNK_CELLS = 64
+COLLAPSE_TARGET_CTAS = 132  # the few-group path's chunks fill an H100's 132 SMs
+COLLAPSE_ITEMS = 2048  # items the many-group path aims at (a warp each)
+COLLAPSE_COLBUF_BYTES = 32 << 20  # scratch its item columns should stay under
+COLLAPSE_MAX_CAP = 32
+# csrc/project.cu: 128 cells x 16 basis columns a CTA; gene tiles of 1,536
+# rows, double-buffered, once a 16-column slice of the basis overflows
+# shared memory (above 3,632 genes)
+PROJECT_SLICE = 16
+PROJECT_CELLS_PER_CTA = 128
+PROJECT_GENE_TILE = 1536
 
 # launches per kernel; `chip_smoke.py` zeroes them before the main path
 launch_counts = {"project_normed": 0, "project_raw": 0, "collapse": 0, "nce_epoch": 0}
@@ -97,8 +114,11 @@ def build_kernels() -> dict[str, str]:
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C entry points of each source: symbol -> (argtypes, restype)
 _ENTRIES = {
-    "project": {"legume_project": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I)},
-    "collapse": {"legume_collapse": ([_P, _P, _P, _P, _P, _I, _I, _P], _I)},
+    "project": {"legume_project": ([_P] * 9 + [_I] * 6 + [_P], _I)},
+    "collapse": {
+        "legume_collapse": ([_P] * 6 + [_I] * 8 + [_P], _I),
+        "legume_collapse_scratch": ([_I] * 5, ctypes.c_longlong),
+    },
     "nce_epoch": {
         "legume_nce_epoch": ([_P, _I] + [_P] * 6 + [_F, _I, _I, _I] + [_P] * 7, _I),
         "legume_nce_epoch_scratch": ([_I, _I, _I], ctypes.c_longlong),
@@ -148,6 +168,94 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ----------------------------------------------------------------------------
+# launch plans: how a wrapper cuts its call into CTAs, from the shape alone
+# (so the sum order, and the result, is the same for the same inputs on
+# any card)
+# ----------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CollapsePlan:
+    """K3's grid. Few groups (`cap == 0`): a CTA holds
+    `COLLAPSE_WARPS // replicas` group slots of `gene_tile` genes; the
+    warps of one slot split its cells by index (replica r takes cell c of
+    a chunk when (c - chunk start) % replicas == r); chunk i covers cells
+    [i * chunk_cells, (i + 1) * chunk_cells), and with more than one
+    chunk each writes a partial plane that a second kernel adds into
+    `out` in chunk order. Many groups (`cap >= 1`): the kept cells
+    are ordered by group, then by index, and each group's run is cut into
+    items of at most `cap` cells, a warp each, whose columns a last
+    kernel adds into `out` in item order."""
+
+    replicas: int
+    gene_tile: int
+    gene_tiles: int
+    group_tiles: int
+    chunk_cells: int
+    chunks: int
+    cap: int
+
+    @property
+    def slots(self) -> int:
+        return COLLAPSE_WARPS // self.replicas
+
+
+def collapse_plan(ncols: int, num_genes: int, num_groups: int) -> CollapsePlan:
+    """Few groups (< 8): every warp of a CTA takes a share of one group's
+    cells, and chunks of cells fill the card. Many groups: items of about
+    `ncols / COLLAPSE_ITEMS` cells, larger where the item columns would
+    outgrow `COLLAPSE_COLBUF_BYTES`, so that skewed group sizes stay
+    balanced. The gene column is cut into tiles that fit shared memory."""
+    if min(ncols, num_genes, num_groups) < 1:
+        raise ValueError(f"empty collapse: {ncols} cells, {num_genes} genes, {num_groups} groups")
+    max_tile = (COLLAPSE_SMEM // 4 // COLLAPSE_WARPS - 4) // 32 * 32
+    gene_tile = min(max_tile, _cdiv(num_genes, 32) * 32)
+    gene_tiles = _cdiv(num_genes, gene_tile)
+    if num_groups >= COLLAPSE_WARPS:
+        cap = max(_cdiv(ncols, COLLAPSE_ITEMS), _cdiv(4 * ncols * num_genes, COLLAPSE_COLBUF_BYTES))
+        return CollapsePlan(1, gene_tile, gene_tiles, _cdiv(num_groups, COLLAPSE_WARPS), ncols, 1,
+                            min(max(cap, 2), COLLAPSE_MAX_CAP))
+    replicas = COLLAPSE_WARPS // (1 << (num_groups - 1).bit_length())
+    group_tiles = _cdiv(num_groups, COLLAPSE_WARPS // replicas)
+    base = gene_tiles * group_tiles
+    chunks = max(1, min(
+        COLLAPSE_TARGET_CTAS // base,
+        COLLAPSE_PARTIAL_BYTES // (4 * num_genes * num_groups),
+        ncols // COLLAPSE_MIN_CHUNK_CELLS,
+    ))
+    chunk_cells = _cdiv(ncols, chunks)
+    return CollapsePlan(replicas, gene_tile, gene_tiles, group_tiles, chunk_cells,
+                        _cdiv(ncols, chunk_cells), 0)
+
+
+@dataclass(frozen=True)
+class ProjectPlan:
+    """K1/K2's grid: `cell_tiles` x `slices` CTAs, each with
+    `PROJECT_CELLS_PER_CTA` cells and `PROJECT_SLICE` basis columns,
+    walking `gene_tiles` tiles of `gene_tile` basis rows in order."""
+
+    slices: int
+    gene_tile: int
+    gene_tiles: int
+    cell_tiles: int
+
+
+def project_plan(ncols: int, num_genes: int, k: int) -> ProjectPlan:
+    if min(num_genes, k) < 1:
+        raise ValueError(f"empty projection: {num_genes} genes, width {k}")
+    if num_genes * PROJECT_SLICE * 4 <= SMEM_BYTES:
+        gene_tile = num_genes
+    else:
+        gene_tile = PROJECT_GENE_TILE
+    return ProjectPlan(_cdiv(k, PROJECT_SLICE), gene_tile, _cdiv(num_genes, gene_tile),
+                       _cdiv(max(ncols, 0), PROJECT_CELLS_PER_CTA))
+
+
 # ----------------------------------------------------------------------------
 # plain versions (the CPU path, and what the kernels are held against)
 # ----------------------------------------------------------------------------
@@ -186,7 +294,7 @@ def nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, k_neg: float):
 
 
 def project(
-    basis_dk: torch.Tensor,  # [D, K] f32, K <= 128
+    basis_dk: torch.Tensor,  # [D, K] f32, any K >= 1
     row_ids: torch.Tensor,  # [nnz] int32
     col_ptr: torch.Tensor,  # [ncols + 1] int32
     vals: torch.Tensor,  # [nnz] f32
@@ -203,16 +311,26 @@ def project(
     _check(row_ids, "row_ids", torch.int32, dev, 1)
     _check(col_ptr, "col_ptr", torch.int32, dev, 1)
     _check(vals, "vals", torch.float32, dev, 1)
-    k = basis_dk.shape[1]
-    if k > MAX_K:
-        raise ValueError(f"projection width {k} exceeds {MAX_K}")
+    d, k = basis_dk.shape
     if row_ids.shape != vals.shape:
         raise ValueError("row_ids and vals differ in length")
     ncols = col_ptr.shape[0] - 1
+    plan = project_plan(ncols, d, k)
     out = torch.empty(ncols, k, dtype=torch.float32, device=dev)
+    if ncols == 0:  # no cells, and no launch
+        return out
+    # scratch of the pre-pass: log1p weights and row norms; each gene
+    # tile's first entry per cell, and whether the cell's genes increase
+    wts = torch.empty(vals.shape[0] if normed else 0, dtype=torch.float32, device=dev)
+    norm = torch.empty(ncols if normed else 0, dtype=torch.float32, device=dev)
+    tiled = plan.gene_tiles > 1
+    bounds = torch.empty(ncols * (plan.gene_tiles + 1) if tiled else 0, dtype=torch.int32,
+                         device=dev)
+    inc = torch.empty(ncols if tiled else 0, dtype=torch.int32, device=dev)
     err = _lib("project").legume_project(
         row_ids.data_ptr(), col_ptr.data_ptr(), vals.data_ptr(), basis_dk.data_ptr(),
-        out.data_ptr(), ncols, k, int(normed), _stream(dev),
+        out.data_ptr(), wts.data_ptr(), norm.data_ptr(), bounds.data_ptr(), inc.data_ptr(), ncols, d, k,
+        int(normed), plan.gene_tile, plan.gene_tiles, _stream(dev),
     )
     _raise_on(err, "project")
     launch_counts["project_normed" if normed else "project_raw"] += 1
@@ -253,9 +371,16 @@ def collapse(
         _check(out, "out", torch.float32, dev, 2)
         if tuple(out.shape) != (num_genes, num_groups):
             raise ValueError(f"out has shape {tuple(out.shape)}, expected {(num_genes, num_groups)}")
-    err = _lib("collapse").legume_collapse(
+    if ncols == 0:  # nothing to add, and no launch
+        return out
+    plan = collapse_plan(ncols, num_genes, num_groups)
+    lib = _lib("collapse")
+    words = lib.legume_collapse_scratch(ncols, num_genes, num_groups, plan.chunks, plan.cap)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    err = lib.legume_collapse(
         row_ids.data_ptr(), col_ptr.data_ptr(), vals.data_ptr(), seg_of_col.data_ptr(),
-        out.data_ptr(), ncols, num_groups, _stream(dev),
+        out.data_ptr(), scratch.data_ptr(), ncols, num_genes, num_groups, plan.replicas,
+        plan.gene_tile, plan.chunk_cells, plan.chunks, plan.cap, _stream(dev),
     )
     _raise_on(err, "collapse")
     launch_counts["collapse"] += 1

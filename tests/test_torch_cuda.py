@@ -18,6 +18,7 @@ from legume_tpu_torch.data.sim import simulate_topic
 from legume_tpu_torch.data.visitors import csc_to_coo_block
 from legume_tpu_torch.embedding.nce import NceConfig, fit_bge
 from legume_tpu_torch.ops import kernels
+from legume_tpu_torch.ops import random_projection as rp
 from legume_tpu_torch.senna import topic as ttopic
 
 pytestmark = pytest.mark.cuda
@@ -44,38 +45,170 @@ def _to(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
-@pytest.mark.parametrize("k", [7, 32, 50, 128])
-@pytest.mark.parametrize("normed", [True, False])
-def test_project_kernel_matches_plain(dev, k, normed):
-    blk, rng = _block(500, 300, 0.2, k)
-    basis = rng.standard_normal((500, k)).astype(np.float32)
-    b, rows, ptr, vals = _to(dev, basis, blk.row_ids, blk.col_ptr, blk.vals)
-    before = dict(kernels.launch_counts)
-    got = kernels.project(b, rows, ptr, vals, normed=normed)
-    want = kernels.project_plain(b, rows, ptr, vals, normed=normed)
-    torch.cuda.synchronize()
+def _shuffle_cells(blk, rng):
+    """The same block with the entries of each cell in a random order."""
+    rows, vals = blk.row_ids.copy(), blk.vals.copy()
+    for c in range(blk.ncols):
+        lb, ub = blk.col_ptr[c], blk.col_ptr[c + 1]
+        perm = lb + rng.permutation(ub - lb)
+        rows[lb:ub], vals[lb:ub] = rows[perm], vals[perm]
+    return rows, vals
+
+
+def _check_project(dev, basis, rows, ptr, vals, normed):
+    """Kernel against the plain version, launched twice: bit-equal runs."""
+    b, r, p, v = _to(dev, basis, rows, ptr, vals)
     name = "project_normed" if normed else "project_raw"
-    assert kernels.launch_counts[name] == before[name] + 1
+    before = kernels.launch_counts[name]
+    got = kernels.project(b, r, p, v, normed=normed)
+    again = kernels.project(b, r, p, v, normed=normed)
+    want = kernels.project_plain(b, r, p, v, normed=normed)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[name] == before + 2
     rtol = 2e-4 if normed else 1e-4
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= rtol * scale
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.parametrize("k", [7, 32, 50, 128, 200])
+@pytest.mark.parametrize("normed", [True, False])
+def test_project_kernel_matches_plain(dev, k, normed):
+    """Genes that fit one shared-memory tile; widths below, at and past
+    one 16-column slice, up to K = 200."""
+    blk, rng = _block(500, 300, 0.2, k)
+    basis = rng.standard_normal((500, k)).astype(np.float32)
+    got = _check_project(dev, basis, blk.row_ids, blk.col_ptr, blk.vals, normed)
     assert float(got[3].abs().max()) == 0.0  # the empty cell
 
 
-@pytest.mark.parametrize("num_groups", [1, 7, 130])
-def test_collapse_kernel_matches_plain(dev, num_groups):
-    blk, rng = _block(400, 300, 0.2, num_groups)
-    seg = rng.integers(0, num_groups + 2, blk.ncols).astype(np.int32)  # >= S drops the cell
-    rows, ptr, vals, s = _to(dev, blk.row_ids, blk.col_ptr, blk.vals, seg)
-    kw = dict(num_genes=400, num_groups=num_groups)
-    got = kernels.collapse(rows, ptr, vals, s, **kw)
-    want = kernels.collapse_plain(rows, ptr, vals, s, **kw)
+@pytest.mark.parametrize("shuffled", [False, True])
+@pytest.mark.parametrize("normed", [True, False])
+def test_project_kernel_tiles_the_genes(dev, normed, shuffled):
+    """5,000 genes: the basis slice overflows shared memory, so the kernel
+    walks double-buffered gene tiles; with each cell's entries shuffled
+    it rescans the cell in every tile."""
+    d = 5000
+    blk, rng = _block(d, 300, 0.05, 11)
+    assert kernels.project_plan(blk.ncols, d, 50).gene_tiles > 1
+    rows, vals = _shuffle_cells(blk, rng) if shuffled else (blk.row_ids, blk.vals)
+    basis = rng.standard_normal((d, 50)).astype(np.float32)
+    got = _check_project(dev, basis, rows, blk.col_ptr, vals, normed)
+    assert float(got[3].abs().max()) == 0.0  # the empty cell
+
+
+def test_project_kernel_takes_any_width_at_4_byte_alignment(dev):
+    """K = 129 (no longer capped), and a basis view that starts off a
+    16-byte boundary, which takes the 4-byte staging copies."""
+    blk, rng = _block(300, 260, 0.2, 5)
+    wide = rng.standard_normal((300, 129)).astype(np.float32)
+    _check_project(dev, wide, blk.row_ids, blk.col_ptr, blk.vals, True)
+    flat = torch.randn(300 * 64 + 1, device=dev)
+    basis = flat[1:].view(300, 64)  # contiguous, 4 bytes past an aligned start
+    r, p, v = _to(dev, blk.row_ids, blk.col_ptr, blk.vals)
+    got = kernels.project(basis, r, p, v, normed=False)
+    want = kernels.project_plain(basis, r, p, v, normed=False)
     torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _check_collapse(dev, rows, ptr, vals, seg, num_genes, num_groups):
+    """Kernel against the plain version (atol = rtol = 1e-5), launched
+    twice for bit-equal runs, then accumulated into a resident plane. The
+    values are scaled off the integers: float sums of whole numbers come
+    out the same in any order, and would not test the order."""
+    vals = (vals * np.linspace(0.3, 1.7, len(vals))).astype(np.float32)
+    r, p, v, s = _to(dev, rows, ptr, vals, seg)
+    kw = dict(num_genes=num_genes, num_groups=num_groups)
+    before = kernels.launch_counts["collapse"]
+    got = kernels.collapse(r, p, v, s, **kw)
+    again = kernels.collapse(r, p, v, s, **kw)
+    want = kernels.collapse_plain(r, p, v, s, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["collapse"] == before + 2
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    # accumulation into a resident plane
+    assert torch.equal(got, again)
     plane = want.clone()
-    kernels.collapse(rows, ptr, vals, s, out=plane, **kw)
+    kernels.collapse(r, p, v, s, out=plane, **kw)
     torch.testing.assert_close(plane, 2 * want, rtol=1e-5, atol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("num_groups", [1, 2, 7, 130, 1024])
+def test_collapse_kernel_matches_plain(dev, num_groups):
+    """From one group (8 warps split its cells, many chunks) to 1,024 (a
+    warp per group, one chunk); cells with seg >= S are dropped."""
+    blk, rng = _block(400, 3000, 0.05, num_groups)
+    seg = rng.integers(0, num_groups + 2, blk.ncols).astype(np.int32)  # >= S drops the cell
+    _check_collapse(dev, blk.row_ids, blk.col_ptr, blk.vals, seg, 400, num_groups)
+
+
+@pytest.mark.parametrize("num_groups", [2, 130])
+def test_collapse_kernel_with_shuffled_and_repeated_genes(dev, num_groups):
+    """Each cell's entries shuffled; then one gene repeated inside a run of
+    32 entries, which the kernel adds lane by lane."""
+    blk, rng = _block(300, 400, 0.3, 3)
+    seg = rng.integers(0, num_groups + 1, blk.ncols).astype(np.int32)
+    seg[0] = 0  # cell 0 is kept
+    rows, vals = _shuffle_cells(blk, rng)
+    _check_collapse(dev, rows, blk.col_ptr, vals, seg, 300, num_groups)
+    rep = rows.copy()
+    lb = blk.col_ptr[0]
+    assert blk.col_ptr[1] - lb >= 8
+    rep[lb + 1:lb + 5] = rep[lb]  # a gene four times more in cell 0
+    _check_collapse(dev, rep, blk.col_ptr, vals, seg, 300, num_groups)
+
+
+@pytest.mark.parametrize("num_groups", [3, 20])
+def test_collapse_kernel_tiles_a_long_gene_column(dev, num_groups):
+    """60,000 genes: a column past shared memory, cut into gene tiles."""
+    d = 60_000
+    rng = np.random.default_rng(7)
+    dense = sp.random(d, 40, density=0.02, format="csc", random_state=8, dtype=np.float32)
+    blk = csc_to_coo_block(dense)
+    assert kernels.collapse_plan(blk.ncols, d, num_groups).gene_tiles > 1
+    seg = rng.integers(0, num_groups + 1, blk.ncols).astype(np.int32)
+    _check_collapse(dev, blk.row_ids, blk.col_ptr, blk.vals, seg, d, num_groups)
+
+
+def test_collapse_kernel_past_the_shared_counters(dev):
+    """13,000 groups: more than the counting sort keeps in shared memory,
+    so its counters and cursors live in device memory."""
+    blk, rng = _block(60, 5000, 0.1, 13)
+    seg = rng.integers(0, 13_000, blk.ncols).astype(np.int32)
+    seg[:50] = 7  # one group of many items
+    assert kernels.collapse_plan(blk.ncols, 60, 13_000).cap > 0
+    _check_collapse(dev, blk.row_ids, blk.col_ptr, blk.vals, seg, 60, 13_000)
+
+
+@pytest.mark.parametrize("num_groups", [2, 300])
+def test_collapse_kernel_on_unaligned_views(dev, num_groups):
+    """Entry arrays that start 4 bytes past a 16-byte boundary take the
+    scalar loads; the sums are the same."""
+    blk, rng = _block(200, 500, 0.2, 21)
+    seg = rng.integers(0, num_groups, blk.ncols).astype(np.int32)
+    r, p, v, sg = _to(dev, np.append(0, blk.row_ids).astype(np.int32), blk.col_ptr,
+                      np.append(0, blk.vals).astype(np.float32), seg)
+    kw = dict(num_genes=200, num_groups=num_groups)
+    got = kernels.collapse(r[1:], p, v[1:], sg, **kw)
+    want = kernels.collapse_plain(r[1:], p, v[1:], sg, **kw)
+    torch.cuda.synchronize()
+    assert r[1:].data_ptr() % 16 != 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_project_columns_past_128_on_the_card_matches_the_cpu(dev):
+    """`project_columns` at 150 columns (`--proj-dim 150`) through K1 on
+    the card against the CPU run; one K1 launch per block."""
+    vec = _small_vec()
+    kernels.reset_launch_counts()
+    gb, gp = rp.project_columns(vec, 150, block_size=256, device=dev)
+    assert kernels.launch_counts["project_normed"] == -(-vec.num_columns // 256)
+    cb, cp = rp.project_columns(vec, 150, block_size=256, device="cpu")
+    np.testing.assert_array_equal(gb, cb)
+    assert gp.shape == (150, vec.num_columns) and np.isfinite(gp).all()
+    np.testing.assert_allclose(gp, cp, rtol=2e-4, atol=2e-4)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -84,8 +217,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     basis = torch.randn(50, 16, device=dev)
     with pytest.raises(TypeError):
         kernels.project(basis, rows.long(), ptr, vals, normed=True)
-    with pytest.raises(ValueError):
-        kernels.project(torch.randn(50, 129, device=dev), rows, ptr, vals, normed=True)
+    assert kernels.project(torch.randn(50, 129, device=dev), rows, ptr, vals,
+                           normed=True).shape == (20, 129)  # any width
     with pytest.raises(ValueError):
         kernels.project(torch.randn(16, 50, device=dev).T, rows, ptr, vals, normed=True)
     with pytest.raises(ValueError):
