@@ -27,14 +27,18 @@ Phases (any failure exits non-zero; nothing is caught):
    on the same simulated data without its batches (so the marginal is
    unstratified and both NCE phases take K4), counts zeroed just before
    and read just after; check that K1, K3 and K4 ran, K4 exactly
-   1,000 x levels + ceil(N / 2,048) x 100 times, that the latent and the
+   1,000 x levels + ceil(N / 2,048) x 100 times and every phase-2 launch
+   (ceil(N / 2,048) x 100) in its axis form, that the latent and the
    feature embedding are finite, that the phase-1 loss fell and that the
    topic latent is a log-simplex;
 6. phase 1 of `fit_bge` alone at the NCE anchor (2,627 pseudobulks x
    34,008 genes, H = 16, 1,000 epochs, counts made as `bench.py` makes
    them) in f32 and in bf16; the two final losses agree within 1e-2;
 7. hold K4 against its plain version at the e2e phase-1 plane, one e2e
-   phase-2 block and the anchor in f32 and bf16, and K3 at the bge run's
+   phase-2 block in both forms (full, and the axis form phase 2 runs) and
+   the anchor in f32 and bf16, each with its byte and operation bounds
+   (the CUDA cores' f32 work and the tensor cores' split-TF32 products),
+   and K3 at the bge run's
    own group plane (its first 8,192-cell block over its sort-dim groups),
    and time both;
 8. print one JSON line of all kernels, then the device line last.
@@ -65,6 +69,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense
 WARMUP, REPS, ROUNDS = 3, 20, 3
 
 # tolerances: normwise max|kernel - plain| / max|plain| for the
@@ -230,46 +235,67 @@ def check_collapse(K, rows, ptr, vals, seg, *, num_genes: int, num_groups: int, 
     }
 
 
-def check_nce(K, c, q, e_f, b_f, e_a, b_a, m, *, shape: str) -> dict:
-    """K4 against its plain version on one plane; `max_abs_err` is the
-    largest over the four gradients, the loss is held by its relative
-    error."""
+def check_nce(K, c, q, e_f, b_f, e_a, b_a, m, *, shape: str, need_feat: bool = True) -> dict:
+    """K4 against its plain version on one plane, in its full form or
+    (`need_feat=False`) its axis form; `max_abs_err` is the largest over
+    the gradients, the loss is held by its relative error."""
     (p, d), h = c.shape, e_f.shape[1]
-    got = K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0)
-    again = K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0)
-    want = K.nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, 5.0)
+    kw = dict(need_feat=need_feat)
+    got = K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0, **kw)
+    again = K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0, **kw)
+    want = K.nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, 5.0, **kw)
     # the loss sum in float64 from the same inputs: how far each float32
     # sum lies from it, in units of the float32 spacing at that value
     exact = float(K.nce_epoch_plain(*(t.double() for t in (c, q, e_f, b_f, e_a, b_a, m)), 5.0)[0])
     torch.cuda.synchronize()
-    deterministic = bit_equal(got, again)
+    got_t = tuple(x for x in got if x is not None)
+    deterministic = bit_equal(got_t, tuple(x for x in again if x is not None))
     if not deterministic:
         raise AssertionError(f"nce_epoch at {shape}: two launches differ")
+    if not need_feat and (got[1] is not None or got[2] is not None):
+        raise AssertionError(f"nce_epoch at {shape}: the axis form returned feature gradients")
     loss_k, loss_p = float(got[0]), float(want[0])
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     ulp = float(np.spacing(np.float32(abs(exact))))
-    errs = [float((g - w).abs().max()) for g, w in zip(got[1:], want[1:])]
-    scales = [float(w.abs().max()) for w in want[1:]]
-    ok = all(bool(torch.isfinite(g).all()) for g in got)
+    pairs = [(g, w) for g, w in zip(got[1:], want[1:]) if w is not None]
+    errs = [float((g - w).abs().max()) for g, w in pairs]
+    scales = [float(w.abs().max()) for _, w in pairs]
+    ok = all(bool(torch.isfinite(g).all()) for g in got_t)
     if not (ok and loss_rel <= RTOL_K4_LOSS
             and all(e <= RTOL_K4_GRAD * sc for e, sc in zip(errs, scales))):
         raise AssertionError(f"nce_epoch at {shape}: loss rel {loss_rel}, grads {errs} vs {scales}")
-    nbytes = p * d * c.element_size() + 4 * (2 * d * h + 3 * d + 2 * p * h + 3 * p)
-    flops = 6 * p * d * h + 20 * p * d
-    bound_ms, bound_by = bound(nbytes, flops)
+    # each input read once, each output written once. The operations run
+    # on two kinds of unit at once: the score product (2PDH) and ~20
+    # operations an element on the CUDA cores in float32; the backward
+    # products (g_ea, and g_ef in the full form, 2PDH each) on the tensor
+    # cores in split TF32, three passes each. The bound takes the slower.
+    feat_out = 4 * (d * h + d) if need_feat else 0
+    nbytes = p * d * c.element_size() + 4 * (d * h + 2 * d + p * h + 2 * p) + 4 * (p * h + p + 1) + feat_out
+    core_flops = 2 * p * d * h + 20 * p * d
+    tensor_flops = 3 * (2 if need_feat else 1) * 2 * p * d * h
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_core_ms = core_flops / FP32_FLOPS * 1e3
+    bound_tensor_ms = tensor_flops / TF32_FLOPS * 1e3
+    bound_ms = max(bound_bytes_ms, bound_core_ms, bound_tensor_ms)
+    bound_by = "bytes" if bound_ms == bound_bytes_ms else "operations"
     return {
-        "shape": shape, "rows": p, "genes": d, "h": h, "count_dtype": str(c.dtype),
+        "shape": shape, "form": "full" if need_feat else "axis", "rows": p, "genes": d, "h": h,
+        "count_dtype": str(c.dtype), "plan": {k: v for k, v in K.nce_plan(p, d, h).__dict__.items()
+                                              if k in ("band_chunks", "range_tiles")},
         "max_abs_err": max(errs), "max_abs_plain": max(scales), "loss_rel_err": loss_rel,
         "loss_sum": loss_k, "loss_sum_plain": loss_p, "loss_sum_f64": exact, "f32_ulp": ulp,
         "loss_ulps_from_f64": (loss_k - exact) / ulp, "plain_ulps_from_f64": (loss_p - exact) / ulp,
         "rtol_loss": RTOL_K4_LOSS, "rtol_grad": RTOL_K4_GRAD, "deterministic": deterministic,
-        # no single torch call computes the loss and the four gradients
+        # no single torch call computes the loss and the gradients
         **time_turns(
-            ms=lambda: K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0),
-            plain_ms=lambda: K.nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, 5.0),
+            ms=lambda: K.nce_epoch(c, q, e_f, b_f, e_a, b_a, m, 5.0, **kw),
+            plain_ms=lambda: K.nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, 5.0, **kw),
             library_ms=None,
         ),
-        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "core_flops": core_flops, "tensor_flops": tensor_flops, "bound_bytes_ms": bound_bytes_ms,
+        "bound_ops_ms": max(bound_core_ms, bound_tensor_ms),
+        "bound_core_ms": bound_core_ms, "bound_tensor_ms": bound_tensor_ms,
     }
 
 
@@ -489,6 +515,9 @@ def main() -> int:
         raise AssertionError(f"bge K3 launches {blaunches['collapse']}: one per 8,192-cell block")
     if blaunches["nce_epoch"] != k4_expected:
         raise AssertionError(f"K4 launched {blaunches['nce_epoch']} times, expected {k4_expected}")
+    if blaunches["nce_epoch_axis"] != n_blocks2 * ncfg.phase2_epochs:
+        raise AssertionError(f"K4's axis form launched {blaunches['nce_epoch_axis']} times, "
+                             f"expected every phase-2 step ({n_blocks2 * ncfg.phase2_epochs})")
     if lat.shape != (bvec.num_columns, bargs.embed_dim) or not np.isfinite(lat).all():
         raise AssertionError("bge cell latent is not finite or has the wrong shape")
     if fe.shape != (bvec.num_rows, bargs.embed_dim) or not np.isfinite(fe).all():
@@ -544,9 +573,13 @@ def main() -> int:
                   dev32(fit.pb_biases[0]), pb_t.sum(1), shape="e2e_phase1_plane"),
         check_nce(K, x, q_pb, e_f, b_f, dev32(fit.e_cell[:nb]), dev32(fit.b_cell[:nb]),
                   x.sum(1), shape="e2e_phase2_block"),
+        check_nce(K, x, q_pb, e_f, b_f, dev32(fit.e_cell[:nb]), dev32(fit.b_cell[:nb]),
+                  x.sum(1), shape="e2e_phase2_block_axis", need_feat=False),
     ]
+    # phase 1 takes the full form; phase 2, the feature side frozen, the axis form
     k4[0]["launches_in_e2e"] = bargs.epochs
-    k4[1]["launches_in_e2e"] = n_blocks2 * ncfg.phase2_epochs
+    k4[1]["launches_in_e2e"] = 0
+    k4[2]["launches_in_e2e"] = n_blocks2 * ncfg.phase2_epochs
     for row in k4:
         row["path"] = "senna_bge"
     ac = dev32(acounts)
@@ -596,6 +629,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": blaunches[name] if name == "nce_epoch" else launches[name],
             "launches_bge": blaunches[name],
+            **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
             "deterministic": all(r["deterministic"] for r in checks[name]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -603,9 +637,10 @@ def main() -> int:
             "library_ms": main["library_ms"], "shape": main["shape"],
         }
         if len(checks[name]) > 1:
-            keep = ("shape", "launches_in_e2e", "max_abs_err", "deterministic", "ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms")
-            entry["shapes"] = [{"path": r.get("path"), **{k: r[k] for k in keep}}
+            keep = ("shape", "form", "launches_in_e2e", "max_abs_err", "deterministic", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "bound_bytes_ms", "bound_ops_ms",
+                    "bound_core_ms", "bound_tensor_ms", "library_ms")
+            entry["shapes"] = [{"path": r.get("path"), **{k: r[k] for k in keep if k in r}}
                                for r in checks[name]]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)

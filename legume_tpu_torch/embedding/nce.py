@@ -405,10 +405,10 @@ def _fit_cells(data, cfg: NceConfig, pb_counts, e_feat, b_feat, keep, keep_idx, 
             total_b = torch.clamp_min(x.sum(), 1.0)
             x = x.to(store_dt)
         for _ in range(cfg.phase2_epochs):
-            if use_kernel:
+            if use_kernel:  # the feature side is frozen: axis gradients only
                 loss, _, _, g_ea, g_ba = nce_epoch_grads(
                     feat.e_feat, feat.b_feat, e_a, b_a, x, q_bd, m_b,
-                    k_neg=cfg.n_negatives, total=total_b,
+                    k_neg=cfg.n_negatives, total=total_b, need_feat=False,
                 )
                 g = torch.cat([g_ea.reshape(-1), g_ba])
             else:

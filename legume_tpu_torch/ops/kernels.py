@@ -20,6 +20,7 @@ kernel; a tensor on any other device launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -52,9 +53,25 @@ COLLAPSE_MAX_CAP = 32
 PROJECT_SLICE = 16
 PROJECT_CELLS_PER_CTA = 128
 PROJECT_GENE_TILE = 1536
+# csrc/nce_epoch.cu: 4 warps a CTA over chunks of 64 rows (16 a warp) and
+# tiles of 64 genes; count and g_s tiles have rows of 72 elements
+NCE_ROWS = 64
+NCE_GENES = 64
+NCE_CSTRIDE = NCE_GENES + 8
+NCE_SMS = 132  # SMs of an H100
+NCE_SLOTS = 3 * NCE_SMS  # CTAs resident at once: three per SM
+NCE_SMEM_SLOT = 233_472 // 3 - 1024  # shared memory a CTA may take so that three fit an SM
+# the plan's cost model: microseconds of one (chunk, tile) pair in a CTA
+# (about 10 at the anchor, three CTAs an SM, on an H100; only its ratio to
+# the next matters), and of one partial float written and read back (at
+# 3.35 TB/s)
+NCE_PAIR_US = 10.0
+NCE_PARTIAL_US = 8 / 3.35e6
+NCE_PARTIAL_CAP = 10_000_000  # partial floats a plan stays under where it can (40 MB)
 
 # launches per kernel; `chip_smoke.py` zeroes them before the main path
-launch_counts = {"project_normed": 0, "project_raw": 0, "collapse": 0, "nce_epoch": 0}
+launch_counts = {"project_normed": 0, "project_raw": 0, "collapse": 0, "nce_epoch": 0,
+                 "nce_epoch_axis": 0}  # K4's launches without the feature side (also in nce_epoch)
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -120,8 +137,8 @@ _ENTRIES = {
         "legume_collapse_scratch": ([_I] * 5, ctypes.c_longlong),
     },
     "nce_epoch": {
-        "legume_nce_epoch": ([_P, _I] + [_P] * 6 + [_F, _I, _I, _I] + [_P] * 7, _I),
-        "legume_nce_epoch_scratch": ([_I, _I, _I], ctypes.c_longlong),
+        "legume_nce_epoch": ([_P, _I] + [_P] * 6 + [_F] + [_I] * 6 + [_P] * 7, _I),
+        "legume_nce_epoch_ctas_per_sm": ([_I] * 4, _I),
     },
 }
 
@@ -256,6 +273,80 @@ def project_plan(ncols: int, num_genes: int, k: int) -> ProjectPlan:
                        _cdiv(max(ncols, 0), PROJECT_CELLS_PER_CTA))
 
 
+def nce_smem_bytes(h: int, range_tiles: int, count_bytes: int, need_feat: bool) -> int:
+    """Shared memory of one K4 CTA (`smem_bytes` in csrc/nce_epoch.cu):
+    two count tiles, the e_a chunk and e_f tile, b_f and q, and in the full
+    form the range's g_ef | g_bf accumulator and, for bf16 counts, a g_s
+    tile (f32 counts are overwritten with g_s in place)."""
+    s = _cdiv(h, 16) * 16 + 4
+    b = 2 * NCE_ROWS * NCE_CSTRIDE * count_bytes + 4 * (NCE_ROWS + NCE_GENES) * s + 4 * 2 * NCE_GENES
+    if need_feat:
+        b += 4 * range_tiles * NCE_GENES * (h + 1)
+        if count_bytes != 4:
+            b += 4 * NCE_ROWS * NCE_CSTRIDE
+    return b
+
+
+@dataclass(frozen=True)
+class NcePlan:
+    """K4's grid: `ranges` x `bands` CTAs; CTA (r, b) walks chunks
+    [b * band_chunks, (b + 1) * band_chunks) of 64 rows, and for each the
+    tiles [r * range_tiles, (r + 1) * range_tiles) of 64 genes."""
+
+    p: int
+    d: int
+    h: int
+    chunks: int
+    tiles: int
+    band_chunks: int
+    range_tiles: int
+
+    @property
+    def bands(self) -> int:
+        return _cdiv(self.chunks, self.band_chunks)
+
+    @property
+    def ranges(self) -> int:
+        return _cdiv(self.tiles, self.range_tiles)
+
+    def scratch_floats(self, need_feat: bool) -> int:
+        """g_ea | g_ba per range, g_ef | g_bf per band (full form), one
+        loss per CTA."""
+        hs = self.h + 1
+        feat = self.bands * self.d * hs if need_feat else 0
+        return self.ranges * self.p * hs + feat + self.bands * self.ranges
+
+
+@functools.lru_cache(maxsize=256)
+def nce_plan(p: int, d: int, h: int) -> NcePlan:
+    """Bands and ranges from (P, D, H) alone, so both forms and every card
+    sum in the same order. Among the (range, band) sizes whose full-form
+    CTA fits `NCE_SMEM_SLOT` (or, past it, the card's limit with one tile
+    a range), the one with the least modelled time: waves of
+    `NCE_SLOTS` CTAs times the largest CTA's (chunk, tile) pairs, plus the
+    partial planes written and read back; plans whose partials stay under
+    `NCE_PARTIAL_CAP` floats come first."""
+    if min(p, d, h) < 1 or h > MAX_H:
+        raise ValueError(f"no NCE plan for P={p}, D={d}, H={h}")
+    chunks, tiles = _cdiv(p, NCE_ROWS), _cdiv(d, NCE_GENES)
+    per_tile = nce_smem_bytes(h, 1, 4, True) - nce_smem_bytes(h, 0, 4, True)
+    room = (NCE_SMEM_SLOT - nce_smem_bytes(h, 0, 4, True)) // per_tile
+    best = None
+    for rt in range(1, min(max(room, 1), tiles) + 1):
+        ranges = _cdiv(tiles, rt)
+        rt = _cdiv(tiles, ranges)  # the same ranges, as even as they go
+        for bc in range(1, chunks + 1):
+            bands = _cdiv(chunks, bc)
+            if _cdiv(chunks, bands) != bc:
+                continue  # the same bands as a smaller bc
+            waves = _cdiv(ranges * bands, NCE_SLOTS)
+            partial = (ranges * p + bands * d) * (h + 1)
+            key = (partial > NCE_PARTIAL_CAP, waves * rt * bc * NCE_PAIR_US + partial * NCE_PARTIAL_US)
+            if best is None or key < best[0]:
+                best = (key, bc, rt)
+    return NcePlan(p, d, h, chunks, tiles, best[1], best[2])
+
+
 # ----------------------------------------------------------------------------
 # plain versions (the CPU path, and what the kernels are held against)
 # ----------------------------------------------------------------------------
@@ -275,9 +366,10 @@ def collapse_plain(row_ids, col_ptr, vals, seg_of_col, *, num_genes: int, num_gr
     )
 
 
-def nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, k_neg: float):
+def nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, k_neg: float, *, need_feat: bool = True):
     """The closed form of K4 in torch ops: `(loss_sum, g_ef, g_bf, g_ea,
-    g_ba)`, unscaled. softplus is max(s, 0) + log1p(exp(-|s|)), which is
+    g_ba)`, unscaled; `g_ef` and `g_bf` are None without `need_feat`.
+    softplus is max(s, 0) + log1p(exp(-|s|)), which is
     `jax.nn.softplus`; torch's own thresholds at 20."""
     s = e_a @ e_f.T + b_f[None, :] + b_a[:, None]
     c32 = c.float()
@@ -285,6 +377,8 @@ def nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, k_neg: float):
     softplus = torch.clamp_min(s, 0.0) + torch.log1p(torch.exp(-s.abs()))
     loss = (c32 * s - a * softplus).sum()
     g_s = c32 - a * torch.sigmoid(s)
+    if not need_feat:
+        return loss, None, None, g_s @ e_f, g_s.sum(1)
     return loss, g_s.T @ e_a, g_s.sum(0), g_s @ e_f, g_s.sum(1)
 
 
@@ -387,6 +481,15 @@ def collapse(
     return out
 
 
+def nce_ctas_per_sm(h: int, range_tiles: int, count_dtype: torch.dtype, need_feat: bool) -> int:
+    """How many K4 CTAs the card's occupancy calculator fits on one SM at
+    once (needs the CUDA build)."""
+    n = _lib("nce_epoch").legume_nce_epoch_ctas_per_sm(
+        h, range_tiles, int(count_dtype == torch.bfloat16), int(need_feat))
+    _raise_on(int(n < 0), "nce_epoch occupancy")
+    return n
+
+
 def nce_epoch(
     c: torch.Tensor,  # [P, D] f32 or bf16 counts
     q: torch.Tensor,  # [D] f32 negative marginal
@@ -396,11 +499,15 @@ def nce_epoch(
     b_a: torch.Tensor,  # [P] f32
     m: torch.Tensor,  # [P] f32 row masses
     k_neg: float,
+    *,
+    need_feat: bool = True,
 ):
     """`(loss_sum [], g_ef [D, H], g_bf [D], g_ea [P, H], g_ba [P])` of
-    one expected-NCE epoch, unscaled (K4)."""
+    one expected-NCE epoch, unscaled (K4). Without `need_feat` (the
+    feature side frozen, as in bge's phase 2) the kernel skips the
+    feature-side sums and `g_ef`, `g_bf` are None."""
     if c.device.type == "cpu":
-        return nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, k_neg)
+        return nce_epoch_plain(c, q, e_f, b_f, e_a, b_a, m, k_neg, need_feat=need_feat)
     _require_cuda(c, "nce_epoch")
     dev = c.device
     if c.dtype not in (torch.float32, torch.bfloat16):
@@ -418,19 +525,23 @@ def nce_epoch(
         _check(t, what, torch.float32, dev, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {shape}")
-    lib = _lib("nce_epoch")
-    scratch = torch.empty(lib.legume_nce_epoch_scratch(p, d, h), dtype=torch.float32, device=dev)
+    plan = nce_plan(p, d, h)
+    scratch = torch.empty(plan.scratch_floats(need_feat), dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    g_ef = torch.empty(d, h, dtype=torch.float32, device=dev)
-    g_bf = torch.empty(d, dtype=torch.float32, device=dev)
+    fd = d if need_feat else 0
+    g_ef = torch.empty(fd, h, dtype=torch.float32, device=dev)
+    g_bf = torch.empty(fd, dtype=torch.float32, device=dev)
     g_ea = torch.empty(p, h, dtype=torch.float32, device=dev)
     g_ba = torch.empty(p, dtype=torch.float32, device=dev)
-    err = lib.legume_nce_epoch(
+    err = _lib("nce_epoch").legume_nce_epoch(
         c.data_ptr(), int(c.dtype == torch.bfloat16), q.data_ptr(), e_f.data_ptr(),
         b_f.data_ptr(), e_a.data_ptr(), b_a.data_ptr(), m.data_ptr(), float(k_neg), p, d, h,
-        scratch.data_ptr(), loss.data_ptr(), g_ef.data_ptr(), g_bf.data_ptr(), g_ea.data_ptr(),
-        g_ba.data_ptr(), _stream(dev),
+        int(need_feat), plan.band_chunks, plan.range_tiles, scratch.data_ptr(), loss.data_ptr(),
+        g_ef.data_ptr(), g_bf.data_ptr(), g_ea.data_ptr(), g_ba.data_ptr(), _stream(dev),
     )
     _raise_on(err, "nce_epoch")
     launch_counts["nce_epoch"] += 1
+    if not need_feat:
+        launch_counts["nce_epoch_axis"] += 1
+        return loss, None, None, g_ea, g_ba
     return loss, g_ef, g_bf, g_ea, g_ba

@@ -271,26 +271,110 @@ def _nce_inputs(dev, p, d, h, dtype, seed=0):
     return [x.to(dev).contiguous() for x in t]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [1, 16, 128])
-@pytest.mark.parametrize("p,d", [(37, 200), (300, 1000)])
-def test_nce_epoch_kernel_matches_plain(dev, p, d, h, dtype):
-    """P and D that divide neither the 32-row chunk nor the 128-gene tile;
-    loss within a relative 2e-5, gradients normwise within 1e-4 (the
+def _check_nce(got, want):
+    """Loss within a relative 2e-5, gradients normwise within 1e-4 (the
     tolerances of tests/test_nce_pallas.py)."""
+    assert abs(float(got[0]) - float(want[0])) <= 2e-5 * abs(float(want[0]))
+    for g_, w in zip(got[1:], want[1:]):
+        if w is None:
+            assert g_ is None
+            continue
+        assert g_.shape == w.shape and bool(torch.isfinite(g_).all())
+        assert float((g_ - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 8, 16, 17, 128])
+@pytest.mark.parametrize("p,d", [(1, 200), (37, 200), (300, 1000), (37, 1001), (300, 1001)])
+def test_nce_epoch_kernel_matches_plain(dev, p, d, h, dtype):
+    """One row and P that divides no band; D that divides no gene tile,
+    and D = 1,001, whose rows start off a 16-byte boundary (the count
+    tiles' 4-byte path); H off the multiple of 8 the products step in."""
     args = _nce_inputs(dev, p, d, h, dtype)
     before = kernels.launch_counts["nce_epoch"]
     got = kernels.nce_epoch(*args, 5.0)
     want = kernels.nce_epoch_plain(*args, 5.0)
     torch.cuda.synchronize()
     assert kernels.launch_counts["nce_epoch"] == before + 1
-    assert abs(float(got[0]) - float(want[0])) <= 2e-5 * abs(float(want[0]))
-    for g_, w in zip(got[1:], want[1:]):
-        assert g_.shape == w.shape and bool(torch.isfinite(g_).all())
-        assert float((g_ - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    _check_nce(got, want)
     again = kernels.nce_epoch(*args, 5.0)  # deterministic: no atomics
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 16, 17, 128])
+@pytest.mark.parametrize("p,d", [(37, 1001), (2048, 2000)])
+def test_nce_epoch_axis_form_matches_plain(dev, p, d, h, dtype):
+    """The phase-2 form (`need_feat=False`): no feature-side gradients,
+    the rest as the full form computes it, bit-equal on a second launch."""
+    args = _nce_inputs(dev, p, d, h, dtype)
+    before = dict(kernels.launch_counts)
+    got = kernels.nce_epoch(*args, 5.0, need_feat=False)
+    want = kernels.nce_epoch_plain(*args, 5.0, need_feat=False)
+    full = kernels.nce_epoch(*args, 5.0)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["nce_epoch"] == before["nce_epoch"] + 2
+    assert kernels.launch_counts["nce_epoch_axis"] == before["nce_epoch_axis"] + 1
+    _check_nce(got, want)
+    assert got[1] is None and got[2] is None
+    again = kernels.nce_epoch(*args, 5.0, need_feat=False)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    # the same sums as the full form's, up to the compiler's contractions
+    torch.testing.assert_close(got[0], full[0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(got[3], full[3], rtol=1e-5, atol=1e-5 * float(full[3].abs().max()))
+
+
+def test_nce_epoch_kernel_at_a_trained_pseudobulk_state(dev):
+    """Pseudobulk counts in the thousands at a trained state, where g_s
+    cancels: the bias gradients sum large terms to small totals, and even
+    the plain version in f32 lies well off the float64 sums there. The
+    kernel, held against float64, errs by at most twice the plain f32
+    version's error on each output (and 1e-5 normwise when that is less)."""
+    sim = simulate_topic(rows=2000, cols=20_000, factors=8, batches=1, seed=5)
+    x = sim.counts.tocsc()
+    pb = np.stack([np.asarray(x[:, i::64].sum(1)).ravel() for i in range(64)]).astype(np.float32)
+    assert pb.max() > 1000
+    fit = fit_bge([pb], config=NceConfig(embedding_dim=16, epochs=300, seed=1), device=dev)
+    c = torch.from_numpy(pb).to(dev)
+    q = c.sum(0) ** 0.75
+    args = [c, q / q.sum()] + [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev) for a in (
+        fit.e_feat, fit.b_feat, fit.pb_embeddings[0], fit.pb_biases[0])] + [c.sum(1)]
+    got = kernels.nce_epoch(*args, 5.0)
+    plain = kernels.nce_epoch_plain(*args, 5.0)
+    exact = kernels.nce_epoch_plain(*(a.double() for a in args), 5.0)
+    torch.cuda.synchronize()
+    for k, p_, w in zip(got, plain, exact):
+        scale = float(w.abs().max())
+        err_k = float((k.double() - w).abs().max()) / scale
+        err_p = float((p_.double() - w).abs().max()) / scale
+        assert err_k <= max(2 * err_p, 1e-5), (err_k, err_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nce_epoch_kernel_on_an_unaligned_plane(dev, dtype):
+    """A count plane that starts off a 16-byte boundary (D = 256 would
+    take the 16-byte copies) is staged with plain loads; same results."""
+    args = _nce_inputs(dev, 70, 256, 16, dtype)
+    flat = torch.zeros(70 * 256 + 1, dtype=dtype, device=dev)
+    flat[1:] = args[0].reshape(-1)
+    c = flat[1:].view(70, 256)
+    assert c.data_ptr() % 16 != 0
+    got = kernels.nce_epoch(c, *args[1:], 5.0)
+    want = kernels.nce_epoch_plain(*args, 5.0)
+    torch.cuda.synchronize()
+    _check_nce(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,d", [(2627, 34008), (2048, 2000)])
+def test_nce_plan_ctas_fit_side_by_side(dev, p, d, dtype):
+    """At H = 16 the plan's CTAs fit three to an SM (registers and shared
+    memory), as `nce_plan` assumes, in both forms."""
+    plan = kernels.nce_plan(p, d, 16)
+    for need_feat in (True, False):
+        assert kernels.nce_ctas_per_sm(16, plan.range_tiles, dtype, need_feat) >= 3
 
 
 def test_nce_epoch_wrapper_rejects_what_the_kernel_does_not_take(dev):
@@ -322,6 +406,7 @@ def test_fit_bge_on_the_card_matches_the_cpu(dev):
     kernels.reset_launch_counts()
     gpu = fit_bge([pb], data=vec, config=cfg, device=dev)
     assert kernels.launch_counts["nce_epoch"] == 40 + 3 * 20
+    assert kernels.launch_counts["nce_epoch_axis"] == 3 * 20  # phase 2 takes the axis form
     cpu = fit_bge([pb], data=vec, config=cfg, device="cpu")
     np.testing.assert_allclose(gpu.e_feat, cpu.e_feat, atol=2e-4)
     np.testing.assert_allclose(gpu.pb_embeddings[0], cpu.pb_embeddings[0], atol=2e-4)

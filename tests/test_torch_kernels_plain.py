@@ -187,7 +187,7 @@ def test_wrappers_never_fall_back_off_the_cpu():
                           torch.empty(3, 4, device=dev), torch.empty(3, device=dev),
                           torch.empty(3, device=dev), 5.0)
     assert kernels.launch_counts == {
-        "project_normed": 0, "project_raw": 0, "collapse": 0, "nce_epoch": 0,
+        "project_normed": 0, "project_raw": 0, "collapse": 0, "nce_epoch": 0, "nce_epoch_axis": 0,
     }
 
 

@@ -101,6 +101,42 @@ def test_epoch_grads_match_jax(reference, ridge):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("c_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ridge", [0.0, 0.01])
+def test_axis_form_matches_the_axis_half_of_jax(ridge, c_dtype):
+    """`need_feat=False` (bge's phase 2): the loss and the axis gradients
+    of the JAX fused kernel in interpret mode, and no feature side."""
+    counts, q, params = _problem(4, p=21, d=300, h=17, lam=1.5)
+    want_loss, want = _jax_pallas_interpret(counts, q, params, ridge, dtype=c_dtype)
+    tp = params_from_jax(params, device="cpu")
+    c = torch.from_numpy(counts)
+    out = nce_epoch_grads(
+        tp["feat"].e_feat, tp["feat"].b_feat, tp["axes"][0].e, tp["axes"][0].b,
+        c.to(getattr(torch, c_dtype)), torch.from_numpy(q), c.sum(1),
+        k_neg=K_NEG, total=torch.clamp_min(c.sum(), 1.0), ridge=ridge, need_feat=False,
+    )
+    assert out[1] is None and out[2] is None
+    np.testing.assert_allclose(float(out[0]), want_loss, rtol=2e-5)
+    for g, w in zip(out[3:], want[2:]):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-6)
+
+
+def test_axis_form_counts_its_launches_apart():
+    """`launch_counts` has a key for the axis form; the CPU path counts
+    no launch, and `reset_launch_counts` clears it with the rest."""
+    assert "nce_epoch_axis" in kernels.launch_counts
+    kernels.launch_counts["nce_epoch_axis"] = 5
+    kernels.reset_launch_counts()
+    assert all(v == 0 for v in kernels.launch_counts.values())
+    counts, q, params = _problem(5, p=8, d=30, h=4)
+    c = torch.from_numpy(counts)
+    tp = params_from_jax(params, device="cpu")
+    kernels.nce_epoch(c, torch.from_numpy(q), tp["feat"].e_feat, tp["feat"].b_feat,
+                      tp["axes"][0].e, tp["axes"][0].b, c.sum(1), K_NEG, need_feat=False)
+    assert kernels.launch_counts["nce_epoch_axis"] == 0
+
+
 def test_bf16_counts_close_to_f32_and_to_the_jax_kernel():
     counts, q, params = _problem(1, p=16, d=256, h=8, lam=2.0)
     loss32, _ = _port(counts, q, params, 0.0)
@@ -155,3 +191,4 @@ def test_kernel_sources_bind_their_own_symbols():
             assert f" {symbol}(" in src, (name, symbol)
     with pytest.raises(KeyError):
         kernels._load("bogus", Path("no-such-library.so"))
+
