@@ -41,7 +41,28 @@ Phases (any failure exits non-zero; nothing is caught):
    and K3 at the bge run's
    own group plane (its first 8,192-cell block over its sort-dim groups),
    and time both;
-8. print one JSON line of all kernels, then the device line last.
+8. run `senna predict` (`eval-topic` options: per-batch null, 2 delta
+   sweeps, 10 refinement steps) through the port's entry point with the
+   phase-2 model on 100,000 held-out cells (another seed, 2 batches, the
+   genes permuted, 5% renamed `ENSG..._<name>`, 5% not in the model);
+   check the mapped genes, the delta's range and the latent's simplex;
+   hold the first 4,096-cell block against the port's CPU run (1e-3,
+   with and without refinement; each float32 run's distance from the
+   block in float64 is printed beside it); run `--decoder-only` on 10,000 of
+   the cells; form the residual matrix on the card (the writers need
+   tensorstore or h5py, which the card's machine may lack: their
+   availability is printed);
+9. run `senna clustering` on that latent: kmeans (K = 10) with the BHC
+   merge tree over the counts, its per-cluster sums through K3 (counts
+   zeroed just before, one launch per 4,096-cell block required), held
+   at one BHC plane against the plain version; hsblock (depth 4) at
+   100,000 cells, and on a 5,000-cell subset against the port's CPU run
+   (equal partitions up to relabelling); Leiden at 20,000 cells;
+10. report whether phase 2's fine partition on the card equals the
+   port's CPU projection and sort at 100,000 cells as a set partition
+   (and as codes);
+11. print the script's total seconds, one JSON line of all kernels, then
+   the device line last.
 
 Every kernel check launches the kernel twice on the same inputs and
 fails unless the two results are bit-equal (`deterministic`). Times are
@@ -56,6 +77,7 @@ float32, as the reference package computes it.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
@@ -329,10 +351,44 @@ def production_block(dev):
     return d, basis, rows, ptr, vals, seg
 
 
+def same_partition(a, b) -> bool:
+    """Equal as set partitions: the pairs of labels form a bijection."""
+    pairs = np.unique(np.stack([np.asarray(a), np.asarray(b)], 1), axis=0)
+    return len(pairs) == len(np.unique(a)) == len(np.unique(b))
+
+
+def held_out_vec(sim_rows, seed: int):
+    """100,000 cells of another simulation over 2,100 genes: the first
+    2,000 take the training names (5% renamed `ENSG..._<NAME>`), 100 are
+    not in the model, and the gene order is permuted."""
+    from legume_tpu_torch.data import MemoryBackend, SparseIoVec
+    from legume_tpu_torch.data.sim import simulate_topic
+
+    held = simulate_topic(rows=2100, cols=100_000, factors=8, batches=2, seed=seed)
+    rng = np.random.default_rng(seed)
+    names = list(sim_rows) + [f"NEW{i}" for i in range(100)]
+    for i in rng.choice(2000, 100, replace=False):
+        names[i] = f"ENSG{i:011d}_{names[i].upper()}"
+    perm = rng.permutation(2100)
+    vec = SparseIoVec()
+    vec.push(MemoryBackend(held.counts.tocsr()[perm].tocsc(), [names[i] for i in perm],
+                           held.col_names))
+    return vec, held.batch
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 2
+    t_script = time.time()
+    work = tempfile.TemporaryDirectory()
+    try:
+        return run(work.name, t_script)
+    finally:
+        work.cleanup()
+
+
+def run(work: str, t_script: float) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support is in beta")
@@ -369,14 +425,13 @@ def main() -> int:
     vec.register_batches(sim.batch.astype(str))
     sim_s = time.time() - t0
     args = TopicArgs(epochs=5)
-    with tempfile.TemporaryDirectory() as tmp:
-        args.out = f"{tmp}/topic"
-        K.reset_launch_counts()
-        t0 = time.time()
-        res = fit_topic_model(args, vec=vec, device=dev)
-        torch.cuda.synchronize()
-        e2e_s = time.time() - t0
-        launches = dict(K.launch_counts)
+    args.out = f"{work}/topic"  # the model phase 8 predicts with
+    K.reset_launch_counts()
+    t0 = time.time()
+    res = fit_topic_model(args, vec=vec, device=dev)
+    torch.cuda.synchronize()
+    e2e_s = time.time() - t0
+    launches = dict(K.launch_counts)
     z, llik = res["latent"], np.asarray(res["scores"].llik)
     simplex_err = float(np.abs(np.exp(z.astype(np.float64)).sum(1) - 1.0).max())
     e2e = {
@@ -609,13 +664,195 @@ def main() -> int:
     print(json.dumps({"kernel_check": "collapse", "card": card, **row}), flush=True)
     checks["collapse"].append(row)
 
-    # ---- phase 8: the kernels line, then the device line ------------------
+    # ---- phase 8: senna predict at full width -----------------------------
+    from legume_tpu_torch.data import MemoryBackend as Mem
+    from legume_tpu_torch.data import blosc_codec
+    from legume_tpu_torch.senna import predict as P
+    from legume_tpu_torch.senna.topic import build_model, load_model
+    from legume_tpu_torch.utils.manifest import RunManifest
+    from legume_tpu_torch.utils.output import have_parquet, read_table, table_path
+
+    t0 = time.time()
+    hvec, hbatch = held_out_vec(sim.row_names, seed=43)
+    held_sim_s = time.time() - t0
+    n_held = hvec.num_columns
+    bfile = f"{work}/held.batch.txt"
+    Path(bfile).write_text("\n".join(f"donor{'AB'[b]}" for b in hbatch) + "\n")
+    pargs = P.PredictArgs(model=args.out, out=f"{work}/predict", batch_files=[bfile],
+                          delta_iters=2, refine_steps=10)
+    K.reset_launch_counts()
+    t0 = time.time()
+    zp = P.predict_model(pargs, vec=hvec, device=dev)
+    torch.cuda.synchronize()
+    predict_s = time.time() - t0
+    plaunches = dict(K.launch_counts)
+    pman = RunManifest.load(f"{work}/predict.senna.json")
+    dtab = read_table(table_path(f"{work}/predict.delta"))
+    delta = np.stack([dtab[f"batch{b}"] for b in range(2)], 1)
+    p_err = float(np.abs(np.exp(zp.astype(np.float64)).sum(1) - 1.0).max())
+
+    # the first 4,096-cell block on the card and on the CPU, same inputs
+    meta, flat, genes = load_model(args.out)
+    remap = P.build_gene_remap(genes, hvec.row_names())
+    cb = P.read_batch_labels([bfile], n_held)
+    prof = P._batch_mean_profiles(hvec, remap, cb, block_size=4096)
+    log_dict = P._load_log_dictionary(args.out, genes)
+    first = SparseIoVec()
+    first.push(Mem(hvec.read_columns_csc(np.arange(4096)), hvec.row_names()))
+    enc_cpu = build_model(meta, flat, device="cpu")[0]
+    enc_dev = build_model(meta, flat, device=dev)[0]
+    # Card against CPU within 1e-3, with and without refinement. The
+    # encoder's float32 rounding alone moves log z by 1e-4 to 4e-4 at these
+    # weights (each float32 run against the same block in float64 on the
+    # CPU, printed beside it), so a bar of 1e-4 without refinement would
+    # sit below the reference's own error.
+    block_err = {}
+    for steps in (0, 10):
+        kw = dict(block_size=4096, cell_batch=cb[:4096], batch_profiles=prof, log_dict=log_dict,
+                  refine_steps=steps)
+        z_c = P.score_dense_backend(first, enc_cpu, remap, device="cpu", **kw)
+        z_g = P.score_dense_backend(first, enc_dev, remap, device=dev, **kw)
+        block_err[steps] = float(np.abs(z_g - z_c).max())
+        if steps == 0:
+            x64 = P._dense_block(next(iter(visit_columns_by_block(first, block_size=4096))),
+                                 remap, "cpu").double()
+            with torch.no_grad():
+                z64 = enc_cpu.double()(x64, torch.from_numpy(prof[cb[:4096]]).double(),
+                                       train=False)[0].numpy()
+            enc_cpu.float()
+            card_f64, cpu_f64 = float(np.abs(z_g - z64).max()), float(np.abs(z_c - z64).max())
+        if not block_err[steps] <= 1e-3:
+            raise AssertionError(f"predict block, {steps} refinement steps: card vs CPU "
+                                 f"{block_err[steps]} > 1e-3")
+    e2e_vs_block = float(np.abs(zp[:4096] - z_g).max())
+
+    sub = SparseIoVec()
+    sub.push(Mem(hvec.read_columns_csc(np.arange(10_000)), hvec.row_names()))
+    t0 = time.time()
+    zd = P.predict_model(P.PredictArgs(model=args.out, out=f"{work}/predict_dec",
+                                       decoder_only=True), vec=sub, device=dev)
+    torch.cuda.synchronize()
+    decoder_only_s = time.time() - t0
+    d_err = float(np.abs(np.exp(zd.astype(np.float64)).sum(1) - 1.0).max())
+
+    t0 = time.time()
+    resid = P.residual_csc(hvec, zp, log_dict, remap, delta_db=delta, cell_batch=cb, device=dev)
+    torch.cuda.synchronize()
+    residual_s = time.time() - t0
+    writers = {"zarr (tensorstore)": importlib.util.find_spec("tensorstore") is not None,
+               "h5 (h5py)": importlib.util.find_spec("h5py") is not None,
+               "h5 blosc (libblosc)": blosc_codec.available(),
+               "parquet (pandas, pyarrow)": have_parquet()}
+    print(json.dumps({
+        "phase": "senna_predict", "cells": n_held, "genes": hvec.num_rows,
+        "mapped_genes": pman.params["n_mapped"], "simulate_s": held_sim_s, "run_s": predict_s,
+        **pman.timings, "launches": plaunches, "delta_min": float(delta.min()),
+        "delta_max": float(delta.max()), "latent_shape": list(zp.shape),
+        "latent_finite": bool(np.isfinite(zp).all()), "simplex_max_err": p_err,
+        "first_block_card_vs_cpu": {"refine_0": block_err[0], "refine_10": block_err[10]},
+        "first_block_vs_f64": {"card": card_f64, "cpu": cpu_f64},
+        "first_block_e2e_vs_alone": e2e_vs_block,
+        "decoder_only": {"cells": sub.num_columns, "run_s": decoder_only_s,
+                         "simplex_max_err": d_err, "finite": bool(np.isfinite(zd).all())},
+        "residual": {"shape": list(resid.shape), "nnz": int(resid.nnz), "seconds": residual_s,
+                     "finite": bool(np.isfinite(resid.data).all())},
+        "writers_importable": writers, "card": card,
+    }), flush=True)
+    if pman.params["n_mapped"] != 2000:
+        raise AssertionError(f"predict mapped {pman.params['n_mapped']} of 2,000 genes")
+    if not (0.01 <= delta.min() and delta.max() <= 100.0):
+        raise AssertionError(f"delta outside [0.01, 100]: {delta.min()}, {delta.max()}")
+    if zp.shape != (n_held, args.n_latent_topics) or not np.isfinite(zp).all() or p_err > 1e-3:
+        raise AssertionError(f"predict latent is not a finite simplex ({p_err})")
+    if not np.isfinite(zd).all() or d_err > 1e-3:
+        raise AssertionError(f"decoder-only latent is not a finite simplex ({d_err})")
+    if resid.shape != hvec.shape or not np.isfinite(resid.data).all():
+        raise AssertionError("residual matrix is not finite or has the wrong shape")
+
+    # ---- phase 9: senna clustering on that latent ---------------------------
+    from legume_tpu_torch.ops.hsblock import hsblock_clustering
+    from legume_tpu_torch.ops.leiden import knn_adjacency
+    from legume_tpu_torch.senna.clustering import ClusteringArgs, cluster_latent, run_clustering
+
+    latent_path = table_path(f"{work}/predict.latent")
+    K.reset_launch_counts()
+    t0 = time.time()
+    km = run_clustering(ClusteringArgs(latent=latent_path, out=f"{work}/km", method="kmeans",
+                                       n_clusters=10), vec=hvec, device=dev)
+    torch.cuda.synchronize()
+    kmeans_bhc_s = time.time() - t0
+    claunches = dict(K.launch_counts)
+    bhc_blocks = -(-n_held // ClusteringArgs.bhc_block_size)
+    cut = read_table(table_path(f"{work}/km.bhc.cut"))
+    t0 = time.time()
+    hs = run_clustering(ClusteringArgs(latent=latent_path, out=f"{work}/hs", method="hsblock",
+                                       hsblock_depth=4), device=dev)
+    torch.cuda.synchronize()
+    hsblock_s = time.time() - t0
+    adj5 = knn_adjacency(np.exp(zp[:5000]), k=15, device=dev)
+    hs_card = hsblock_clustering(adj5, max_depth=4, seed=0, device=dev).membership
+    hs_cpu = hsblock_clustering(adj5, max_depth=4, seed=0, device="cpu").membership
+    t0 = time.time()
+    ld = cluster_latent(zp[:20_000], ClusteringArgs(method="leiden"), device=dev)
+    leiden_s = time.time() - t0
+    print(json.dumps({
+        "phase": "senna_clustering", "cells": n_held, "kmeans_bhc_s": kmeans_bhc_s,
+        "kmeans_clusters": int(km.max()) + 1, "bhc_consensus_clusters": int(cut["consensus"].max()) + 1,
+        "launches": claunches, "collapse_expected": bhc_blocks, "hsblock_s": hsblock_s,
+        "hsblock_clusters": int(hs.max()) + 1,
+        "hsblock_5000_card_vs_cpu_same_partition": same_partition(hs_card, hs_cpu),
+        "hsblock_5000_clusters": [int(hs_card.max()) + 1, int(hs_cpu.max()) + 1],
+        "leiden_cells": 20_000, "leiden_s": leiden_s, "leiden_clusters": int(ld.max()) + 1,
+        "card": card,
+    }), flush=True)
+    if claunches["collapse"] != bhc_blocks:
+        raise AssertionError(f"BHC K3 launches {claunches['collapse']}, expected {bhc_blocks}")
+    if not same_partition(hs_card, hs_cpu):
+        raise AssertionError("hsblock on the card and on the CPU gave different partitions")
+    # K3 at one BHC plane: the first 4,096-cell block over the k-means labels
+    hblk = next(iter(visit_columns_by_block(hvec, block_size=ClusteringArgs.bhc_block_size)))
+    hr, hp, hv = block_to_device(hblk, dev)
+    hseg = torch.from_numpy(km[: hblk.ncols].astype(np.int32)).to(dev)
+    row = check_collapse(K, hr, hp, hv, hseg, num_genes=hvec.num_rows, num_groups=int(km.max()) + 1,
+                         shape="bhc_plane")
+    row["launches_in_e2e"] = claunches["collapse"]
+    row["path"] = "senna_clustering"
+    print(json.dumps({"kernel_check": "collapse", "card": card, **row}), flush=True)
+    checks["collapse"].append(row)
+
+    # ---- phase 10: the fault-1 report ----------------------------------------
+    # phase 2's fine partition on the card against the port's CPU projection
+    # and sort of the same cells with the same arguments
+    from legume_tpu_torch.ops import random_projection as rp
+    from legume_tpu_torch.senna.topic import compute_level_sort_dims
+
+    t0 = time.time()
+    _, proj_cpu = rp.project_columns(
+        vec, max(args.proj_dim, args.n_latent_topics), block_size=args.block_size,
+        batch_membership=batches if n_batches > 1 else None, seed=args.seed, device="cpu",
+    )
+    codes_cpu = rp.binary_sort_columns(
+        proj_cpu, compute_level_sort_dims(args.sort_dim, args.num_levels)[0], seed=args.seed,
+        device="cpu",
+    )
+    print(json.dumps({
+        "phase": "fault1_fine_partition", "cells": n_cells, "cpu_s": time.time() - t0,
+        "same_set_partition": same_partition(levels.fine_codes, codes_cpu),
+        "same_codes": bool(np.array_equal(levels.fine_codes, codes_cpu)),
+        "groups_card": int(len(np.unique(levels.fine_codes))),
+        "groups_cpu": int(len(np.unique(codes_cpu))),
+        "proj_max_abs_diff": float(np.abs(levels.proj_kn - proj_cpu).max()), "card": card,
+    }), flush=True)
+
+    # ---- phase 11: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
     # and `shapes` holds every checked shape of K3 and K4, each with the
     # run (`path`) whose launches `launches_in_e2e` counts. `launches` is
-    # the count of the kernel's own main path: `senna topic` for K1-K3,
-    # `senna bge` for K4; `launches_bge` is each kernel's count in bge.
+    # the count of the kernel's own main paths: `senna topic` for K1-K2,
+    # `senna topic` and `senna clustering`'s BHC sums for K3, `senna bge`
+    # for K4; `launches_bge` is each kernel's count in bge,
+    # `launches_clustering` K3's in clustering.
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
@@ -627,8 +864,10 @@ def main() -> int:
         main = max(checks[name], key=lambda r: r.get("launches_in_e2e", 0))
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": blaunches[name] if name == "nce_epoch" else launches[name],
+            "launches": (blaunches[name] if name == "nce_epoch" else
+                         launches[name] + claunches[name]),
             "launches_bge": blaunches[name],
+            **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),
             "deterministic": all(r["deterministic"] for r in checks[name]),
@@ -643,6 +882,8 @@ def main() -> int:
             entry["shapes"] = [{"path": r.get("path"), **{k: r[k] for k in keep if k in r}}
                                for r in checks[name]]
         kernels.append(entry)
+    print(json.dumps({"phase": "total", "seconds": time.time() - t_script, "card": card}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -42,6 +42,7 @@ from ..ops import collapse as clp
 from ..ops import random_projection as rp
 from ..ops import sparse as sparse_ops
 from ..utils import prng
+from ..utils.manifest import ArtifactScale, RunManifest
 from ..utils.output import matrix_columns, write_table
 from ..utils.prng import DEFAULT_PROJECTION_SEED
 
@@ -109,7 +110,6 @@ def check_supported(args: TopicArgs):
         "--cnv": args.cnv,
         "--init-from": args.init_from,
         "--from": args.from_run,
-        "--amort-refine-steps > 0": args.amort_refine_steps > 0,
         "--data-parallel": args.data_parallel,
         "--decoder-weights": args.decoder_weights,
         "--decoder other than nb": args.decoder.strip() != "nb",
@@ -417,9 +417,14 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
     timings["train_s"] = time.time() - t0
 
     t0 = time.time()
+    with torch.no_grad():
+        log_beta_t = trainer.decoders[0].get_dictionary()
     z = evaluate_latent_by_encoder(
         vec, trainer.encoder, finest, levels.groups_per_level[0],
-        block_size=args.minibatch_size * 8, adj_method=args.adj_method, device=device,
+        block_size=args.minibatch_size * 8, adj_method=args.adj_method,
+        refine_log_dict=log_beta_t if args.amort_refine_steps > 0 else None,
+        refine_steps=args.amort_refine_steps, refine_lr=args.amort_refine_lr,
+        refine_reg=args.amort_refine_reg, device=device,
     )
     timings["cell_eval_s"] = time.time() - t0
 
@@ -427,8 +432,7 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
     t0 = time.time()
     cell_names = vec.column_names()
     gene_names = vec.row_names()
-    with torch.no_grad():
-        log_beta = trainer.decoders[0].get_dictionary().cpu().numpy()
+    log_beta = log_beta_t.cpu().numpy()
     written = {"dictionary": write_table(
         f"{args.out}.dictionary", matrix_columns(log_beta, "topic", "gene", gene_names)
     )}
@@ -461,24 +465,30 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
     )
     timings["outputs_s"] = time.time() - t0
     timings["total_s"] = time.time() - t_all
-    manifest = {
-        "command": "topic",
-        "inputs": {
+    manifest = RunManifest(
+        command="topic",
+        inputs={
             "data_files": list(args.data_files),
             "batch_files": list(args.batch_files) if args.batch_files else [],
         },
-        "outputs": {
+        outputs={
             **written,
             "model": f"{args.out}.model.npz",
             "model_metadata": f"{args.out}.model.json",
-            "partition": part_path,
         },
-        "params": dataclasses.asdict(args),
-        "timings": timings,
-        "engine": "legume-tpu-torch",
-    }
-    with open(f"{args.out}.senna.json", "w") as f:
-        json.dump(manifest, f, indent=2, default=str)
+        params=dataclasses.asdict(args),
+        timings=timings,
+        engine="legume-tpu-torch",
+    )
+    # the artifacts' kinds and scales, as the JAX package records them
+    manifest.record_artifact("latent", written["latent"], "cell_latent",
+                             ArtifactScale.detect(z, axis=1))
+    manifest.record_artifact("pb_latent", written["pb_latent"], "pb_latent",
+                             ArtifactScale.PROBABILITY_SIMPLEX_COLUMNS)
+    manifest.record_artifact("dictionary", written["dictionary"], "topic_dictionary",
+                             ArtifactScale.detect(log_beta, axis=0))
+    manifest.record_artifact("partition", part_path, "cell_pb_partition", ArtifactScale.SIGNED)
+    manifest.save(args.out)
 
     return {
         "scores": scores,
@@ -512,11 +522,18 @@ def evaluate_latent_by_encoder(
     *,
     block_size: int = 800,
     adj_method: str = "residual",
+    refine_log_dict: torch.Tensor | None = None,
+    refine_steps: int = 0,
+    refine_lr: float = 0.01,
+    refine_reg: float = 1.0,
     device="cuda",
 ) -> np.ndarray:
     """Per-cell latent: stream cell blocks through the eval encoder with
     each cell's null row. "residual" indexes mu_residual [D, S] by the
-    pseudobulk group, "batch" indexes delta [D, B] by the batch label."""
+    pseudobulk group, "batch" indexes delta [D, B] by the batch label.
+    `refine_steps > 0` refines each block's latent against the frozen
+    `refine_log_dict` [D, K] (`predict.refine_topic_proportions`; the
+    block of `block_size` cells is the refinement's mean)."""
     if adj_method == "batch" and finest.delta is not None:
         null_ds, membership = finest.delta.mean(), vec.batch_membership()
     else:
@@ -526,11 +543,22 @@ def evaluate_latent_by_encoder(
     memb = torch.as_tensor(np.asarray(membership, np.int64), device=device)
     encoder.eval()
     pieces = []
+    refine = refine_steps > 0 and refine_log_dict is not None
+    if refine:
+        from .predict import refine_topic_proportions
+
+        ld = refine_log_dict.to(device)
     for blk in visit_columns_by_block(vec, block_size=block_size):
         r, p, v = rp.block_to_device(blk, device)
-        pieces.append(encode_block(
+        log_z = encode_block(
             encoder, r, p, v, null_sd, memb[blk.lb : blk.lb + blk.ncols], num_genes=vec.num_rows
-        ))
+        )
+        if refine:
+            x = sparse_ops.densify_block(r, sparse_ops.col_ids_from_ptr(p), v, ncols=blk.ncols,
+                                         num_genes=vec.num_rows)
+            log_z = refine_topic_proportions(log_z, x, ld, steps=refine_steps, lr=refine_lr,
+                                             reg=refine_reg)
+        pieces.append(log_z)
     if not pieces:
         return np.zeros((0, encoder.n_topics), np.float32)
     return torch.cat(pieces).cpu().numpy()

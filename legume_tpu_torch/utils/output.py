@@ -1,10 +1,11 @@
 """Table outputs: parquet when pandas and pyarrow are installed, else an
 `.npz` of the same columns. Nothing upstream of the writer depends on
-which one it picks."""
+which one it picks, and the readers take either."""
 
 from __future__ import annotations
 
 import importlib.util
+import os
 
 import numpy as np
 
@@ -36,3 +37,22 @@ def matrix_columns(mat: np.ndarray, prefix: str, index_name: str | None = None,
     for j in range(mat.shape[1]):
         cols[f"{prefix}{j}"] = mat[:, j]
     return cols
+
+
+def table_path(stem: str) -> str | None:
+    """The table `write_table` wrote at `stem` (either package's), or None."""
+    for ext in (".parquet", ".npz"):
+        if os.path.exists(stem + ext):
+            return stem + ext
+    return None
+
+
+def read_table(path: str) -> dict[str, np.ndarray]:
+    """Columns of a `.parquet` (needs pandas) or `.npz` table, in order."""
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+    import pandas as pd
+
+    df = pd.read_parquet(path)
+    return {str(c): df[c].to_numpy() for c in df.columns}

@@ -23,6 +23,14 @@ What the installed JAX does, and this module copies:
   (nextafter(-1, 0), 1); erfinv is XLA's single-precision polynomial.
 - `gumbel` (mode "low") is `-log(-log(u))` with `u` uniform on
   [tiny, 1).
+- `randint` draws two words per value from the two halves of
+  `split(key)` and folds them into the span in uint32 arithmetic,
+  `((hi % span) * m + lo % span) % span` with `m = (2^16 % span)^2 %
+  span`, every product wrapping at 2^32 as XLA's uint32 does (so `m`
+  is 0 for spans past 2^16).
+- `choice(p=...)` with replacement searches `cumsum(p)` for
+  `cumsum(p)[-1] * (1 - u)`, leftmost; the float32 cumsum is summed in
+  the order of XLA's CPU backend (`cumsum_f32`).
 """
 
 from __future__ import annotations
@@ -148,6 +156,41 @@ def gumbel(k: np.ndarray, shape) -> np.ndarray:
     tiny = np.finfo(np.float32).tiny
     u = uniform(k, shape, tiny, 1.0)
     return (-np.log(-np.log(u))).astype(np.float32)
+
+
+def randint(k: np.ndarray, shape, minval: int, maxval: int) -> np.ndarray:
+    """int32 `jax.random.randint(key, shape, minval, maxval)`."""
+    shape = tuple(int(s) for s in shape)
+    k1, k2 = split(k)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32(max(int(maxval) - int(minval), 1))
+    mult = (1 << 16) % int(span)
+    mult = np.uint32(((mult * mult) & 0xFFFFFFFF) % int(span))  # the square wraps too
+    with np.errstate(over="ignore"):
+        off = ((hi % span) * mult + (lo % span)) % span
+    return (np.int64(minval) + off.astype(np.int64)).astype(np.int32)
+
+
+def cumsum_f32(x: np.ndarray, base: int = 16) -> np.ndarray:
+    """float32 `jnp.cumsum` as XLA's CPU backend computes it: blocks of
+    `base` summed in order, each block offset by the exclusive prefix of
+    the block totals, which recurses the same way."""
+    x = np.asarray(x, np.float32)
+    n = len(x)
+    if n <= base:
+        return np.cumsum(x, dtype=np.float32)
+    m = -(-n // base) * base
+    inner = np.cumsum(np.pad(x, (0, m - n)).reshape(-1, base), axis=1, dtype=np.float32)
+    ex = np.concatenate([np.zeros(1, np.float32), cumsum_f32(inner[:, -1], base)[:-1]])
+    return (inner + ex[:, None]).ravel()[:n]
+
+
+def choice(k: np.ndarray, p: np.ndarray, shape=()) -> np.ndarray:
+    """`jax.random.choice(key, len(p), shape, p=p)` (with replacement):
+    indices into `p`."""
+    cum = cumsum_f32(p)
+    r = cum[-1] * (np.float32(1.0) - uniform(k, shape))
+    return np.searchsorted(cum, r, side="left").astype(np.int64)
 
 
 def generator_from_key(k: np.ndarray, device="cpu") -> torch.Generator:

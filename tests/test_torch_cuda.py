@@ -413,3 +413,70 @@ def test_fit_bge_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(gpu.phase1_losses, cpu.phase1_losses, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(gpu.e_cell, cpu.e_cell, atol=2e-4)
     np.testing.assert_allclose(gpu.phase2_losses, cpu.phase2_losses, rtol=1e-4)
+
+
+def _same_partition(a, b) -> bool:
+    pairs = np.unique(np.stack([a, b], 1), axis=0)
+    return len(pairs) == len(np.unique(a)) == len(np.unique(b))
+
+
+def test_predict_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A port-fitted model, held-out cells with a per-batch null,
+    iterated delta, refinement and the residual matrix: card against CPU
+    (latent 1e-4, delta and residual 1e-5)."""
+    from legume_tpu_torch.senna import predict as tpred
+
+    vec = _small_vec()
+    model = str(tmp_path / "m")
+    ttopic.fit_topic_model(ttopic.TopicArgs(out=model, n_latent_topics=4, encoder_layers=(32, 16),
+                                            epochs=3, block_size=256), vec=vec, device="cpu")
+    bfile = tmp_path / "b.txt"
+    bfile.write_text("\n".join(f"b{i % 3}" for i in range(vec.num_columns)) + "\n")
+    out = {}
+    for name, device in (("gpu", dev), ("cpu", "cpu")):
+        args = tpred.PredictArgs(model=model, out=str(tmp_path / name), block_size=128,
+                                 batch_files=[str(bfile)], refine_steps=10, delta_iters=2)
+        z = tpred.predict_model(args, vec=vec, device=device)
+        _, _, genes = ttopic.load_model(model)
+        remap = tpred.build_gene_remap(genes, vec.row_names())
+        log_dict = tpred._load_log_dictionary(model, genes)
+        delta = tpred._model_table(str(tmp_path / name), "delta")
+        delta = np.stack([delta[f"batch{b}"] for b in range(3)], 1)
+        res = tpred.residual_csc(vec, z, log_dict, remap, delta_db=delta,
+                                 cell_batch=np.arange(vec.num_columns) % 3, device=device)
+        out[name] = (z, delta, res)
+    np.testing.assert_allclose(out["gpu"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out["gpu"][1], out["cpu"][1], rtol=1e-5, atol=1e-5)
+    rg, rc = out["gpu"][2], out["cpu"][2]
+    np.testing.assert_array_equal(rg.indices, rc.indices)
+    np.testing.assert_allclose(rg.data, rc.data, rtol=1e-5, atol=1e-5)
+
+
+def test_kmeans_and_hsblock_on_the_card_match_the_cpu(dev):
+    from legume_tpu_torch.ops.hsblock import hsblock_clustering
+    from legume_tpu_torch.ops.kmeans import kmeans
+    from legume_tpu_torch.ops.leiden import knn_adjacency
+
+    rng = np.random.default_rng(0)
+    centres = rng.normal(0.0, 10.0, (6, 5))
+    x = (centres[rng.integers(0, 6, 3000)] + rng.normal(0.0, 1.0, (3000, 5))).astype(np.float32)
+    gc, gl = kmeans(x, 6, seed=2, device=dev)
+    cc, cl = kmeans(x, 6, seed=2, device="cpu")
+    np.testing.assert_array_equal(gl, cl)
+    np.testing.assert_allclose(gc, cc, rtol=1e-5, atol=1e-5)
+    adj = knn_adjacency(x, k=10, device="cpu")
+    g = hsblock_clustering(adj, max_depth=4, seed=3, device=dev)
+    c = hsblock_clustering(adj, max_depth=4, seed=3, device="cpu")
+    assert _same_partition(g.membership, c.membership)
+
+
+def test_bhc_sums_launch_k3_and_match_collapse_plain(dev):
+    from legume_tpu_torch.senna.clustering import cluster_sums
+
+    vec = _small_vec()
+    labels = np.random.default_rng(1).integers(-1, 7, vec.num_columns)
+    kernels.reset_launch_counts()
+    got = cluster_sums(vec, labels, 7, block_size=256, device=dev)
+    assert kernels.launch_counts["collapse"] == -(-vec.num_columns // 256)
+    want = cluster_sums(vec, labels, 7, block_size=256, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

@@ -76,3 +76,30 @@ def test_generator_from_key_is_deterministic():
     b = torch.rand(4, generator=prng.generator_from_key(k))
     c = torch.rand(4, generator=prng.generator_from_key(prng.key(12)))
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape,lo,hi", [((), 0, 100_000), ((1000,), 0, 8), ((37,), 3, 70_000),
+                                         ((50,), 0, 2**31 - 1), ((20,), -5, 300)])
+def test_randint_bits_equal(seed, shape, lo, hi):
+    jk = jprng.key_from_seed(seed)
+    pk = prng.key_from_seed(seed)
+    want = np.asarray(jax.random.randint(jk, shape, lo, hi))
+    got = prng.randint(pk, shape, lo, hi)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", [5, 1000, 100_000])
+def test_choice_with_p_equal(seed, n):
+    import jax.numpy as jnp
+
+    jk = jprng.key_from_seed(seed)
+    pk = prng.key_from_seed(seed)
+    p = np.random.default_rng(n).random(n).astype(np.float32)
+    p /= p.sum()
+    np.testing.assert_array_equal(np.asarray(jnp.cumsum(jnp.asarray(p))), prng.cumsum_f32(p))
+    for shape in [(), (64,)]:
+        want = np.asarray(jax.random.choice(jk, n, shape, p=jnp.asarray(p)))
+        np.testing.assert_array_equal(prng.choice(pk, p, shape), want)

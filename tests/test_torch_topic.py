@@ -4,6 +4,8 @@ the collapse planes agree within 1e-5, the final per-count llik lies in
 the ELBO band of the JAX trainer, and a model saved by either package
 loads in the other."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -110,5 +112,44 @@ def test_cli_runs_and_rejects_unported_options(runs, tmp_path):
         assert (tmp_path / f"cli.{suffix}").exists()
     with pytest.raises(NotImplementedError, match="--qc"):
         port_cli(argv + ["--qc"])
+    with pytest.raises(NotImplementedError, match="--qc"):
+        port_cli(argv + ["--qc", "--qc-min-total", "500", "--qc-min-genes", "20",
+                         "--qc-max-mito-frac", "0.2"])
     with pytest.raises(NotImplementedError, match="decoder"):
         port_cli(argv + ["--decoder", "multinomial"])
+    # the JAX parser's flags pass through to `TopicArgs` (rho prior: no
+    # effect on the nb decoder, as in the JAX package)
+    flags = {"--rho-prior-weight": 0.1, "--rho-prior-alpha": 3.0, "--rho-prior-beta": 12.0,
+             "--amort-refine-steps": 2, "--amort-refine-lr": 0.02, "--amort-refine-reg": 0.5}
+    assert port_cli(argv + [str(x) for kv in flags.items() for x in kv]) == 0
+    params = json.loads((tmp_path / "cli.senna.json").read_text())["params"]
+    for flag, value in flags.items():
+        assert params[flag[2:].replace("-", "_")] == value
+
+
+def test_manifest_artifacts_match_jax(runs):
+    docs = {name: json.loads((runs["tmp"] / f"{name}.senna.json").read_text())
+            for name in ("jax", "port")}
+    assert docs["port"]["artifacts"] == docs["jax"]["artifacts"]
+    assert set(docs["port"]["artifacts"]) == {"latent", "pb_latent", "dictionary", "partition"}
+    for name, art in docs["port"]["artifacts"].items():
+        assert docs["port"]["outputs"][name].endswith((".parquet", ".npz"))
+
+
+def test_ignore_batch_partitions_and_elbo_band(runs):
+    """`--ignore-batch`: rSVD sign bits are arbitrary in both packages, so
+    the fine groups agree as a set partition (not by code), and the
+    levels above them, refined in code order, are held to the ELBO band."""
+    kw = dict(COMMON, ignore_batch=True)
+    jres = jtopic.fit_topic_model(jtopic.TopicArgs(data_files=runs["files"],
+                                                   out=str(runs["tmp"] / "jax_ib"), **kw))
+    tres = ttopic.fit_topic_model(ttopic.TopicArgs(data_files=runs["files"],
+                                                   out=str(runs["tmp"] / "port_ib"), **kw),
+                                  device="cpu")
+    jg, tg = jres["levels"].groups_per_level[0], tres["levels"].groups_per_level[0]
+    pairs = np.unique(np.stack([jg, tg], 1), axis=0)
+    assert len(pairs) == len(np.unique(jg)) == len(np.unique(tg))  # a bijection of groups
+    jl = np.asarray(jres["scores"].llik)
+    tl = np.asarray(tres["scores"].llik)
+    assert len(tl) == EPOCHS and np.isfinite(tl).all()
+    assert abs(tl[-1] - jl[-1]) / abs(jl[-1]) < 0.02, (tl[-1], jl[-1])
