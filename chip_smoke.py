@@ -61,7 +61,27 @@ Phases (any failure exits non-zero; nothing is caught):
 10. report whether phase 2's fine partition on the card equals the
    port's CPU projection and sort at 100,000 cells as a set partition
    (and as codes);
-11. print the script's total seconds, one JSON line of all kernels, then
+11. on predict's latent, through the port's CLI: `senna clustering --from`
+   (kmeans, recorded into predict's manifest), `senna layout` by umap
+   (CLI defaults: 15 neighbours, 200 epochs, so 2,000 SGD steps of 4,096
+   edges; `--from`, recorded into the manifest) and tumap `--pcs 5` at
+   all 100,000 cells, tsne on the first 10,000 and phate on the first
+   2,000 cells (both dense [N, N]), `senna pseudotime` (50 nodes) at
+   100,000 cells, `senna layout --method tree --from` that run, `senna
+   pseudotime --velocity` with a velocity toward each cell's kNN
+   neighbours of higher topic-0 share, and, where matplotlib imports,
+   `senna plot --from` and `senna plot-topic` (1,000 cells: matplotlib
+   draws a rectangle per cell and topic) with the topic run's
+   dictionary; each command's stage seconds, peak device bytes and
+   kernel launches (none of the four kernels is on these paths); every
+   layout finite; umap's neighbour preservation (the share of 15 latent
+   neighbours among 15 layout neighbours, 5,000 sampled cells); and on
+   3,000 of the cells the card against the port's CPU run: umap after 50
+   steps (and a second card run, bit-equal) and tsne after 50 iterations
+   within 1e-3, phate's squared distances bit-equal and its 200-step
+   refinement within 1e-3, pseudotime's nodes within 1e-4 with its tree,
+   assignments, branches and root equal;
+12. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
 
 Every kernel check launches the kernel twice on the same inputs and
@@ -374,6 +394,178 @@ def held_out_vec(sim_rows, seed: int):
     vec.push(MemoryBackend(held.counts.tocsr()[perm].tocsc(), [names[i] for i in perm],
                            held.col_names))
     return vec, held.batch
+
+
+def layout_phase(work: str, zp: np.ndarray, topic_out: str, K, dev, card: str) -> dict:
+    """Phase 11: `senna layout` (umap, tumap, tsne, phate, tree), `senna
+    pseudotime` (both modes), `senna plot` and `senna plot-topic` through
+    the port's CLI on the card, the card against the port's CPU run on
+    3,000 of the cells, and umap's neighbour preservation. Returns the
+    launches of the four kernels per command (none is on these paths)."""
+    from legume_tpu_torch.cli.main import main as cli
+    from legume_tpu_torch.ops import layouts as LY
+    from legume_tpu_torch.ops import principal_graph as PG
+    from legume_tpu_torch.ops import rounding
+    from legume_tpu_torch.ops import umap as U
+    from legume_tpu_torch.ops.knn import knn_search, knn_within
+    from legume_tpu_torch.utils.manifest import RunManifest
+    from legume_tpu_torch.utils.output import read_table, table_path, write_table
+
+    pred = f"{work}/predict"
+    latent = table_path(f"{pred}.latent")
+    cols = read_table(latent)
+    names = list(cols)
+    zl = np.exp(zp.astype(np.float32))  # the linear simplex the handlers lay out
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    print(json.dumps({"phase": "layout_setup", "matplotlib_importable": has_mpl}), flush=True)
+
+    def subset(stem, n):
+        return write_table(f"{work}/{stem}", {k: v[:n] for k, v in cols.items()})
+
+    lat10k, lat2k, lat1k = subset("lat10k", 10_000), subset("lat2k", 2_000), subset("lat1k", 1_000)
+    # velocity: toward each cell's kNN neighbours of higher topic-0 share
+    _, nbr = knn_within(zl, 15, device=dev)
+    up = (zl[nbr, 0] > zl[:, None, 0])[..., None]
+    vel = ((zl[nbr] - zl[:, None, :]) * up).sum(1) / np.maximum(up.sum(1), 1)
+    vel_path = write_table(f"{work}/velocity", {"cell": cols[names[0]],
+                                                **{f"v{j}": vel[:, j] for j in range(vel.shape[1])}})
+
+    runs = {}
+    launches = {}
+
+    def run(name, *argv, out=None):
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        cli(["senna", *argv, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches[name] = sum(K.launch_counts.values())
+        timings = RunManifest.load(f"{out}.senna.json").timings if out else {}
+        runs[name] = {"wall_s": wall, **timings,
+                      "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        print(json.dumps({"phase": "layout_command", "command": name, **runs[name],
+                          "kernel_launches": launches[name], "card": card}), flush=True)
+
+    run("clustering_kmeans_from", "clustering", "--from", pred, "--out", f"{work}/km2",
+        "--method", "kmeans", "--n-clusters", "10", out=f"{work}/km2")
+    run("layout_tumap_pcs5", "layout", "--latent", latent, "--out", f"{work}/tumap",
+        "--method", "tumap", "--pcs", "5", out=f"{work}/tumap")
+    run("layout_umap", "layout", "--from", pred, "--out", f"{work}/umap", out=f"{work}/umap")
+    run("layout_tsne_10k", "layout", "--latent", lat10k, "--out", f"{work}/tsne",
+        "--method", "tsne", out=f"{work}/tsne")
+    run("layout_phate_2k", "layout", "--latent", lat2k, "--out", f"{work}/phate",
+        "--method", "phate", out=f"{work}/phate")
+    run("pseudotime", "pseudotime", "--latent", latent, "--out", f"{work}/pt", "--root-cell", "0",
+        out=f"{work}/pt")
+    run("layout_tree", "layout", "--method", "tree", "--from", f"{work}/pt", "--out",
+        f"{work}/tree")
+    runs["layout_tree"].update({k: v for k, v in RunManifest.load(f"{work}/pt.senna.json")
+                                .timings.items() if k.startswith("tree_")})
+    run("pseudotime_velocity", "pseudotime", "--latent", latent, "--velocity", vel_path,
+        "--out", f"{work}/ptv", out=f"{work}/ptv")
+    if has_mpl:
+        run("plot_from", "plot", "--from", pred, "--out", f"{work}/plot.png")
+        dictionary = RunManifest.load(f"{topic_out}.senna.json").outputs["dictionary"]
+        run("plot_topic_1k", "plot-topic", "--latent", lat1k, "--dictionary", dictionary,
+            "--clusters", table_path(f"{work}/km2.clusters"), "--out", f"{work}/topics.png")
+        for f in ("plot.png", "topics.png", "topics.png.top_genes.tsv",
+                  "topics.png.dict_hinton.png"):
+            if not Path(f"{work}/{f}").stat().st_size:
+                raise AssertionError(f"plot output {f} is empty")
+
+    layouts = {}
+    for name in ("umap", "tumap", "tsne", "phate", "tree"):
+        stem = f"{work}/{name}.tree_layout.cell_coords" if name == "tree" else f"{work}/{name}.layout"
+        t = read_table(table_path(stem))
+        layouts[name] = np.stack([t["x"], t["y"]], 1)
+    want = {"umap": len(zl), "tumap": len(zl), "tsne": min(len(zl), 10_000),
+            "phate": min(len(zl), 2_000), "tree": len(zl)}
+    finite = {k: float(np.isfinite(v).all(1).mean()) for k, v in layouts.items()}
+    pman = RunManifest.load(f"{pred}.senna.json")
+    ptab = read_table(table_path(f"{work}/pt.pseudotime"))
+    vtab = read_table(table_path(f"{work}/ptv.pseudotime"))
+
+    # umap's neighbour preservation over 5,000 sampled cells
+    rng = np.random.default_rng(0)
+    sample = rng.choice(len(zl), min(len(zl), 5000), replace=False)
+
+    def neighbours(points):
+        _, idx = knn_search(points[sample], points, 16, device=dev)
+        return [row[row != c][:15] for row, c in zip(idx, sample)]
+
+    lat_nb, lay_nb = neighbours(zl), neighbours(layouts["umap"].astype(np.float32))
+    preserved = float(np.mean([len(np.intersect1d(a, b)) / 15 for a, b in zip(lat_nb, lay_nb)]))
+
+    # the card against the port's CPU run on the same 3,000 cells
+    x3 = np.ascontiguousarray(zl[:3000])
+    src, dst, w = U.fuzzy_edges(x3, 15, device="cpu")
+    a, b = U._fit_ab(0.1, 1.0)
+    xc = x3 - x3.mean(0)
+    u, s, _ = np.linalg.svd(xc, full_matrices=False)
+    emb0 = U.init_2d_from_scores(u[:, :2] * s[:2], 0)
+    sgd = dict(n_steps=50, batch=4096, n_points=3000, a=a, b=b)
+    probs = w / w.sum()
+    u_card = U._umap_sgd(0, emb0, src, dst, probs, device=dev, **sgd)
+    u_again = U._umap_sgd(0, emb0, src, dst, probs, device=dev, **sgd)
+    u_cpu = U._umap_sgd(0, emb0, src, dst, probs, device="cpu", **sgd)
+    t_card = LY.tsne(x3, n_iter=50, device=dev)
+    t_cpu = LY.tsne(x3, n_iter=50, device="cpu")
+    pd_card, y0 = LY.phate_init(x3, knn=15, device=dev)
+    d2_card = rounding.sq_dists(torch.as_tensor(x3).to(dev), fused=False).cpu()
+    d2_cpu = rounding.sq_dists(torch.as_tensor(x3), fused=False)
+    p_card = LY.phate_refine(pd_card, y0, n_iter=200, device=dev)
+    p_cpu = LY.phate_refine(pd_card, y0, n_iter=200, device="cpu")
+    g_card = PG.pseudotime(x3, root_cell=0, device=dev)
+    g_cpu = PG.pseudotime(x3, root_cell=0, device="cpu")
+    vs_cpu = {
+        "umap_50_steps": float(np.abs(u_card - u_cpu).max()),
+        "umap_scale": float(np.abs(u_cpu).max()),
+        "umap_rerun_bit_equal": bool(np.array_equal(u_card, u_again)),
+        "umap_bit_equal_to_cpu": bool(np.array_equal(u_card, u_cpu)),
+        "tsne_50_iterations": float(np.abs(t_card - t_cpu).max()),
+        "tsne_scale": float(np.abs(t_cpu).max()),
+        "phate_sq_dists_bit_equal": bool(torch.equal(d2_card, d2_cpu)),
+        "phate_refine_200": float(np.abs(p_card - p_cpu).max()),
+        "pseudotime_nodes": float(np.abs(g_card.nodes - g_cpu.nodes).max()),
+        "pseudotime_tree_equal": bool(np.array_equal(g_card.edges, g_cpu.edges)),
+        "pseudotime_cell_to_node_differ": int((g_card.cell_to_node != g_cpu.cell_to_node).sum()),
+        "pseudotime_branch_differ": int((g_card.branch != g_cpu.branch).sum()),
+        "pseudotime_root_equal": g_card.root == g_cpu.root,
+        "pseudotime_values": float(np.abs(g_card.pseudotime - g_cpu.pseudotime).max()),
+    }
+    print(json.dumps({
+        "phase": "layout_pseudotime_plot", "cells": len(zl), "runs": runs,
+        "finite_share": finite, "umap_neighbour_preservation_15": preserved,
+        "manifest_layout": pman.outputs.get("layout"), "manifest_clusters": pman.outputs.get("clusters"),
+        "pseudotime_range": [float(ptab["pseudotime"].min()), float(ptab["pseudotime"].max())],
+        "branches": int(len(np.unique(ptab["branch"]))),
+        "velocity_consistency_positive": float((vtab["consistency"] > 0).mean()),
+        "card_vs_cpu_3000": vs_cpu, "card": card,
+    }), flush=True)
+    for k, v in layouts.items():
+        if v.shape != (want[k], 2) or finite[k] < (0.9 if k == "tree" else 1.0):
+            raise AssertionError(f"layout {k}: shape {v.shape}, finite share {finite[k]}")
+    if not (pman.outputs.get("layout", "").endswith(("umap.layout.parquet", "umap.layout.npz"))
+            and pman.outputs.get("clusters")):
+        raise AssertionError(f"predict manifest lacks the layout or clusters: {pman.outputs}")
+    if not np.isfinite(ptab["pseudotime"]).all() or not np.isfinite(vtab["pseudotime"]).all():
+        raise AssertionError("pseudotime is not finite")
+    if any(launches.values()):
+        raise AssertionError(f"a layout command launched a kernel: {launches}")
+    if not vs_cpu["umap_rerun_bit_equal"]:
+        raise AssertionError("two card runs of umap differ")
+    if not vs_cpu["umap_50_steps"] <= 1e-3:
+        raise AssertionError(f"umap card vs CPU {vs_cpu['umap_50_steps']} > 1e-3")
+    if not vs_cpu["tsne_50_iterations"] <= 1e-3:
+        raise AssertionError(f"tsne card vs CPU {vs_cpu['tsne_50_iterations']} > 1e-3")
+    if not (vs_cpu["phate_sq_dists_bit_equal"] and vs_cpu["phate_refine_200"] <= 1e-3):
+        raise AssertionError(f"phate card vs CPU: {vs_cpu}")
+    if not (vs_cpu["pseudotime_nodes"] <= 1e-4 and vs_cpu["pseudotime_tree_equal"]
+            and vs_cpu["pseudotime_root_equal"] and vs_cpu["pseudotime_cell_to_node_differ"] == 0
+            and vs_cpu["pseudotime_branch_differ"] == 0):
+        raise AssertionError(f"pseudotime card vs CPU: {vs_cpu}")
+    return launches
 
 
 def main() -> int:
@@ -844,7 +1036,10 @@ def run(work: str, t_script: float) -> int:
         "proj_max_abs_diff": float(np.abs(levels.proj_kn - proj_cpu).max()), "card": card,
     }), flush=True)
 
-    # ---- phase 11: the kernels line, then the device line -----------------
+    # ---- phase 11: senna layout, pseudotime and plot on that latent ---------
+    layout_launches = layout_phase(work, zp, args.out, K, dev, card)
+
+    # ---- phase 12: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
     # and `shapes` holds every checked shape of K3 and K4, each with the
@@ -867,6 +1062,7 @@ def run(work: str, t_script: float) -> int:
             "launches": (blaunches[name] if name == "nce_epoch" else
                          launches[name] + claunches[name]),
             "launches_bge": blaunches[name],
+            "launches_layout_pseudotime_plot": sum(layout_launches.values()),
             **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),

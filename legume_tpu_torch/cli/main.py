@@ -1,11 +1,13 @@
 """Command line of the port: `python -m legume_tpu_torch.cli.main senna
-{topic,bge,predict,eval-topic,clustering} ...`.
+{topic,bge,predict,eval-topic,clustering,layout,pseudotime,plot,plot-topic}
+...`.
 
 The flags are those of the JAX package's commands; the ones the port
 does not carry yet are accepted and raise `NotImplementedError` when set.
 `--device` picks the torch device (default `cuda`). `--from <run>`
-resolves `clustering`'s latent from that run's `{run}.senna.json`, and
-the clusters path is recorded back into it.
+resolves the latent (and `plot-topic`'s dictionary) from that run's
+`{run}.senna.json`; `clustering` and `layout` record their outputs back
+into it.
 """
 
 from __future__ import annotations
@@ -130,30 +132,109 @@ def _clustering_parser(sub):
     return p
 
 
-def _manifest_path(run: str) -> str:
-    return run if run.endswith(".json") else run + ".senna.json"
+def _layout_parsers(sub):
+    p = sub.add_parser("layout", help="2D layout of a latent table")
+    p.add_argument("--latent", default=None)
+    p.add_argument("--from", dest="from_run", default=None,
+                   help="prefix of a prior run: inputs resolve from its manifest")
+    p.add_argument("--out", required=True)
+    p.add_argument("--method", choices=["umap", "tumap", "tsne", "phate", "tree"],
+                   default="umap")
+    p.add_argument("--n-neighbors", type=int, default=15)
+    p.add_argument("--epochs", type=int, default=200)
+    p.add_argument("--perplexity", type=float, default=30.0, help="tsne only")
+    p.add_argument("--pcs", type=int, default=0)
+    p.add_argument("--tree-jitter", type=float, default=0.08)
+    p.add_argument("--tree-jitter-seed", type=int, default=42)
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+    p = sub.add_parser("pseudotime", help="principal-graph pseudotime")
+    p.add_argument("--latent", default=None)
+    p.add_argument("--from", dest="from_run", default=None,
+                   help="prefix of a prior run: inputs resolve from its manifest")
+    p.add_argument("--out", required=True)
+    p.add_argument("--n-nodes", "--n-centroids", dest="n_nodes", type=int, default=50)
+    p.add_argument("--root-cell", type=int, default=None)
+    p.add_argument("--root-node", type=int, default=None)
+    p.add_argument("--gamma", "--lam", dest="lam", type=float, default=1.0)
+    p.add_argument("--sigma", type=float, default=0.1)
+    p.add_argument("--max-iter", type=int, default=30)
+    p.add_argument("--velocity", default=None,
+                   help="table of per-cell velocity in latent space; orients the tree "
+                        "and overrides --root-cell")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+    p = sub.add_parser("plot", help="scatter a layout colored by clusters")
+    p.add_argument("--layout", default=None, help="layout/latent table")
+    p.add_argument("--from", dest="from_run", default=None,
+                   help="prior run prefix: layout/latent + clusters resolve from its manifest")
+    p.add_argument("--clusters", default=None, help="clusters table")
+    p.add_argument("--colour-by", "--color-by", dest="colour_by",
+                   choices=["cluster", "topic", "pseudotime", "annotation"], default="cluster")
+    p.add_argument("--topics", type=int, nargs="+", default=None)
+    p.add_argument("--annotation", default=None)
+    p.add_argument("--pseudotime", default=None)
+    p.add_argument("--width", type=float, default=6.0)
+    p.add_argument("--height", type=float, default=5.0)
+    p.add_argument("--dpi", type=int, default=150)
+    p.add_argument("--point-size", type=float, default=3.0)
+    p.add_argument("--alpha", type=float, default=1.0)
+    p.add_argument("--hull", action="store_true")
+    p.add_argument("--hull-coverage", type=float, default=0.9)
+    p.add_argument("--hull-fill-alpha", type=float, default=0.15)
+    p.add_argument("--no-labels", action="store_true")
+    p.add_argument("--label-font-size", type=float, default=8.0)
+    p.add_argument("--svg", action="store_true")
+    p.add_argument("--png", action="store_true")
+    p.add_argument("--no-pdf", action="store_true")
+    p.add_argument("--out", required=True)
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda; unused)")
+
+    p = sub.add_parser("plot-topic", help="structure bars + top genes per topic")
+    p.add_argument("--latent", default=None)
+    p.add_argument("--from", dest="from_run", default=None)
+    p.add_argument("--out", required=True, help="output image (.png/.svg/.pdf)")
+    p.add_argument("--clusters", default=None)
+    p.add_argument("--dictionary", default=None)
+    p.add_argument("--top-genes", type=int, default=10)
+    p.add_argument("--group-by", default=None)
+    p.add_argument("--no-struct", action="store_true")
+    p.add_argument("--no-dict", action="store_true")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda; unused)")
+
+    p = sub.add_parser("plot-strand", help="Watson/Crick mirrored genomic-activity ideograms")
+    p.add_argument("--activity", required=True)
+    p.add_argument("--gff", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--bins", type=int, default=200)
+
+
+def _inherit_from(a):
+    """`--from` chaining (run_manifest.rs:848 inherit_from): the latent and
+    the dictionary resolve from a prior run's manifest."""
+    from ..utils.manifest import RunManifest, manifest_path
+
+    prev = RunManifest.load(manifest_path(a.from_run))
+    for key in ("latent", "dictionary"):
+        if hasattr(a, key) and getattr(a, key) is None and key in prev.outputs:
+            setattr(a, key, prev.outputs[key])
 
 
 def _run_clustering(a):
     from ..senna.clustering import ClusteringArgs, run_clustering
-    from ..utils.manifest import RunManifest
+    from ..utils.manifest import RunManifest, manifest_path, save_manifest_back
     from ..utils.output import table_path
 
-    if a.from_run and a.latent is None:
-        a.latent = RunManifest.load(_manifest_path(a.from_run)).outputs.get("latent")
-    if not a.latent:
-        raise SystemExit("clustering: provide --latent or --from <run prefix>")
     fields = {k: v for k, v in vars(a).items() if k not in ("cmd", "device", "from_run",
                                                             "no_degree_corrected")}
     labels = run_clustering(
         ClusteringArgs(**fields, degree_corrected=not a.no_degree_corrected), device=a.device
     )
     if a.from_run:  # record the clusters back into the source manifest
-        src = _manifest_path(a.from_run)
-        suffix = "senna.json" if src.endswith(".senna.json") else "json"
+        src = manifest_path(a.from_run)
         prev = RunManifest.load(src)
         prev.outputs["clusters"] = table_path(f"{a.out}.clusters")
-        prev.save(src[: -len(suffix) - 1], suffix)
+        save_manifest_back(prev, src)
     return labels
 
 
@@ -167,7 +248,17 @@ def run_senna(argv):
     _bge_parser(sub)
     _predict_parser(sub)
     _clustering_parser(sub)
+    _layout_parsers(sub)
     a = ap.parse_args(argv)
+    if getattr(a, "from_run", None) and a.cmd != "topic":
+        _inherit_from(a)
+    if (
+        a.cmd in ("clustering", "layout", "pseudotime", "plot-topic")
+        and not a.latent
+        # layout tree resolves its latent from the pseudotime manifest's inputs
+        and not (a.cmd == "layout" and a.method == "tree" and a.from_run)
+    ):
+        raise SystemExit(f"{a.cmd}: provide --latent or --from <run prefix>")
     if a.cmd == "bge":
         from .senna_cmds.embed_cmds import BgeArgs, run_bge
 
@@ -180,6 +271,17 @@ def run_senna(argv):
         return predict_model(PredictArgs(**fields), device=a.device)
     if a.cmd == "clustering":
         return _run_clustering(a)
+    if a.cmd in ("layout", "pseudotime", "plot", "plot-topic"):
+        from .senna_cmds import layout_cmds as L
+
+        if a.cmd == "layout" and a.method == "tree":
+            return L.cmd_layout_tree(a)
+        return {"layout": L.cmd_layout, "pseudotime": L.cmd_pseudotime, "plot": L.cmd_plot,
+                "plot-topic": L.cmd_plot_topic}[a.cmd](a)
+    if a.cmd == "plot-strand":
+        raise NotImplementedError(
+            "senna plot-strand needs faba's GFF gene reader (faba/genes.py), not ported yet"
+        )
     if not a.data_files and not a.from_run:
         raise SystemExit("topic: provide --data-files or --from <run prefix>")
     args = TopicArgs(
@@ -209,8 +311,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     logging.basicConfig(level=logging.INFO, format="[%(levelname)s %(name)s] %(message)s")
     if not argv or argv[0] != "senna":
-        print("usage: python -m legume_tpu_torch.cli.main senna "
-              "{topic,bge,predict,eval-topic,clustering} ...")
+        print("usage: python -m legume_tpu_torch.cli.main senna {topic,bge,predict,"
+              "eval-topic,clustering,layout,pseudotime,plot,plot-topic,plot-strand} ...")
         return 1
     run_senna(argv[1:])
     return 0

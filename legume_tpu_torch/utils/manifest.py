@@ -106,3 +106,14 @@ class RunManifest:
             timings=doc.get("timings", {}),
             engine=doc.get("engine", ""),
         )
+
+
+def manifest_path(run: str) -> str:
+    """The manifest of a `--from` value: the path itself or `{run}.senna.json`."""
+    return run if run.endswith(".json") else run + ".senna.json"
+
+
+def save_manifest_back(manifest: RunManifest, src: str) -> None:
+    """Write `manifest` back to the file `src` it was loaded from."""
+    suffix = "senna.json" if src.endswith(".senna.json") else "json"
+    manifest.save(src[: -len(suffix) - 1], suffix)

@@ -198,3 +198,72 @@ def generator_from_key(k: np.ndarray, device="cpu") -> torch.Generator:
     that are compared by distribution, not draw for draw)."""
     seed = (int(k[0]) << 32) | int(k[1])
     return torch.Generator(device=device).manual_seed(seed)
+
+
+# ---- the same streams on a device, one key per row ------------------------
+# The functions below take key data `[S, 2]` (int64 tensors holding uint32
+# words) and draw `n` values for each of the S keys at once, equal to the
+# numpy functions above called key by key. Words live in int64 and are
+# masked to 32 bits after every add and shift, so the wrap-around of
+# uint32 arithmetic is exact on any device.
+
+_M32 = 0xFFFFFFFF
+
+
+def _threefry_rows(k: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor):
+    k1, k2 = k[:, 0:1], k[:, 1:2]
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x1 + ks[0]) & _M32
+    b = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            a = (a + b) & _M32
+            b = (((b << r) & _M32) | (b >> (32 - r))) ^ a
+        a = (a + ks[(i + 1) % 3]) & _M32
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return a, b
+
+
+def key_rows(keys: np.ndarray, device) -> torch.Tensor:
+    """`[S, 2]` uint32 key data as the int64 tensor the `*_rows` functions take."""
+    return torch.from_numpy(np.asarray(keys, np.uint32).astype(np.int64)).to(device)
+
+
+def split_rows(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`split(key, num)` of each row: `[S, num, 2]`."""
+    ctr = torch.arange(num, dtype=torch.int64, device=keys.device)[None, :]
+    b1, b2 = _threefry_rows(keys, torch.zeros_like(ctr), ctr)
+    return torch.stack([b1, b2], dim=2)
+
+
+def bits_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`random_bits(key, (n,))` of each row: `[S, n]` int64 in [0, 2^32)."""
+    if n >= 1 << 32:
+        raise ValueError("bits_rows draws fewer than 2^32 values a key")
+    ctr = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    b1, b2 = _threefry_rows(keys, torch.zeros_like(ctr), ctr)
+    return b1 ^ b2
+
+
+def uniform_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`uniform(key, (n,))` on [0, 1) of each row: `[S, n]` float32."""
+    mant = (bits_rows(keys, n) >> 9) | 0x3F800000
+    return mant.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint_rows(keys: torch.Tensor, n: int, minval: int, maxval: int) -> torch.Tensor:
+    """`randint(key, (n,), minval, maxval)` of each row: `[S, n]` int64."""
+    halves = split_rows(keys)
+    hi, lo = bits_rows(halves[:, 0], n), bits_rows(halves[:, 1], n)
+    span = max(int(maxval) - int(minval), 1)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _M32) % span
+    off = ((((hi % span) * mult) & _M32) + lo % span) & _M32
+    return int(minval) + off % span
+
+
+def choice_rows(keys: torch.Tensor, cum: torch.Tensor, n: int) -> torch.Tensor:
+    """`choice(key, p, (n,))` of each row, given `cum = cumsum_f32(p)` as a
+    float32 tensor on the keys' device: `[S, n]` int64 indices into `p`."""
+    r = cum[-1] * (1.0 - uniform_rows(keys, n))
+    return torch.searchsorted(cum, r, side="left")

@@ -480,3 +480,68 @@ def test_bhc_sums_launch_k3_and_match_collapse_plain(dev):
     assert kernels.launch_counts["collapse"] == -(-vec.num_columns // 256)
     want = cluster_sums(vec, labels, 7, block_size=256, device="cpu")
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _simplex_cells(n, seed=0):
+    rng = np.random.default_rng(seed)
+    c = rng.dirichlet(np.full(6, 0.3), 5)
+    return (c[rng.integers(0, 5, n)] * 0.8 + rng.dirichlet(np.ones(6), n) * 0.2).astype(np.float32)
+
+
+def test_umap_on_the_card_matches_the_cpu_and_reruns_bit_equal(dev):
+    from legume_tpu_torch.ops import umap
+
+    x = _simplex_cells(600)
+    src, dst, w = umap.fuzzy_edges(x, 15, device="cpu")
+    u, s, _ = np.linalg.svd(x - x.mean(0), full_matrices=False)
+    emb0 = umap.init_2d_from_scores(u[:, :2] * s[:2], 0)
+    a, b = umap._fit_ab(0.1, 1.0)
+    kw = dict(n_steps=50, batch=1024, n_points=len(x), a=a, b=b)
+    probs = w / w.sum()
+    card = umap._umap_sgd(0, emb0, src, dst, probs, device=dev, **kw)
+    again = umap._umap_sgd(0, emb0, src, dst, probs, device=dev, **kw)
+    cpu = umap._umap_sgd(0, emb0, src, dst, probs, device="cpu", **kw)
+    np.testing.assert_array_equal(card, again)
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-3)
+    e_card, n_card = umap.sgd_draws(3, probs, n_steps=7, batch=100, n_points=600, device=dev)
+    e_cpu, n_cpu = umap.sgd_draws(3, probs, n_steps=7, batch=100, n_points=600, device="cpu")
+    assert torch.equal(e_card.cpu(), e_cpu) and torch.equal(n_card.cpu(), n_cpu)
+
+
+def test_tsne_and_phate_on_the_card_match_the_cpu(dev):
+    from legume_tpu_torch.ops import layouts
+
+    x = _simplex_cells(500, seed=1)
+    np.testing.assert_allclose(layouts.tsne(x, n_iter=50, device=dev),
+                               layouts.tsne(x, n_iter=50, device="cpu"), rtol=0, atol=1e-3)
+    pd_card, y0 = layouts.phate_init(x, knn=15, device=dev)
+    pd_cpu, y0_cpu = layouts.phate_init(x, knn=15, device="cpu")
+    np.testing.assert_array_equal(pd_card, pd_cpu)
+    np.testing.assert_array_equal(y0, y0_cpu)
+    np.testing.assert_allclose(layouts.phate_refine(pd_card, y0, n_iter=200, device=dev),
+                               layouts.phate_refine(pd_card, y0, n_iter=200, device="cpu"),
+                               rtol=0, atol=1e-3)
+
+
+def test_pseudotime_on_the_card_matches_the_cpu(dev):
+    from legume_tpu_torch.embedding.lineage import velocity_oriented_lineage
+    from legume_tpu_torch.ops import principal_graph as pg
+
+    x = _simplex_cells(2000, seed=2)
+    g = pg.pseudotime(x, n_nodes=30, root_cell=0, device=dev)
+    c = pg.pseudotime(x, n_nodes=30, root_cell=0, device="cpu")
+    np.testing.assert_allclose(g.nodes, c.nodes, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(g.edges, c.edges)
+    np.testing.assert_array_equal(g.cell_to_node, c.cell_to_node)
+    np.testing.assert_array_equal(g.branch, c.branch)
+    assert g.root == c.root
+    edges, _ = pg.edge_list_from_adjacency(c.nodes, c.edges)
+    ge, gt = pg.project_cells_to_edges(x, c.nodes, edges, device=dev)
+    ce, ct = pg.project_cells_to_edges(x, c.nodes, edges, device="cpu")
+    np.testing.assert_array_equal(ge, ce)
+    np.testing.assert_allclose(gt, ct, rtol=0, atol=1e-5)
+    vel = np.roll(x, -1, axis=0) - x
+    lg = velocity_oriented_lineage(x, vel, n_nodes=12, device=dev)
+    lc = velocity_oriented_lineage(x, vel, n_nodes=12, device="cpu")
+    assert lg.root_node == lc.root_node
+    np.testing.assert_allclose(lg.pseudotime, lc.pseudotime, rtol=0, atol=1e-5)
