@@ -81,7 +81,22 @@ Phases (any failure exits non-zero; nothing is caught):
    within 1e-3, phate's squared distances bit-equal and its 200-step
    refinement within 1e-3, pseudotime's nodes within 1e-4 with its tree,
    assignments, branches and root equal;
-12. print the script's total seconds, one JSON line of all kernels, then
+12. the `senna topic` options through the port's CLI entry point
+   (`run_senna` with the cells in memory), each run at the default
+   `TopicArgs` with 5 epochs and its kernel counts zeroed just before and
+   read just after (K1 and K3 required): `--decoder nb-mixture,multinomial
+   --decoder-weights 1 0.5 --rho-prior-weight 10 --max-coarse-features
+   1000 --qc --qc-max-mito-frac 0.2` on a view of phase 2's cells with 13
+   genes named `MT-` (the kept cells, each level's coarse features, every
+   artifact, alpha summing to 1, the dispersion positive, the full-D
+   dictionaries' columns on the simplex); `--decoder poisson --from`
+   phase 2's run (its partition exactly, no sort); `--init-from` phase
+   2's model (and a mismatched `-k` raising `ValueError`); `senna
+   predict` with the multi-decoder model on 10,000 held-out cells; and
+   on the first 4,096 cells the card against the CPU: each new decoder
+   family's llik and gradients (normwise, relative 1e-5) and QC's
+   statistics (exact);
+13. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
 
 Every kernel check launches the kernel twice on the same inputs and
@@ -568,6 +583,166 @@ def layout_phase(work: str, zp: np.ndarray, topic_out: str, K, dev, card: str) -
     return launches
 
 
+def decoder_forward_and_grads(name, x, log_z, fw, device) -> tuple[torch.Tensor, dict]:
+    """llik [N] and the gradients of sum(llik) (every parameter and log z)
+    of a seeded decoder of family `name` on `device`."""
+    from legume_tpu_torch.models.decoders import DECODERS
+
+    kw = dict(rho_prior_weight=10.0) if name == "nb-mixture" else {}
+    dec = DECODERS[name](x.shape[1], log_z.shape[1], generator=torch.Generator().manual_seed(4), **kw)
+    with torch.no_grad():  # the nuisance parameters off their constant inits
+        g = torch.Generator().manual_seed(5)
+        for pname, p in dec.named_parameters():
+            if pname != "dictionary":
+                p.add_(0.3 * torch.randn(p.shape, generator=g))
+    dec = dec.to(device)
+    lz = torch.from_numpy(log_z).to(device).requires_grad_(True)
+    _, llik = dec(lz, torch.from_numpy(x).to(device), torch.from_numpy(fw).to(device)[None, :])
+    llik.sum().backward()
+    grads = {n: p.grad.cpu() for n, p in dec.named_parameters()}
+    grads["log_z"] = lz.grad.cpu()
+    return llik.detach().cpu(), grads
+
+
+def topic_options_phase(work: str, sim, vec, topic_out: str, base_levels, held_sub, K, dev,
+                        card: str) -> dict:
+    """Phase 12: the `senna topic` options through the port's CLI entry
+    point on phase 2's cells (the JAX package's default `TopicArgs`, 5
+    epochs), each run's kernel counts zeroed just before and read just
+    after. Returns each kernel's launches summed over the phase's runs."""
+    from legume_tpu_torch.cli.main import run_senna
+    from legume_tpu_torch.data import MemoryBackend, SparseIoVec
+    from legume_tpu_torch.data.qc import compute_cell_qc
+    from legume_tpu_torch.senna import predict as P
+    from legume_tpu_torch.utils.output import read_table, table_path
+
+    # the same cells, with 13 genes named MT- so that QC's mito fraction is not all zero
+    names = [f"MT-{g}" if i < 13 else g for i, g in enumerate(sim.row_names)]
+    mt = SparseIoVec()
+    mt.push(MemoryBackend(sim.counts, names, sim.col_names))
+    mt.register_batches(sim.batch.astype(str))
+    runs, launches = {}, {}
+
+    def topic(name, data, *argv):
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = run_senna(["topic", "--out", f"{work}/{name}", "--epochs", "5", *argv,
+                         "--device", "cuda"], vec=data)
+        torch.cuda.synchronize()
+        launches[name] = dict(K.launch_counts)
+        runs[name] = {"argv": list(argv), "wall_s": time.time() - t0, **res["timings"],
+                      "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                      "launches": launches[name], "cells": len(res["latent"]),
+                      "groups_per_level": res["levels"].num_groups_per_level,
+                      "llik": [float(v) for v in res["scores"].llik]}
+        print(json.dumps({"phase": "topic_options_run", "run": name, **runs[name], "card": card}),
+              flush=True)
+        if launches[name]["project_normed"] == 0 or launches[name]["collapse"] == 0:
+            raise AssertionError(f"{name}: the topic run skipped K1 or K3: {launches[name]}")
+        z = res["latent"]
+        err = float(np.abs(np.exp(z.astype(np.float64)).sum(1) - 1.0).max())
+        if not (np.isfinite(z).all() and err <= 1e-3 and np.isfinite(res["scores"].llik).all()):
+            raise AssertionError(f"{name}: the latent is not a finite simplex ({err}) or the "
+                                 "llik is not finite")
+        return res
+
+    # 1. the reference's default decoder and QC
+    md = topic("opt_multi", mt, "--decoder", "nb-mixture,multinomial", "--decoder-weights", "1",
+               "0.5", "--rho-prior-weight", "10", "--max-coarse-features", "1000", "--qc",
+               "--qc-max-mito-frac", "0.2")
+    stem = f"{work}/opt_multi"
+    tables = {s: table_path(f"{stem}.{s}") for s in (
+        "dictionary", "nb-mixture.dictionary", "multinomial.dictionary", "nb-mixture.dispersion",
+        "nb-mixture.alpha", "nb-mixture.rho", "qc")}
+    missing = [s for s, path in tables.items() if path is None]
+    if missing:
+        raise AssertionError(f"the multi-decoder run lacks {missing}")
+    qc = read_table(tables["qc"])
+    alpha = read_table(tables["nb-mixture.alpha"])["alpha"]
+    phi = read_table(tables["nb-mixture.dispersion"])["dispersion"]
+    col_sums = {}
+    for s in ("dictionary", "nb-mixture.dictionary", "multinomial.dictionary"):
+        t = read_table(tables[s])
+        beta = np.exp(np.stack([t[f"topic{k}"] for k in range(10)], 1).astype(np.float64))
+        col_sums[s] = float(np.abs(beta.sum(0) - 1.0).max())
+    multi = {
+        "cells": int(len(qc["keep"])), "cells_kept": int(qc["keep"].sum()),
+        "mito_frac_max": float(qc["mito_frac"].max()),
+        "coarse_features_per_level": [fc.num_coarse for fc in md["coarsenings"]],
+        "alpha_sum": float(alpha.sum()), "dispersion_min": float(phi.min()),
+        "dictionary_col_sum_max_err": col_sums,
+        "rho": dict(zip(read_table(tables["nb-mixture.rho"])["coef"].tolist(),
+                        read_table(tables["nb-mixture.rho"])["value"].tolist())),
+    }
+    if not (abs(multi["alpha_sum"] - 1.0) <= 1e-4 and (phi > 0).all() and len(phi) == len(names)
+            and max(col_sums.values()) <= 1e-3 and multi["cells_kept"] == len(md["latent"])):
+        raise AssertionError(f"the multi-decoder run's artifacts: {multi}")
+
+    # 2. poisson on phase 2's partition
+    fr = topic("opt_from", vec, "--decoder", "poisson", "--from", topic_out)
+    same = bool(np.array_equal(fr["levels"].groups_per_level[0], base_levels.groups_per_level[0])
+                and len(fr["levels"].level_maps) == len(base_levels.level_maps)
+                and all(np.array_equal(a, b) for a, b in zip(fr["levels"].level_maps,
+                                                             base_levels.level_maps)))
+    if not same or "sort_refine_s" in fr["timings"]:
+        raise AssertionError("--from did not reuse phase 2's partition exactly, or sorted again")
+
+    # 3. warm start from phase 2's model; a mismatched K raises
+    topic("opt_init", vec, "--init-from", topic_out)
+    try:
+        run_senna(["topic", "--out", f"{work}/opt_init_k5", "--init-from", topic_out, "-k", "5",
+                   "--device", "cuda"], vec=vec)
+    except ValueError as e:
+        mismatch = str(e)[:80]
+    else:
+        raise AssertionError("--init-from with a mismatched -k ran")
+
+    # 4. predict with run 1's model on 10,000 held-out cells
+    K.reset_launch_counts()
+    t0 = time.time()
+    zp = P.predict_model(P.PredictArgs(model=stem, out=f"{work}/opt_predict"), vec=held_sub,
+                         device=dev)
+    torch.cuda.synchronize()
+    launches["opt_predict"] = dict(K.launch_counts)
+    p_err = float(np.abs(np.exp(zp.astype(np.float64)).sum(1) - 1.0).max())
+    predict = {"cells": len(zp), "run_s": time.time() - t0, "simplex_max_err": p_err,
+               "launches": launches["opt_predict"]}
+    if not (np.isfinite(zp).all() and p_err <= 1e-3):
+        raise AssertionError(f"predict with the multi-decoder model: {predict}")
+
+    # 5. card against CPU on the first 4,096 cells: each new family's
+    # llik and gradients (normwise, relative 1e-5), QC's statistics exact
+    first = SparseIoVec()
+    first.push(MemoryBackend(mt.read_columns_csc(np.arange(4096)), names))
+    x = np.ascontiguousarray(first.read_columns_csc(np.arange(4096)).T.toarray(), np.float32)
+    rng = np.random.default_rng(12)
+    log_z = np.log(rng.dirichlet(np.ones(10), 4096)).astype(np.float32)
+    fw = rng.uniform(0.2, 1.0, x.shape[1]).astype(np.float32)
+    vs_cpu = {}
+    for fam in ("multinomial", "poisson", "nb-mixture"):
+        gl, gg = decoder_forward_and_grads(fam, x, log_z, fw, dev)
+        cl, cg = decoder_forward_and_grads(fam, x, log_z, fw, "cpu")
+        vs_cpu[fam] = {"llik": float((gl - cl).abs().max()) / float(cl.abs().max()),
+                       **{k: float((gg[k] - cg[k]).abs().max()) / float(cg[k].abs().max())
+                          for k in cg}}
+    qg = compute_cell_qc(first, device=dev)
+    qcpu = compute_cell_qc(first, device="cpu")
+    qc_equal = {f: bool(np.array_equal(getattr(qg, f), getattr(qcpu, f)))
+                for f in ("total", "n_genes", "mito_frac")}
+    print(json.dumps({
+        "phase": "topic_options", "multi_decoder": multi, "from_same_partition": same,
+        "init_from_mismatch": mismatch, "predict": predict,
+        "card_vs_cpu_4096": {"decoders_normwise_rel": vs_cpu, "qc_equal": qc_equal},
+        "card": card,
+    }), flush=True)
+    bad = {f: v for f, d in vs_cpu.items() for k, v in d.items() if not v <= 1e-5}
+    if bad or not all(qc_equal.values()):
+        raise AssertionError(f"card against CPU: decoders {bad}, qc {qc_equal}")
+    names_k = sorted({k for counts in launches.values() for k in counts})
+    return {k: sum(counts.get(k, 0) for counts in launches.values()) for k in names_k}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1039,7 +1214,10 @@ def run(work: str, t_script: float) -> int:
     # ---- phase 11: senna layout, pseudotime and plot on that latent ---------
     layout_launches = layout_phase(work, zp, args.out, K, dev, card)
 
-    # ---- phase 12: the kernels line, then the device line -----------------
+    # ---- phase 12: the senna topic options ------------------------------------
+    option_launches = topic_options_phase(work, sim, vec, args.out, levels, sub, K, dev, card)
+
+    # ---- phase 13: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
     # and `shapes` holds every checked shape of K3 and K4, each with the
@@ -1047,7 +1225,8 @@ def run(work: str, t_script: float) -> int:
     # the count of the kernel's own main paths: `senna topic` for K1-K2,
     # `senna topic` and `senna clustering`'s BHC sums for K3, `senna bge`
     # for K4; `launches_bge` is each kernel's count in bge,
-    # `launches_clustering` K3's in clustering.
+    # `launches_clustering` K3's in clustering, `launches_topic_options`
+    # each kernel's count summed over phase 12's runs.
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
@@ -1063,6 +1242,7 @@ def run(work: str, t_script: float) -> int:
                          launches[name] + claunches[name]),
             "launches_bge": blaunches[name],
             "launches_layout_pseudotime_plot": sum(layout_launches.values()),
+            "launches_topic_options": option_launches.get(name, 0),
             **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),

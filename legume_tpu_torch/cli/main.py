@@ -7,7 +7,10 @@ does not carry yet are accepted and raise `NotImplementedError` when set.
 `--device` picks the torch device (default `cuda`). `--from <run>`
 resolves the latent (and `plot-topic`'s dictionary) from that run's
 `{run}.senna.json`; `clustering` and `layout` record their outputs back
-into it.
+into it. `senna topic --from <run>` inherits the run's data files and
+reuses its cell -> pseudobulk partition. A caller holding the cells in
+memory passes them to `run_senna(argv, vec=)`; `topic` then reads them
+instead of `--data-files`.
 """
 
 from __future__ import annotations
@@ -238,7 +241,7 @@ def _run_clustering(a):
     return labels
 
 
-def run_senna(argv):
+def run_senna(argv, *, vec=None):
     from ..senna.topic import TopicArgs, fit_topic_model
     from ..utils.prng import DEFAULT_PROJECTION_SEED
 
@@ -282,7 +285,7 @@ def run_senna(argv):
         raise NotImplementedError(
             "senna plot-strand needs faba's GFF gene reader (faba/genes.py), not ported yet"
         )
-    if not a.data_files and not a.from_run:
+    if not a.data_files and not a.from_run and vec is None:
         raise SystemExit("topic: provide --data-files or --from <run prefix>")
     args = TopicArgs(
         data_files=a.data_files, out=a.out, from_run=a.from_run, init_from=a.init_from,
@@ -304,7 +307,7 @@ def run_senna(argv):
         data_parallel=a.data_parallel,
         seed=a.seed if a.seed is not None else DEFAULT_PROJECTION_SEED,
     )
-    return fit_topic_model(args, device=a.device)
+    return fit_topic_model(args, vec=vec, device=a.device)
 
 
 def main(argv=None) -> int:

@@ -90,3 +90,45 @@ class SparseIoVec:
 
     def batch_names(self) -> list[str]:
         return list(self._batch_names or ["0"])
+
+    def subset_columns(self, keep: np.ndarray) -> "ColumnSubsetVec":
+        """View over the kept columns (the QC keep mask)."""
+        return ColumnSubsetVec(self, np.asarray(keep))
+
+
+class ColumnSubsetVec:
+    """Column-subset view of a `SparseIoVec`: the keep mask (bool) or
+    column indices apply at read time, and nothing is rewritten."""
+
+    def __init__(self, base, keep: np.ndarray):
+        keep = np.asarray(keep)
+        self._idx = (np.nonzero(keep)[0] if keep.dtype == bool else keep).astype(np.int64)
+        self._base = base
+
+    @property
+    def num_rows(self) -> int:
+        return self._base.num_rows
+
+    @property
+    def num_columns(self) -> int:
+        return len(self._idx)
+
+    def row_names(self):
+        return self._base.row_names()
+
+    def column_names(self):
+        names = self._base.column_names()
+        return [names[j] for j in self._idx]
+
+    def read_columns_csc(self, columns) -> sp.csc_matrix:
+        return self._base.read_columns_csc(self._idx[np.asarray(columns, np.int64)])
+
+    @property
+    def num_batches(self) -> int:
+        return self._base.num_batches
+
+    def batch_membership(self) -> np.ndarray:
+        return self._base.batch_membership()[self._idx]
+
+    def batch_names(self):
+        return self._base.batch_names()

@@ -1,6 +1,13 @@
-"""The NB topic decoder (the port of `NbTopicDecoder` from the JAX
-package's `models/decoders.py`): mu = library size * softmax-dictionary
-proportions, with a learned per-gene dispersion."""
+"""The topic decoders (the port of the JAX package's `models/decoders.py`
+without `gaussian-nb`, which belongs to `senna vae`).
+
+Every family shares a softmax dictionary: trainable logits `W [K, D]`,
+`log beta_kd = log_softmax_D(W)`. `forward_log` is the plain
+`exp(log z) @ exp(log beta)` product, as in the JAX package (no Pallas
+kernel there). The initialisers are flax's: the logits N(0, 1), `log_phi`
+0.693 (ln 2), `log_alpha` 0, `rho_a` -0.5, `rho_b` 0. Each module takes
+an explicit `generator` for its random init.
+"""
 
 from __future__ import annotations
 
@@ -18,20 +25,41 @@ def forward_log(log_z_nk: torch.Tensor, log_beta_kd: torch.Tensor) -> torch.Tens
     return torch.log(torch.exp(log_z_nk) @ torch.exp(log_beta_kd) + _LOG_EPS)
 
 
-class NbTopicDecoder(nn.Module):
+class _SoftmaxTopicDecoder(nn.Module):
+    """The [K, D] dictionary logits every family shares."""
+
     def __init__(self, n_features: int, n_topics: int, generator: torch.Generator | None = None):
         super().__init__()
         self.n_features = n_features
         self.n_topics = n_topics
-        # [K, D] logits, N(0, 1) as flax's `normal(stddev=1.0)`; ln 2 dispersion
         self.dictionary = nn.Parameter(torch.randn(n_topics, n_features, generator=generator))
-        self.log_phi = nn.Parameter(torch.full((1, n_features), 0.693))
 
     def log_beta_kd(self) -> torch.Tensor:
         return torch.log_softmax(self.dictionary, dim=-1)
 
+    def get_dictionary(self) -> torch.Tensor:
+        """log beta as [D, K]."""
+        return self.log_beta_kd().T
+
+
+class MultinomTopicDecoder(_SoftmaxTopicDecoder):
+    """llik = sum_d w_d x_nd log recon_nd."""
+
     def forward(self, log_z_nk, x_nd, feature_weights=None):
         """(recon [N, D], llik [N])."""
+        log_recon = forward_log(log_z_nk, self.log_beta_kd())
+        wx = x_nd if feature_weights is None else x_nd * feature_weights
+        return torch.exp(log_recon), torch.sum(wx * log_recon, dim=-1)
+
+
+class NbTopicDecoder(_SoftmaxTopicDecoder):
+    """mu = library size * proportions, per-gene learned dispersion."""
+
+    def __init__(self, n_features: int, n_topics: int, generator: torch.Generator | None = None):
+        super().__init__(n_features, n_topics, generator)
+        self.log_phi = nn.Parameter(torch.full((1, n_features), 0.693))
+
+    def forward(self, log_z_nk, x_nd, feature_weights=None):
         recon = torch.exp(forward_log(log_z_nk, self.log_beta_kd()))
         mu = recon * x_nd.sum(dim=-1, keepdim=True)
         elem = losses.nb_log_likelihood_elem(x_nd, mu, self.log_phi)
@@ -39,6 +67,64 @@ class NbTopicDecoder(nn.Module):
             elem = elem * feature_weights
         return recon, elem.sum(dim=-1)
 
-    def get_dictionary(self) -> torch.Tensor:
-        """log beta as [D, K]."""
-        return self.log_beta_kd().T
+
+class PoissonTopicDecoder(_SoftmaxTopicDecoder):
+    """rate = library size * proportions + 1e-8; llik = x log rate - rate."""
+
+    def forward(self, log_z_nk, x_nd, feature_weights=None):
+        recon = torch.exp(forward_log(log_z_nk, self.log_beta_kd()))
+        rate = recon * x_nd.sum(dim=-1, keepdim=True) + 1e-8
+        elem = x_nd * torch.log(rate) - rate
+        if feature_weights is not None:
+            elem = elem * feature_weights
+        return recon, elem.sum(dim=-1)
+
+
+class NbMixtureTopicDecoder(_SoftmaxTopicDecoder):
+    """NB with a learned ambient profile:
+
+      rho_n = sigmoid(rho_a log(L_n + 1e-8) + rho_b)   per sample
+      pi_nd = (1 - rho_n) theta beta + rho_n softmax(log_alpha)
+      y_nd ~ NB(L_n pi_nd, phi_d)
+
+    With `rho_prior_weight > 0` the llik gains w ((a-1) log(rho + 1e-6)
+    + (b-1) log(1 - rho + 1e-6)), a Beta(a, b) log prior up to its
+    constant."""
+
+    def __init__(self, n_features: int, n_topics: int, rho_prior_weight: float = 0.0,
+                 rho_prior_alpha: float = 2.0, rho_prior_beta: float = 18.0,
+                 generator: torch.Generator | None = None):
+        super().__init__(n_features, n_topics, generator)
+        self.rho_prior_weight = rho_prior_weight
+        self.rho_prior_alpha = rho_prior_alpha
+        self.rho_prior_beta = rho_prior_beta
+        self.log_phi = nn.Parameter(torch.full((1, n_features), 0.693))
+        self.log_alpha = nn.Parameter(torch.zeros(1, n_features))
+        self.rho_a = nn.Parameter(torch.full((1, 1), -0.5))
+        self.rho_b = nn.Parameter(torch.zeros(1, 1))
+
+    def forward(self, log_z_nk, x_nd, feature_weights=None):
+        log_recon = forward_log(log_z_nk, self.log_beta_kd())
+        amb = torch.softmax(self.log_alpha, dim=-1)
+        lib = x_nd.sum(dim=-1, keepdim=True)
+        rho = torch.sigmoid(torch.log(lib + 1e-8) * self.rho_a + self.rho_b)  # [N, 1]
+        recon = (1.0 - rho) * torch.exp(log_recon) + rho * amb
+        elem = losses.nb_log_likelihood_elem(x_nd, recon * lib, self.log_phi)
+        if feature_weights is not None:
+            elem = elem * feature_weights
+        llik = elem.sum(dim=-1)
+        if self.rho_prior_weight > 0.0:
+            eps = 1e-6
+            log_prior = (self.rho_prior_alpha - 1.0) * torch.log(rho + eps) + (
+                self.rho_prior_beta - 1.0
+            ) * torch.log(1.0 - rho + eps)
+            llik = llik + self.rho_prior_weight * log_prior[:, 0]
+        return recon, llik
+
+
+DECODERS = {
+    "multinomial": MultinomTopicDecoder,
+    "nb": NbTopicDecoder,
+    "poisson": PoissonTopicDecoder,
+    "nb-mixture": NbMixtureTopicDecoder,
+}

@@ -1,5 +1,9 @@
 """Multilevel topic-VAE trainer (the port of `MixedTrainer` from the JAX
-package's `models/train.py`, one decoder per level).
+package's `models/train.py`).
+
+`decoders[level]` is one decoder, or a list of decoder families scored
+on the same `log z` and target, whose lliks sum with `decoder_weights`
+(default equal). The anchor penalty acts on every decoder of a level.
 
 A shared encoder and one decoder per pseudobulk level train with AdamW
 (weight decay 0.01) under a global-norm gradient clip that skips the
@@ -93,11 +97,15 @@ class MixedTrainer:
         feature_weights: Sequence[Optional[np.ndarray]] | None = None,
         anchor_weights: Sequence[np.ndarray] | None = None,  # per level [K, D]
         anchor_penalty: float = 0.0,
+        decoder_weights: Sequence[float] | None = None,
         device="cuda",
     ):
         self.device = torch.device(device)
         self.encoder = encoder.to(self.device)
-        self.decoders = torch.nn.ModuleList(decoders).to(self.device)
+        self.decoders = torch.nn.ModuleList(
+            torch.nn.ModuleList(d) if isinstance(d, (list, tuple)) else d for d in decoders
+        ).to(self.device)
+        self.decoder_weights = list(decoder_weights) if decoder_weights else None
         self.config = config
         fws = feature_weights if feature_weights is not None else [None] * len(decoders)
         self.feature_weights = [
@@ -119,13 +127,24 @@ class MixedTrainer:
         """(loss, sum llik, sum kl, sum counts) over the real rows."""
         log_z, kl = self.encoder(xb, nb, train=True, eps=eps)
         log_z = smooth_topics(log_z, self.config.topic_smoothing)
-        dec = self.decoders[level]
-        _, llik = dec(log_z, yb, self.feature_weights[level])
+        decs = self.level_decoders(level)
+        fw = self.feature_weights[level]
+        if isinstance(self.decoders[level], torch.nn.ModuleList):
+            weights = self.decoder_weights or [1.0] * len(decs)
+            llik = sum(dw * dec(log_z, yb, fw)[1] for dec, dw in zip(decs, weights))
+        else:
+            llik = decs[0](log_z, yb, fw)[1]
         loss = torch.sum((kl - llik) * wb) / torch.clamp(wb.sum(), min=1.0)
         if self.anchor_weights is not None and self.anchor_penalty > 0:
-            ce = -torch.mean(torch.sum(self.anchor_weights[level] * dec.log_beta_kd(), dim=-1))
-            loss = loss + self.anchor_penalty * ce
+            for dec in decs:
+                ce = -torch.mean(torch.sum(self.anchor_weights[level] * dec.log_beta_kd(), dim=-1))
+                loss = loss + self.anchor_penalty * ce
         return loss, (llik * wb).sum(), (kl * wb).sum(), (yb.sum(-1) * wb).sum()
+
+    def level_decoders(self, level: int) -> list[torch.nn.Module]:
+        """The decoder families of one level, as a list."""
+        dec = self.decoders[level]
+        return list(dec) if isinstance(dec, torch.nn.ModuleList) else [dec]
 
     def _clip_and_step(self):
         """Global-norm clip with the non-finite skip, then AdamW."""
@@ -159,12 +178,38 @@ class MixedTrainer:
             sums += torch.stack([llik.detach(), kl.detach(), cnt.detach()])
         return sums
 
+    def warm_start(self, encoder_state: dict, decoder_states: Sequence) -> None:
+        """Overlay the matching parameters of a saved model (the JAX
+        trainer's `init_params`): every parameter named in the states
+        takes the saved value, a parameter the states lack keeps its
+        init, and the BatchNorm running statistics start fresh, as the
+        JAX package overlays `params` only. The optimizer state starts
+        fresh too."""
+
+        def overlay(module, state, where):
+            for name, p in module.named_parameters():
+                if name not in state:
+                    continue
+                if tuple(state[name].shape) != tuple(p.shape):
+                    raise ValueError(f"warm start: {where}.{name} has shape "
+                                     f"{tuple(state[name].shape)}, the model {tuple(p.shape)}")
+                p.copy_(state[name].to(p.device))
+
+        with torch.no_grad():
+            overlay(self.encoder, encoder_state, "encoder")
+            for level, state in enumerate(decoder_states[: len(self.decoders)]):
+                states = state if isinstance(state, (list, tuple)) else [state]
+                for fam, (dec, st) in enumerate(zip(self.level_decoders(level), states)):
+                    overlay(dec, st, f"decoder_{level}/{fam}")
+        self.optimizer.state.clear()
+
     def train(
         self, level_data: Sequence[LevelData], gen: torch.Generator,
         *, init_dictionaries: Sequence[np.ndarray] | None = None,
     ) -> TrainScores:
-        """Train all levels; `init_dictionaries[i]` overwrites decoder i's
-        [K, D] logits first. `gen` lives on the training device."""
+        """Train all levels; `init_dictionaries[i]` overwrites the [K, D_i]
+        logits of level i's decoder first (a single family per level).
+        `gen` lives on the training device."""
         cfg = self.config
         if init_dictionaries is not None:
             with torch.no_grad():

@@ -2,7 +2,8 @@
 the JAX package's `senna/predict.py`).
 
 Loads a model saved by `senna topic` in either package (weights,
-metadata, training gene names), maps the held-out backend's gene rows
+metadata, training gene names; every decoder family, coarsened and
+multi-decoder models too, though only the encoder scores), maps the held-out backend's gene rows
 onto the training vocabulary (case-insensitive exact match, then `_`
 tokens; many-to-one), and streams cell blocks through the encoder at
 eval, optionally with a per-batch null stream, per-batch delta

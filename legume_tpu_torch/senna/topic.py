@@ -3,17 +3,22 @@ JAX package's `senna/topic.py`).
 
 Pipeline:
 
-1. load backends into a `SparseIoVec`;
+1. load backends into a `SparseIoVec` (`--from`: the inputs and the
+   cell -> pseudobulk partition of a prior run); `--qc` keeps the cells
+   inside its floors and MAD fences;
 2. streaming JL projection (kernel K1 on the card) and batch centering;
 3. binary sort of the cells into fine pseudobulk groups, the level
-   ladder by masking sort bits, BBKNN + DC-Poisson refinement;
+   ladder by masking sort bits, BBKNN + DC-Poisson refinement (skipped
+   when `--from` supplies the partition);
 4. per level: sufficient statistics (kernel K3 on the card), the
    Poisson-Gamma `optimize`, one `CollapsedOut` each;
-5. per-level training triples by posterior sampling of the planes;
-6. shared `LogSoftmaxEncoder` + one `NbTopicDecoder` per level;
-7. outputs: per-cell latent, pseudobulk latent, dictionary, batch
-   effects, dispersion, llik/kl traces, model weights, partition and a
-   `{out}.senna.json` manifest.
+5. per-level training triples by posterior sampling of the planes, the
+   decoder targets coarsened per level under `--max-coarse-features`;
+6. shared `LogSoftmaxEncoder` + per level one decoder, or one per family
+   of `--decoder a,b`; the anchor prior or `--init-from` starts them;
+7. outputs: per-cell latent, pseudobulk latent, dictionary (per family
+   too), batch effects, the decoders' nuisance tables, llik/kl traces,
+   model weights, partition and a `{out}.senna.json` manifest.
 
 Every entry point runs on the card unless the caller passes
 `device="cpu"`.
@@ -35,14 +40,14 @@ import torch
 from ..data import MemoryBackend, SparseIoVec, open_sparse_matrix
 from ..data.visitors import visit_columns_by_block
 from ..models.convert import params_from_jax, params_to_jax
-from ..models.decoders import NbTopicDecoder
+from ..models.decoders import DECODERS
 from ..models.encoders import LogSoftmaxEncoder
 from ..models.train import LevelData, MixedTrainer, TrainConfig
 from ..ops import collapse as clp
 from ..ops import random_projection as rp
 from ..ops import sparse as sparse_ops
 from ..utils import prng
-from ..utils.manifest import ArtifactScale, RunManifest
+from ..utils.manifest import ArtifactScale, RunManifest, manifest_path
 from ..utils.output import matrix_columns, write_table
 from ..utils.prng import DEFAULT_PROJECTION_SEED
 
@@ -101,22 +106,29 @@ class TopicArgs:
     seed: int = DEFAULT_PROJECTION_SEED
 
 
+def decoder_names(decoder: str) -> list[str]:
+    """The families of `--decoder`: one name, or several separated by
+    commas or spaces."""
+    return [s for s in decoder.replace(",", " ").split() if s]
+
+
 def check_supported(args: TopicArgs):
     """Options the port does not carry yet raise instead of running
-    something else."""
+    something else; an unknown decoder family is an error."""
+    names = decoder_names(args.decoder)
     off = {
-        "--qc": args.qc,
-        "--max-coarse-features": args.max_coarse_features,
         "--cnv": args.cnv,
-        "--init-from": args.init_from,
-        "--from": args.from_run,
         "--data-parallel": args.data_parallel,
-        "--decoder-weights": args.decoder_weights,
-        "--decoder other than nb": args.decoder.strip() != "nb",
+        "--decoder gaussian-nb": "gaussian-nb" in names,
     }
     missing = [name for name, on in off.items() if on]
     if missing:
         raise NotImplementedError(f"senna topic port does not support {', '.join(missing)} yet")
+    unknown = [n for n in names if n not in DECODERS]
+    if not names or unknown:
+        raise ValueError(f"unknown decoder {unknown or args.decoder!r}; choose from {sorted(DECODERS)}")
+    if args.decoder_weights and len(args.decoder_weights) != len(names):
+        raise ValueError(f"{len(args.decoder_weights)} decoder weights for {len(names)} decoders")
 
 
 def compute_level_sort_dims(finest: int, num_levels: int) -> list[int]:
@@ -233,10 +245,14 @@ def refine_hierarchy_maps(
 
 
 def load_and_collapse(
-    vec, args: TopicArgs, *, timings: dict | None = None, device="cuda"
+    vec, args: TopicArgs, *, partition: dict | None = None, timings: dict | None = None,
+    device="cuda",
 ) -> CollapsedLevels:
     """Projection + binary sort + partition refinement + multilevel
-    collapse."""
+    collapse. `partition` (a prior run's `{out}.partition.npz`, through
+    `--from`) supplies `fine_groups` and `level_maps` and skips the sort
+    and the refinement; the projection still runs (the matched statistics
+    need the cells' coordinates)."""
     timings = timings if timings is not None else {}
     batches = vec.batch_membership()
     num_batches = vec.num_batches if not args.ignore_batch else 1
@@ -264,21 +280,34 @@ def load_and_collapse(
     timings["projection_s"] = time.time() - t0
 
     level_dims = compute_level_sort_dims(args.sort_dim, args.num_levels)
-    t0 = time.time()
-    fine_codes = rp.binary_sort_columns(proj_kn, level_dims[0], seed=args.seed, device=device)
-    uniq_codes, fine_groups = np.unique(fine_codes, return_inverse=True)
-    fine_groups = fine_groups.astype(np.int32)
-    s_fine = len(uniq_codes)
-    if args.refine:
-        level_maps = refine_hierarchy_maps(
-            proj_kn, fine_groups, uniq_codes, level_dims, args, device=device
-        )
+    if partition is not None:
+        fine_groups = np.asarray(partition["fine_groups"], np.int32)
+        if len(fine_groups) != vec.num_columns:
+            raise ValueError(
+                f"inherited partition covers {len(fine_groups)} cells but the "
+                f"data has {vec.num_columns}"
+            )
+        level_maps = [np.asarray(m, np.int32) for m in partition["level_maps"]]
+        level_dims = level_dims[: len(level_maps)]
+        fine_codes = fine_groups.astype(np.int64)
+        s_fine = int(fine_groups.max()) + 1
+        log.info("reusing inherited cell->pb partition (%d fine pbs)", s_fine)
     else:
-        level_maps = []
-        for dim in level_dims:
-            _, f2c = np.unique(uniq_codes & ((1 << dim) - 1), return_inverse=True)
-            level_maps.append(f2c.astype(np.int32))
-    timings["sort_refine_s"] = time.time() - t0
+        t0 = time.time()
+        fine_codes = rp.binary_sort_columns(proj_kn, level_dims[0], seed=args.seed, device=device)
+        uniq_codes, fine_groups = np.unique(fine_codes, return_inverse=True)
+        fine_groups = fine_groups.astype(np.int32)
+        s_fine = len(uniq_codes)
+        if args.refine:
+            level_maps = refine_hierarchy_maps(
+                proj_kn, fine_groups, uniq_codes, level_dims, args, device=device
+            )
+        else:
+            level_maps = []
+            for dim in level_dims:
+                _, f2c = np.unique(uniq_codes & ((1 << dim) - 1), return_inverse=True)
+                level_maps.append(f2c.astype(np.int32))
+        timings["sort_refine_s"] = time.time() - t0
 
     t0 = time.time()
     collapsed, groups_per_level, num_groups_per_level = [], [], []
@@ -341,20 +370,88 @@ def _preload(vec: SparseIoVec) -> SparseIoVec:
     return pre
 
 
+def _inherit_run(args: TopicArgs) -> tuple[TopicArgs, dict | None]:
+    """`--from`: the data and batch files of a prior run's manifest fill
+    the ones not given, and its `{out}.partition.npz` is reused when the
+    data files are the same."""
+    prev = RunManifest.load(manifest_path(args.from_run))
+    data_files = args.data_files or prev.inputs.get("data_files", [])
+    batch_files = args.batch_files
+    if batch_files is None and prev.inputs.get("batch_files"):
+        batch_files = prev.inputs["batch_files"]
+    args = dataclasses.replace(args, data_files=list(data_files), batch_files=batch_files)
+    partition = None
+    part_path = prev.outputs.get("partition")
+    if part_path and list(args.data_files) == list(prev.inputs.get("data_files", [])):
+        with np.load(part_path) as z:
+            partition = {
+                "fine_groups": z["fine_groups"],
+                "level_maps": [z[k] for k in sorted(z.files) if k.startswith("map")],
+            }
+        log.info("inherited cell->pb partition from %s", part_path)
+    log.info("inherited inputs from %s", args.from_run)
+    return args, partition
+
+
+def _apply_qc(vec, args: TopicArgs, device) -> tuple[object, str]:
+    """`--qc`: per-cell statistics, the keep mask, the `{out}.qc` table,
+    and the view over the kept cells."""
+    from ..data.qc import compute_cell_qc
+
+    stats = compute_cell_qc(vec, block_size=args.block_size, device=device)
+    keep = stats.keep_mask(
+        min_total=args.qc_min_total, min_genes=args.qc_min_genes,
+        max_mito_frac=args.qc_max_mito_frac,
+    )
+    path = write_table(f"{args.out}.qc", {
+        "cell": np.asarray(vec.column_names()), "total": stats.total, "n_genes": stats.n_genes,
+        "mito_frac": stats.mito_frac, "keep": keep,
+    })
+    log.info("qc: keeping %d/%d cells", int(keep.sum()), vec.num_columns)
+    return vec.subset_columns(keep), path
+
+
+def coarse_feature_targets(max_features: int, n_levels: int) -> list[int]:
+    """Per-level meta-feature targets, finest first: `max_features` down
+    to `max(max_features // n_levels, 50)`."""
+    floor = max(max_features // n_levels, 50)
+    fracs = [i / (n_levels - 1) if n_levels > 1 else 0.0 for i in range(n_levels)]
+    return [int(round(max_features - f * (max_features - floor))) for f in fracs]
+
+
 def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="cuda") -> dict:
     """End-to-end `senna topic`. `vec` overrides `args.data_files`."""
     check_supported(args)
     device = torch.device(device)
     timings: dict[str, float] = {}
     t_all = time.time()
+    partition = None
+    if args.from_run:
+        args, partition = _inherit_run(args)
     if vec is None:
         vec = load_data_vec(args.data_files, args.batch_files)
     if args.preload_data:
         vec = _preload(vec)
     d = vec.num_rows
     log.info("topic fit: D=%d genes, N=%d cells", d, vec.num_columns)
+    warm = None
+    if args.init_from:
+        # warm start: a strict architecture check before any work
+        meta, flat, _ = load_model(args.init_from)
+        if (meta["n_topics"] != args.n_latent_topics or meta["n_features"] != d
+                or list(meta["encoder_layers"]) != list(args.encoder_layers)):
+            raise ValueError(
+                "init-from architecture mismatch: "
+                f"{meta} vs K={args.n_latent_topics}, D={d}, layers={args.encoder_layers}"
+            )
+        warm = params_from_jax({n: v for n, v in flat.items() if n.startswith("params/")})
+    written = {}
+    if args.qc:
+        t0 = time.time()
+        vec, written["qc"] = _apply_qc(vec, args, device)
+        timings["qc_s"] = time.time() - t0
 
-    levels = load_and_collapse(vec, args, timings=timings, device=device)
+    levels = load_and_collapse(vec, args, partition=partition, timings=timings, device=device)
     n_levels = len(levels.collapsed)
     keys = prng.split(prng.key(args.seed & 0x7FFFFFFF), 1 + n_levels)
     key = keys[0]
@@ -364,12 +461,42 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
     ]
     timings["sample_s"] = time.time() - t0
 
+    # per-level coarsening of the decoder targets (the encoder keeps D)
+    coarsenings = [None] * n_levels
+    if args.max_coarse_features and args.max_coarse_features < d:
+        from ..ops.feature_coarsening import compute_feature_coarsening
+
+        t0 = time.time()
+        finest_profile = levels.collapsed[0].mu_observed.mean().cpu().numpy()
+        for i, target in enumerate(coarse_feature_targets(args.max_coarse_features, n_levels)):
+            fc = compute_feature_coarsening(
+                finest_profile, target, seed=args.seed & 0x7FFFFFFF, device=device
+            )
+            coarsenings[i] = fc
+            level_data[i].output = fc.aggregate_columns_nd(level_data[i].target).astype(np.float32)
+        timings["coarsening_s"] = time.time() - t0
+        log.info("coarse features per level: %s", [fc.num_coarse for fc in coarsenings])
+
     t0 = time.time()
     k_init, k_train = prng.split(key)
     init_gen = prng.generator_from_key(k_init)
     k = args.n_latent_topics
+    names = decoder_names(args.decoder)
+    multi = len(names) > 1
     encoder = LogSoftmaxEncoder(d, k, tuple(args.encoder_layers), generator=init_gen)
-    decoders = [NbTopicDecoder(d, k, generator=init_gen) for _ in range(n_levels)]
+
+    def make_decoder(name: str, n_feat: int):
+        kw = {}
+        if name == "nb-mixture":
+            kw = dict(rho_prior_weight=args.rho_prior_weight, rho_prior_alpha=args.rho_prior_alpha,
+                      rho_prior_beta=args.rho_prior_beta)
+        return DECODERS[name](n_feat, k, generator=init_gen, **kw)
+
+    decoders = []
+    for fc in coarsenings:
+        n_feat = fc.num_coarse if fc is not None else d
+        fams = [make_decoder(nm, n_feat) for nm in names]
+        decoders.append(fams if multi else fams[0])
     timings["model_init_s"] = time.time() - t0
 
     feature_weights = [None] * n_levels
@@ -378,23 +505,29 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
         from ..ops.gene_stats import nb_fisher_weights
 
         fw = nb_fisher_weights(vec, block_size=args.block_size, device=device)
-        feature_weights = [fw] * n_levels
+        for i, fc in enumerate(coarsenings):
+            if fc is None:
+                feature_weights[i] = fw
+            else:  # a coarse feature averages its members' weights
+                sums = np.bincount(fc.fine_to_coarse, weights=fw, minlength=fc.num_coarse)
+                cnts = np.bincount(fc.fine_to_coarse, minlength=fc.num_coarse)
+                feature_weights[i] = (sums / np.maximum(cnts, 1)).astype(np.float32)
     timings["gene_weights_s"] = time.time() - t0
 
-    # anchor prior: archetypal finest pseudobulks initialise every level's
-    # dictionary (and, with --anchor-penalty, add a CE penalty)
+    # anchor prior: archetypal finest pseudobulks (selected in the finest
+    # level's coarse features) initialise every level's dictionary, and,
+    # with --anchor-penalty, add a CE penalty on every decoder
     t0 = time.time()
     finest = levels.collapsed[0]
     finest_plane = finest.mu_adjusted if finest.mu_adjusted is not None else finest.mu_observed
     finest_mean = finest_plane.mean().cpu().numpy()
-    init_dictionaries = anchor_weights = None
+    anchor = anchor_weights = None
     if finest_mean.shape[1] >= 2:
         from .anchor import AnchorPrior
 
-        anchor = AnchorPrior.from_pseudobulk(finest_mean, k)
-        init_dictionaries = [anchor.init_logits() for _ in range(n_levels)]
+        anchor = AnchorPrior.from_pseudobulk(finest_mean, k, finest_coarsening=coarsenings[0])
         if args.anchor_penalty > 0:
-            anchor_weights = anchor.per_level_weights([None] * n_levels)
+            anchor_weights = anchor.per_level_weights(coarsenings)
     timings["anchor_s"] = time.time() - t0
 
     t0 = time.time()
@@ -407,22 +540,40 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
     )
     trainer = MixedTrainer(
         encoder, decoders, cfg, feature_weights=feature_weights,
-        anchor_weights=anchor_weights, anchor_penalty=args.anchor_penalty, device=device,
+        anchor_weights=anchor_weights, anchor_penalty=args.anchor_penalty,
+        decoder_weights=args.decoder_weights, device=device,
     )
     timings["train_setup_s"] = time.time() - t0
+    init_dictionaries = None
+    if warm is not None:  # the saved weights overlay the fresh ones, no anchor init
+        trainer.warm_start(*warm)
+        log.info("warm start from %s applied", args.init_from)
+    elif anchor is not None and multi:
+        log.info("multi-decoder: anchor prior via CE penalty only")
+    elif anchor is not None:
+        init_dictionaries = [anchor.init_logits(fc) for fc in coarsenings]
     t0 = time.time()
     scores = trainer.train(
         level_data, prng.generator_from_key(k_train, device), init_dictionaries=init_dictionaries
     )
     timings["train_s"] = time.time() - t0
 
+    # the finest level's dictionaries (log beta [D, K]; the first family's
+    # is `{out}.dictionary`), a coarsened one expanded back to D
+    finest_decs = trainer.level_decoders(0)
+
+    def full_log_dict(dec) -> np.ndarray:
+        with torch.no_grad():
+            ld = dec.get_dictionary().cpu().numpy()
+        return coarsenings[0].expand_log_dict_dk(ld) if coarsenings[0] is not None else ld
+
+    log_beta = full_log_dict(finest_decs[0])
     t0 = time.time()
-    with torch.no_grad():
-        log_beta_t = trainer.decoders[0].get_dictionary()
     z = evaluate_latent_by_encoder(
         vec, trainer.encoder, finest, levels.groups_per_level[0],
         block_size=args.minibatch_size * 8, adj_method=args.adj_method,
-        refine_log_dict=log_beta_t if args.amort_refine_steps > 0 else None,
+        refine_log_dict=torch.from_numpy(np.ascontiguousarray(log_beta, np.float32))
+        if args.amort_refine_steps > 0 else None,
         refine_steps=args.amort_refine_steps, refine_lr=args.amort_refine_lr,
         refine_reg=args.amort_refine_reg, device=device,
     )
@@ -431,11 +582,16 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
     # ---- outputs -------------------------------------------------------
     t0 = time.time()
     cell_names = vec.column_names()
-    gene_names = vec.row_names()
-    log_beta = log_beta_t.cpu().numpy()
-    written = {"dictionary": write_table(
+    gene_names = np.asarray(vec.row_names())
+    written["dictionary"] = write_table(
         f"{args.out}.dictionary", matrix_columns(log_beta, "topic", "gene", gene_names)
-    )}
+    )
+    if multi:
+        for nm, dec in zip(names, finest_decs):
+            written[f"{nm}.dictionary"] = write_table(
+                f"{args.out}.{nm}.dictionary",
+                matrix_columns(full_log_dict(dec), "topic", "gene", gene_names),
+            )
     written["latent"] = write_table(
         f"{args.out}.latent", matrix_columns(z, "topic", "cell", cell_names)
     )
@@ -446,12 +602,9 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
         delta = finest.delta.mean().cpu().numpy()
         written["delta"] = write_table(
             f"{args.out}.delta",
-            {"gene": np.asarray(gene_names), **{b: delta[:, i] for i, b in enumerate(vec.batch_names())}},
+            {"gene": gene_names, **{b: delta[:, i] for i, b in enumerate(vec.batch_names())}},
         )
-    phi = np.exp(trainer.decoders[0].log_phi.detach().cpu().numpy()).ravel()
-    written["dispersion"] = write_table(
-        f"{args.out}.dispersion", {"gene": np.asarray(gene_names), "dispersion": phi}
-    )
+    written.update(write_nuisance_tables(args.out, names, finest_decs, coarsenings[0], gene_names))
     written["log_likelihood"] = write_table(
         f"{args.out}.log_likelihood",
         {"epoch": np.arange(len(scores.llik)), "llik": np.asarray(scores.llik), "kl": np.asarray(scores.kl)},
@@ -495,10 +648,41 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
         "trainer": trainer,
         "levels": levels,
         "level_data": level_data,
+        "coarsenings": coarsenings,
         "latent": z,
         "log_beta": log_beta,
         "timings": timings,
     }
+
+
+def write_nuisance_tables(out: str, names, decoders, coarsening, gene_names) -> dict:
+    """Per family (suffixed `.{family}` when there are several): the NB
+    dispersion, and for nb-mixture the ambient profile `alpha` (a coarse
+    group's mass spread evenly over its genes) and the `rho` sigmoid's
+    coefficients. Returns `{name: path}`."""
+    written = {}
+    f2c = None if coarsening is None else coarsening.fine_to_coarse
+    for nm, dec in zip(names, decoders):
+        stem = f"{nm}." if len(names) > 1 else ""
+        with torch.no_grad():
+            if hasattr(dec, "log_phi"):
+                phi = torch.exp(dec.log_phi).cpu().numpy().ravel()
+                written[f"{stem}dispersion"] = write_table(
+                    f"{out}.{stem}dispersion",
+                    {"gene": gene_names, "dispersion": phi if f2c is None else phi[f2c]},
+                )
+            if nm == "nb-mixture":
+                alpha = torch.softmax(dec.log_alpha.ravel(), dim=0).cpu().numpy()
+                if f2c is not None:
+                    alpha = (alpha / np.maximum(coarsening.group_sizes(), 1))[f2c]
+                written[f"{stem}alpha"] = write_table(
+                    f"{out}.{stem}alpha", {"gene": gene_names, "alpha": alpha}
+                )
+                written[f"{stem}rho"] = write_table(f"{out}.{stem}rho", {
+                    "coef": np.asarray(["rho_a", "rho_b"]),
+                    "value": np.asarray([float(dec.rho_a.ravel()[0]), float(dec.rho_b.ravel()[0])]),
+                })
+    return written
 
 
 @torch.no_grad()
@@ -567,9 +751,11 @@ def evaluate_latent_by_encoder(
 def save_model(out: str, trainer: MixedTrainer, args, n_features: int, gene_names):
     """Weights in the JAX package's flat layout + the same metadata, so
     either package loads a model the other saved."""
-    flat = params_to_jax(
-        trainer.encoder.state_dict(), [dec.state_dict() for dec in trainer.decoders]
-    )
+    levels = [
+        [d.state_dict() for d in dec] if isinstance(dec, torch.nn.ModuleList) else dec.state_dict()
+        for dec in trainer.decoders
+    ]
+    flat = params_to_jax(trainer.encoder.state_dict(), levels)
     np.savez(f"{out}.model.npz", **flat)
     meta = {
         "model_type": "topic",
@@ -600,14 +786,28 @@ def load_model(out: str):
 
 
 def build_model(meta: dict, flat: dict, device="cuda"):
-    """(encoder, [decoder per level]) holding saved weights."""
+    """(encoder, per level a decoder or a list of them, one per family of
+    `meta["decoder"]`) holding saved weights. Each decoder is sized from
+    its saved dictionary, so a coarsened level's is narrower than D."""
     enc_state, dec_states = params_from_jax(flat)
     d, k = meta["n_features"], meta["n_topics"]
     encoder = LogSoftmaxEncoder(d, k, tuple(meta["encoder_layers"]))
     encoder.load_state_dict(enc_state)
+    names = decoder_names(meta.get("decoder") or "nb")
+    if "gaussian-nb" in names:
+        raise NotImplementedError("senna topic port does not support --decoder gaussian-nb yet")
+
+    def build(name, state):
+        n_topics, n_feat = state["dictionary"].shape
+        dec = DECODERS[name](n_feat, n_topics)
+        dec.load_state_dict(state)
+        return dec.to(device)
+
     decoders = []
     for state in dec_states:
-        dec = NbTopicDecoder(d, k)
-        dec.load_state_dict(state)
-        decoders.append(dec.to(device))
+        states = state if isinstance(state, list) else [state]
+        if len(states) != len(names):
+            raise ValueError(f"model has {len(states)} decoders a level, metadata names {names}")
+        fams = [build(nm, st) for nm, st in zip(names, states)]
+        decoders.append(fams if isinstance(state, list) else fams[0])
     return encoder.to(device).eval(), decoders

@@ -545,3 +545,118 @@ def test_pseudotime_on_the_card_matches_the_cpu(dev):
     lc = velocity_oriented_lineage(x, vel, n_nodes=12, device="cpu")
     assert lg.root_node == lc.root_node
     np.testing.assert_allclose(lg.pseudotime, lc.pseudotime, rtol=0, atol=1e-5)
+
+
+def _decoder_forward_and_grads(name, x, log_z, fw, device, dtype=torch.float32):
+    """llik [N] and the gradients of sum(llik) (parameters and log z) of a
+    seeded decoder of family `name` on `device`, as float64 on the CPU."""
+    from legume_tpu_torch.models.decoders import DECODERS
+
+    kw = dict(rho_prior_weight=10.0) if name == "nb-mixture" else {}
+    dec = DECODERS[name](x.shape[1], log_z.shape[1], generator=torch.Generator().manual_seed(4), **kw)
+    with torch.no_grad():  # nuisance parameters off their constant inits
+        g = torch.Generator().manual_seed(5)
+        for pname, p in dec.named_parameters():
+            if pname != "dictionary":
+                p.add_(0.3 * torch.randn(p.shape, generator=g))
+    dec = dec.to(device, dtype)
+    t = lambda a: torch.from_numpy(a).to(device, dtype)  # noqa: E731
+    lz = t(log_z).requires_grad_(True)
+    _, llik = dec(lz, t(x), t(fw)[None, :])
+    llik.sum().backward()
+    out = {n: p.grad for n, p in dec.named_parameters()}
+    out["log_z"], out["llik"] = lz.grad, llik.detach()
+    return {k: v.cpu().double() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("name", ["multinomial", "poisson", "nb-mixture"])
+def test_decoder_families_on_the_card_match_the_cpu(dev, name):
+    """Forward llik and every gradient (nb-mixture with its rho prior on),
+    each normwise against the same computation in float64: the card within
+    a relative 1e-5, or within twice the CPU's float32 distance where that
+    is larger (the log_phi gradient sums 512 cells' terms of either sign,
+    and float32 alone puts the CPU 8.8e-6 from float64 there)."""
+    rng = np.random.default_rng(1)
+    x = rng.poisson(2.0, (512, 300)).astype(np.float32)
+    log_z = np.log(rng.dirichlet(np.ones(6), 512)).astype(np.float32)
+    fw = rng.uniform(0.2, 1.0, 300).astype(np.float32)
+    card = _decoder_forward_and_grads(name, x, log_z, fw, dev)
+    cpu = _decoder_forward_and_grads(name, x, log_z, fw, "cpu")
+    exact = _decoder_forward_and_grads(name, x, log_z, fw, "cpu", torch.float64)
+    assert set(card) == set(cpu) == set(exact)
+    for k, ref in exact.items():
+        scale = float(ref.abs().max())
+        err_card, err_cpu = (float((v[k] - ref).abs().max()) / scale for v in (card, cpu))
+        assert err_card <= max(1e-5, 2.0 * err_cpu), (k, err_card, err_cpu)
+
+
+def test_cell_qc_on_the_card_matches_the_cpu(dev):
+    from legume_tpu_torch.data.qc import compute_cell_qc, feature_cells_kept
+
+    sim = simulate_topic(rows=200, cols=600, factors=4, batches=2, seed=17)
+    vec = SparseIoVec()
+    vec.push(MemoryBackend(sim.counts, [f"MT-{g}" if i < 7 else g
+                                        for i, g in enumerate(sim.row_names)], sim.col_names))
+    gpu = compute_cell_qc(vec, block_size=256, ribo_pattern="^g1", with_feature_cells=True,
+                          device=dev)
+    cpu = compute_cell_qc(vec, block_size=256, ribo_pattern="^g1", with_feature_cells=True,
+                          device="cpu")
+    for field in ("total", "n_genes", "mito_frac", "ribo_frac", "feature_cells"):
+        np.testing.assert_array_equal(getattr(gpu, field), getattr(cpu, field), err_msg=field)
+    assert gpu.mito_frac.max() > 0
+    keep = gpu.keep_mask(min_total=1000.0, max_mito_frac=float(np.quantile(gpu.mito_frac, 0.9)))
+    np.testing.assert_array_equal(feature_cells_kept(vec, keep, block_size=256, device=dev),
+                                  feature_cells_kept(vec, keep, block_size=256, device="cpu"))
+
+
+def test_topic_options_on_the_card_match_the_cpu(dev, tmp_path):
+    """`--qc`, `--max-coarse-features` and `--decoder a,b` on the card and
+    the CPU: the same cells kept, partitions equal, coarse groups equal as
+    a set partition, the artifacts written; then `--from` on the card
+    reproduces the partition without sorting, and `--init-from` runs."""
+    from legume_tpu_torch.utils.output import table_path
+
+    sim = simulate_topic(rows=200, cols=600, factors=4, batches=2, seed=17)
+    vec = SparseIoVec()
+    vec.push(MemoryBackend(sim.counts, [f"MT-{g}" if i < 7 else g
+                                        for i, g in enumerate(sim.row_names)], sim.col_names))
+    vec.register_batches(sim.batch.astype(str))
+    common = dict(n_latent_topics=4, encoder_layers=(32, 16), epochs=3, block_size=256,
+                  decoder="nb-mixture,multinomial", decoder_weights=[1.0, 0.5],
+                  rho_prior_weight=10.0, max_coarse_features=100, qc=True, qc_max_mito_frac=0.05)
+    kernels.reset_launch_counts()
+    gpu = ttopic.fit_topic_model(ttopic.TopicArgs(out=str(tmp_path / "gpu"), **common),
+                                 vec=vec, device=dev)
+    launches = dict(kernels.launch_counts)
+    cpu = ttopic.fit_topic_model(ttopic.TopicArgs(out=str(tmp_path / "cpu"), **common),
+                                 vec=vec, device="cpu")
+    assert launches["project_normed"] > 0 and launches["collapse"] > 0
+    assert len(gpu["latent"]) == len(cpu["latent"]) < 600
+    for g, c in zip(gpu["levels"].groups_per_level, cpu["levels"].groups_per_level, strict=True):
+        np.testing.assert_array_equal(g, c)
+    for g, c in zip(gpu["coarsenings"], cpu["coarsenings"], strict=True):
+        assert _same_partition(g.fine_to_coarse, c.fine_to_coarse)
+    for stem in ("nb-mixture.dictionary", "multinomial.dictionary", "nb-mixture.alpha",
+                 "nb-mixture.rho", "nb-mixture.dispersion", "qc"):
+        assert table_path(str(tmp_path / f"gpu.{stem}")) is not None, stem
+    z = gpu["latent"]
+    assert np.isfinite(z).all() and np.isfinite(gpu["scores"].llik).all()
+    np.testing.assert_allclose(np.exp(z.astype(np.float64)).sum(1), 1.0, atol=1e-3)
+
+    base = dict(n_latent_topics=4, encoder_layers=(32, 16), epochs=2, block_size=256)
+    first = ttopic.fit_topic_model(ttopic.TopicArgs(out=str(tmp_path / "nb"), **base), vec=vec,
+                                   device=dev)
+    kernels.reset_launch_counts()
+    again = ttopic.fit_topic_model(ttopic.TopicArgs(out=str(tmp_path / "poisson"),
+                                                    decoder="poisson", from_run=str(tmp_path / "nb"),
+                                                    **base), vec=vec, device=dev)
+    assert kernels.launch_counts["project_normed"] > 0 and kernels.launch_counts["collapse"] > 0
+    assert "sort_refine_s" not in again["timings"]
+    for a, b in zip(first["levels"].level_maps, again["levels"].level_maps, strict=True):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(first["levels"].groups_per_level[0],
+                                  again["levels"].groups_per_level[0])
+    warm = ttopic.fit_topic_model(ttopic.TopicArgs(out=str(tmp_path / "warm"),
+                                                   init_from=str(tmp_path / "nb"), **base),
+                                  vec=vec, device=dev)
+    assert np.isfinite(warm["latent"]).all()

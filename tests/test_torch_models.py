@@ -161,9 +161,11 @@ def _port_trainer(s):
 
 def _flat_grads(tr):
     g = lambda p: torch.zeros_like(p) if p.grad is None else p.grad  # noqa: E731
+    grads = lambda m: {k: g(p) for k, p in m.named_parameters()}  # noqa: E731
     return params_to_jax(
-        {k: g(p) for k, p in tr.encoder.named_parameters()},
-        [{k: g(p) for k, p in d.named_parameters()} for d in tr.decoders],
+        grads(tr.encoder),
+        [[grads(d) for d in lvl] if isinstance(lvl, torch.nn.ModuleList) else grads(lvl)
+         for lvl in tr.decoders],
     )
 
 
@@ -217,3 +219,143 @@ def test_nonfinite_gradient_skips_the_step(setup):
         assert torch.isfinite(p).all()
         # zero gradient: AdamW moves only by weight decay
         np.testing.assert_allclose(p.detach().numpy(), (b * (1 - 0.01 * 0.01)).numpy(), rtol=1e-6)
+
+
+# ---- the other decoder families and the multi-decoder level ----------------
+
+FAMILIES = {
+    "multinomial": {},
+    "poisson": {},
+    "nb-mixture": {},
+    "nb-mixture-rho-prior": dict(rho_prior_weight=10.0, rho_prior_alpha=2.0, rho_prior_beta=18.0),
+}
+
+
+def _jax_family(name):
+    from legume_tpu.models.decoders import DECODERS as JD
+
+    return JD[name.replace("-rho-prior", "")](n_features=D, n_topics=K, **FAMILIES[name])
+
+
+def _family_params(name, seed=2):
+    """JAX init params of a family, with its nuisance parameters moved off
+    their constant inits so that each one counts."""
+    dec = _jax_family(name)
+    params = dec.init(jax.random.key(seed), jnp.zeros((2, K)), jnp.ones((2, D)))["params"]
+    rng = np.random.default_rng(seed)
+    bump = {"log_phi": (0.3, (1, D)), "log_alpha": (0.5, (1, D)), "rho_a": (0.1, (1, 1)),
+            "rho_b": (0.4, (1, 1))}
+    return dec, {k: (v if k not in bump else v + bump[k][0] * rng.normal(size=bump[k][1]).astype(np.float32))
+                 for k, v in params.items()}
+
+
+def _port_family(name, params, prefix="params/decoder_0"):
+    from legume_tpu_torch.models.decoders import DECODERS as TD
+
+    flat = {f"{prefix}/{k}": np.asarray(v) for k, v in traverse_util.flatten_dict(
+        params, sep="/").items()}
+    _, states = params_from_jax(flat)
+    dec = TD[name.replace("-rho-prior", "")](D, K, **FAMILIES[name])
+    dec.load_state_dict(states[0][0] if isinstance(states[0], list) else states[0])
+    return dec, flat
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_decoder_family_matches(setup, name):
+    s = setup
+    jdec, params = _family_params(name)
+    tdec, _ = _port_family(name, params)
+    log_z = np.log(np.random.default_rng(3).dirichlet(np.ones(K), MB)).astype(np.float32)
+    for fw in (None, s["fw"][None, :]):
+        jr, jl = jdec.apply({"params": params}, log_z, s["x"], fw)
+        with torch.no_grad():
+            tr, tl = tdec(torch.from_numpy(log_z), torch.from_numpy(s["x"]),
+                          None if fw is None else torch.from_numpy(fw))
+        np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tdec.get_dictionary().detach().numpy(),
+                               np.asarray(jdec.apply({"params": params}, method="get_dictionary")),
+                               rtol=1e-6)
+
+
+def test_nb_mixture_rho_prior_exact():
+    """The weighted Beta log prior adds exactly w ((a-1) log(rho + 1e-6)
+    + (b-1) log(1 - rho + 1e-6)) per sample (the JAX package's
+    `test_nb_mixture_rho_beta_prior_exact`, on the port's decoder)."""
+    from legume_tpu_torch.models.decoders import NbMixtureTopicDecoder
+
+    x = torch.from_numpy(np.random.default_rng(0).poisson(2.0, (4, 30)).astype(np.float32))
+    log_z = torch.log_softmax(torch.zeros(4, 3), dim=-1)
+    d0 = NbMixtureTopicDecoder(30, 3, generator=torch.Generator().manual_seed(0))
+    dw = NbMixtureTopicDecoder(30, 3, rho_prior_weight=5.0, rho_prior_alpha=2.0, rho_prior_beta=18.0)
+    dw.load_state_dict(d0.state_dict())
+    with torch.no_grad():
+        ll0, llw = d0(log_z, x)[1], dw(log_z, x)[1]
+        rho = torch.sigmoid(torch.log(x.sum(-1, keepdim=True) + 1e-8) * d0.rho_a + d0.rho_b)[:, 0]
+    expected = 5.0 * ((2.0 - 1.0) * torch.log(rho + 1e-6) + (18.0 - 1.0) * torch.log(1.0 - rho + 1e-6))
+    np.testing.assert_allclose((llw - ll0).numpy(), expected.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["nb-mixture", "multinomial", "poisson", "multi"])
+def test_params_round_trip_families(setup, layout):
+    """Every family's saved parameters, and a level of several families
+    (`params/decoder_{i}/{j}/...`), survive `params_from_jax` ->
+    `params_to_jax` bit for bit."""
+    flat = {k: v for k, v in setup["flat"].items() if k.startswith(("params/encoder",
+                                                                     "batch_stats"))}
+    names = ["nb-mixture", "multinomial"] if layout == "multi" else [layout]
+    for level in range(2):
+        for j, name in enumerate(names):
+            prefix = f"params/decoder_{level}" + (f"/{j}" if layout == "multi" else "")
+            flat.update(_port_family(name, _family_params(name, seed=level + 5 * j)[1], prefix)[1])
+    enc_state, dec_states = params_from_jax(flat)
+    assert all(isinstance(st, list) == (layout == "multi") for st in dec_states)
+    back = params_to_jax(enc_state, dec_states)
+    assert set(back) == set(flat)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+def test_multi_decoder_minibatch_loss_and_grads_match(setup):
+    """A level of two families, nb-mixture and multinomial, with weights
+    [1, 0.5]: loss and every gradient against the JAX trainer's weighted
+    sum."""
+    s = setup
+    names, weights = ["nb-mixture", "multinomial"], [1.0, 0.5]
+    jdecs, fparams = zip(*(_family_params(n, seed=11 + j) for j, n in enumerate(names)))
+    params = {"encoder": s["params"]["encoder"], "decoder_0": list(fparams)}
+    enc = s["enc"]
+
+    def loss_fn(params, bstats):
+        (mean, lnvar), _ = enc.apply(
+            {"params": params["encoder"], "batch_stats": bstats["encoder"]},
+            s["x"], s["null"], train=True, method="latent_gaussian_params", mutable=["batch_stats"],
+        )
+        log_z = jlosses.smooth_topics(jax.nn.log_softmax(mean, axis=-1), SMOOTH)
+        kl = jlosses.gaussian_kl(mean, lnvar)
+        llik = 0.0
+        for d, p, w in zip(jdecs, params["decoder_0"], weights):
+            llik = llik + w * d.apply({"params": p}, log_z, s["x"], s["fw"][None, :])[1]
+        return jnp.sum((kl - llik) * s["w"]) / jnp.maximum(jnp.sum(s["w"]), 1.0)
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(params, s["bstats"])
+    enc_t, _ = _port_models(s["flat"])
+    decs = [_port_family(n, p)[0] for n, p in zip(names, fparams)]
+    cfg = TrainConfig(minibatch_size=MB, learning_rate=0.01, topic_smoothing=SMOOTH, grad_clip=1.0)
+    tr = MixedTrainer(enc_t, [decs], cfg, feature_weights=[s["fw"]], decoder_weights=weights,
+                      device="cpu")
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    loss, *_ = tr.minibatch_loss(0, t(s["x"]), t(s["null"]), t(s["x"]), t(s["w"]), torch.zeros(MB, K))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    loss.backward()
+    got = _flat_grads(tr)
+    assert any(k.startswith("params/decoder_0/1/") for k in got)
+    want = traverse_util.flatten_dict({"params": {
+        "encoder": jgrads["encoder"],
+        "decoder_0": {str(j): g for j, g in enumerate(jgrads["decoder_0"])},
+    }}, sep="/")
+    assert set(want) == set(got) - {k for k in got if k.startswith("batch_stats")}
+    for name, g in want.items():
+        g = np.asarray(g)
+        np.testing.assert_allclose(got[name], g, rtol=1e-5, atol=1e-5 * max(np.abs(g).max(), 1e-3),
+                                   err_msg=name)

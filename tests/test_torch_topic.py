@@ -110,13 +110,20 @@ def test_cli_runs_and_rejects_unported_options(runs, tmp_path):
     assert port_cli(argv) == 0
     for suffix in ("model.npz", "model.json", "partition.npz", "senna.json"):
         assert (tmp_path / f"cli.{suffix}").exists()
-    with pytest.raises(NotImplementedError, match="--qc"):
-        port_cli(argv + ["--qc"])
-    with pytest.raises(NotImplementedError, match="--qc"):
-        port_cli(argv + ["--qc", "--qc-min-total", "500", "--qc-min-genes", "20",
-                         "--qc-max-mito-frac", "0.2"])
-    with pytest.raises(NotImplementedError, match="decoder"):
-        port_cli(argv + ["--decoder", "multinomial"])
+    # --qc with its thresholds and the other decoder families run (the
+    # cells preloaded: the matched statistics' reads from zarr are slow)
+    assert port_cli(argv + ["--qc", "--qc-min-total", "500", "--qc-min-genes", "20",
+                            "--qc-max-mito-frac", "0.2", "--out", out + "_qc",
+                            "--preload-data"]) == 0
+    assert (tmp_path / "cli_qc.senna.json").exists()
+    assert port_cli(argv + ["--decoder", "multinomial", "--out", out + "_mn",
+                            "--preload-data"]) == 0
+    assert json.loads((tmp_path / "cli_mn.model.json").read_text())["decoder"] == "multinomial"
+    # what stays off: the CNV side channel, data parallelism, the vae decoder
+    for extra, name in ((["--cnv"], "--cnv"), (["--data-parallel"], "--data-parallel"),
+                        (["--decoder", "gaussian-nb"], "gaussian-nb")):
+        with pytest.raises(NotImplementedError, match=name):
+            port_cli(argv + extra)
     # the JAX parser's flags pass through to `TopicArgs` (rho prior: no
     # effect on the nb decoder, as in the JAX package)
     flags = {"--rho-prior-weight": 0.1, "--rho-prior-alpha": 3.0, "--rho-prior-beta": 12.0,
