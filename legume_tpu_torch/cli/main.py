@@ -1,6 +1,8 @@
 """Command line of the port: `python -m legume_tpu_torch.cli.main senna
-{topic,bge,predict,eval-topic,clustering,layout,pseudotime,plot,plot-topic}
-...`.
+{topic,bge,resolve-embedding-space (rest),predict,eval-topic,clustering,
+layout,pseudotime,plot,plot-topic} ...` and `python -m
+legume_tpu_torch.cli.main cocoa {diff,collapse,simulate-one,
+simulate-collider} ...`.
 
 The flags are those of the JAX package's commands; the ones the port
 does not carry yet are accepted and raise `NotImplementedError` when set.
@@ -87,6 +89,25 @@ def _bge_parser(sub):
     p.add_argument("--skip-etm", action="store_true")
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32")
     p.add_argument("--data-parallel", action="store_true")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    return p
+
+
+def _rest_parser(sub):
+    p = sub.add_parser("resolve-embedding-space", aliases=["rest"],
+                       help="frozen-theta co-embedding of a topic run (--from) or "
+                            "Procrustes alignment of runs (--runs)")
+    p.add_argument("--from", dest="from_run", default=None)
+    p.add_argument("--data-files", nargs="+", default=None)
+    p.add_argument("--embedding-dim", "-d", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=400)
+    p.add_argument("--learning-rate", "--lr", type=float, default=0.05)
+    p.add_argument("--num-negatives", type=float, default=5.0)
+    p.add_argument("--runs", nargs="+", default=None)
+    p.add_argument("--out", required=True)
+    p.add_argument("--reference", type=int, default=0)
+    p.add_argument("--no-scale", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     return p
 
@@ -249,10 +270,16 @@ def run_senna(argv, *, vec=None):
     sub = ap.add_subparsers(dest="cmd", required=True)
     _topic_parser(sub)
     _bge_parser(sub)
+    _rest_parser(sub)
     _predict_parser(sub)
     _clustering_parser(sub)
     _layout_parsers(sub)
     a = ap.parse_args(argv)
+    if a.cmd in ("resolve-embedding-space", "rest"):
+        from .senna_cmds.embed_cmds import RestArgs, run_rest
+
+        fields = {k: v for k, v in vars(a).items() if k not in ("cmd", "device")}
+        return run_rest(RestArgs(**fields), device=a.device)
     if getattr(a, "from_run", None) and a.cmd != "topic":
         _inherit_from(a)
     if (
@@ -310,14 +337,106 @@ def run_senna(argv, *, vec=None):
     return fit_topic_model(args, vec=vec, device=a.device)
 
 
+def run_cocoa(argv, *, vec=None):
+    """`cocoa {diff,collapse,simulate-one,simulate-collider}`; `vec`
+    overrides the data files of `diff` and `collapse`."""
+    ap = argparse.ArgumentParser(prog="cocoa", description="counterfactual confounder-adjusted DE")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("diff", help="counterfactual differential expression")
+    p.add_argument("--data-files", nargs="+", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--indv", required=True, help="cell -> individual labels, one per line")
+    p.add_argument("--exposure", required=True, help="individual TAB exposure table")
+    p.add_argument("--topic", default=None, help="cell topic proportions table")
+    p.add_argument("--topic-assignment", default=None,
+                   help="hard per-cell topic labels, one per line")
+    p.add_argument("--topic-proportion-value", choices=["prob", "logit"], default="prob")
+    p.add_argument("--covariate-file", default=None)
+    p.add_argument("--n-pb-samples", type=int, default=10)
+    p.add_argument("--knn", type=int, default=10)
+    p.add_argument("--proj-dim", type=int, default=30)
+    p.add_argument("--iter-opt", type=int, default=100)
+    p.add_argument("--a0", type=float, default=1.0)
+    p.add_argument("--b0", type=float, default=1.0)
+    p.add_argument("--permutations", type=int, default=0)
+    p.add_argument("--permutation-seed", type=int, default=None)
+    p.add_argument("--no-collider-fix", action="store_true")
+    p.add_argument("--no-adjust-housekeeping", action="store_true")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--gff", default=None)
+    p.add_argument("--cnv-ground-truth", default=None)
+    p.add_argument("--cnv-states", type=int, default=3)
+    p.add_argument("--cnv-gmm-k-max", type=int, default=0)
+    p.add_argument("--cnv-ref-iters", type=int, default=2)
+    p.add_argument("--data-parallel", action="store_true")
+    p.add_argument("--no-match-cache", action="store_true")
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+    p = sub.add_parser("collapse", help="per-individual pseudobulk Gamma means")
+    p.add_argument("--data-files", nargs="+", required=True)
+    p.add_argument("--indv", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--iter-opt", type=int, default=30)
+    p.add_argument("--a0", type=float, default=1.0)
+    p.add_argument("--b0", type=float, default=1.0)
+    p.add_argument("--no-adjust-housekeeping", action="store_true")
+    p.add_argument("--block-size", type=int, default=8192)
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+    for name in ("simulate-one", "simulate-collider"):
+        p = sub.add_parser(name, help="cocoa's generative simulators")
+        p.add_argument("--output", required=True)
+        p.add_argument("--genes", type=int, default=200)
+        p.add_argument("--indv", type=int, default=20)
+        p.add_argument("--cells-per-indv", type=int, default=50)
+        p.add_argument("--n-causal", type=int, default=20)
+        p.add_argument("--depth", type=float, default=2000.0)
+        p.add_argument("--seed", type=int, default=0)
+        if name == "simulate-one":
+            p.add_argument("--pve-exposure-gene", type=float, default=0.3)
+        else:
+            p.add_argument("--types", type=int, default=3)
+    a = ap.parse_args(argv)
+
+    if a.cmd == "collapse":
+        from ..cocoa.diff import run_cocoa_collapse
+
+        return run_cocoa_collapse(
+            a.data_files, a.indv, a.out, iter_opt=a.iter_opt, a0=a.a0, b0=a.b0,
+            adjust_housekeeping=not a.no_adjust_housekeeping, block_size=a.block_size,
+            vec=vec, device=a.device,
+        )
+    if a.cmd in ("simulate-one", "simulate-collider"):
+        from ..cocoa.sim import write_simulation
+
+        return write_simulation(a)
+    from ..cocoa.diff import CocoaDiffArgs, run_cocoa_diff
+
+    return run_cocoa_diff(CocoaDiffArgs(
+        data_files=a.data_files, out=a.out, indv_file=a.indv, exposure_file=a.exposure,
+        topic_file=a.topic, topic_assignment_file=a.topic_assignment,
+        topic_proportion_value=a.topic_proportion_value, covariate_file=a.covariate_file,
+        n_pb_samples=a.n_pb_samples, knn=a.knn, proj_dim=a.proj_dim, n_opt_iter=a.iter_opt,
+        a0=a.a0, b0=a.b0, n_permutations=a.permutations, permutation_seed=a.permutation_seed,
+        collider_fix=not a.no_collider_fix, adjust_housekeeping=not a.no_adjust_housekeeping,
+        gff=a.gff, cnv_ground_truth=a.cnv_ground_truth, cnv_states=a.cnv_states,
+        cnv_gmm_k_max=a.cnv_gmm_k_max, cnv_ref_iters=a.cnv_ref_iters,
+        data_parallel=a.data_parallel, match_cache=not a.no_match_cache,
+        **({"seed": a.seed} if a.seed is not None else {}),
+    ), vec=vec, device=a.device)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     logging.basicConfig(level=logging.INFO, format="[%(levelname)s %(name)s] %(message)s")
-    if not argv or argv[0] != "senna":
-        print("usage: python -m legume_tpu_torch.cli.main senna {topic,bge,predict,"
-              "eval-topic,clustering,layout,pseudotime,plot,plot-topic,plot-strand} ...")
+    if not argv or argv[0] not in ("senna", "cocoa"):
+        print("usage: python -m legume_tpu_torch.cli.main senna {topic,bge,"
+              "resolve-embedding-space,rest,predict,eval-topic,clustering,layout,pseudotime,"
+              "plot,plot-topic,plot-strand} ...\n"
+              "       python -m legume_tpu_torch.cli.main cocoa {diff,collapse,simulate-one,"
+              "simulate-collider} ...")
         return 1
-    run_senna(argv[1:])
+    (run_senna if argv[0] == "senna" else run_cocoa)(argv[1:])
     return 0
 
 

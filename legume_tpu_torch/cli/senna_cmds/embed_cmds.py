@@ -1,7 +1,12 @@
-"""`senna bge`: the count-NCE joint embedding end to end (the port of the
-JAX package's `cli/senna_cmds/embed_cmds.py::_cmd_bge`).
+"""`senna bge` and `senna resolve-embedding-space` (`rest`) end to end
+(the port of the JAX package's `cli/senna_cmds/embed_cmds.py::_cmd_bge`
+and `_cmd_rest`).
 
-1. load backends into a `SparseIoVec`;
+`senna bge`:
+
+1. load backends into a `SparseIoVec` (with `--multiome`, the RNA and
+   ATAC files' feature axes stacked on their shared cells, the second
+   scaled by `--bridge-weight`);
 2. streaming JL projection (kernel K1 on the card) and the binary sort
    into pseudobulk groups (split by batch when there is more than one);
 3. pseudobulk sums (kernel K3 on the card);
@@ -10,11 +15,17 @@ JAX package's `cli/senna_cmds/embed_cmds.py::_cmd_bge`).
 5. unless `skip_etm`: one Leiden clustering of the cell embedding (host)
    seeds the SIMBA co-embed of the genes and the cluster-seeded ETM
    layout (device);
-6. outputs: latent, feature embedding, dictionary and topic latent
+6. with `--posterior N`: `pb_gibbs` (`embedding/posterior.py`) on the
+   pseudobulk plane from the phase-1 fit, N sweeps after max(N / 4, 2)
+   of burn-in, written to `{out}.feature_posterior`;
+7. outputs: latent, feature embedding, dictionary and topic latent
    tables, and a `{out}.gem.json` manifest.
 
-`--posterior`, `--multiome` and `--data-parallel` are not ported and
-raise `NotImplementedError`.
+`senna rest --from RUN` fits the shared cell + gene space with RUN's
+cell proportions frozen (`embedding/resolve.py::rest_fit`); `senna rest
+--runs A B ...` Procrustes-aligns the feature (and cell) embeddings of
+finished runs. `--data-parallel` is not ported and raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -29,14 +40,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ...data import MemoryBackend, SparseIoVec, open_sparse_matrix
 from ...embedding.nce import NceConfig, fit_bge
 from ...ops import collapse as clp
 from ...ops import random_projection as rp
 from ...ops.leiden import knn_adjacency, leiden_clustering
 from ...senna.deconvolve import leiden_at_count
-from ...senna.topic import load_data_vec
+from ...senna.topic import load_data_vec, read_batch_labels
 from ...utils.manifest import RunManifest
-from ...utils.output import matrix_columns, write_table
+from ...utils.output import matrix_columns, read_table, table_path, write_table
 
 log = logging.getLogger(__name__)
 
@@ -69,11 +81,32 @@ class BgeArgs:
 def check_supported(args: BgeArgs):
     """Options the port does not carry yet raise instead of running
     something else."""
-    off = {"--posterior": args.posterior > 0, "--multiome": args.multiome,
-           "--data-parallel": args.data_parallel}
-    missing = [name for name, on in off.items() if on]
-    if missing:
-        raise NotImplementedError(f"senna bge port does not support {', '.join(missing)} yet")
+    if args.data_parallel:
+        raise NotImplementedError("senna bge port does not support --data-parallel yet")
+
+
+def multiome_vec(backends, bridge_weight: float = 1.0, batch_files=None) -> SparseIoVec:
+    """Paired RNA and ATAC backends stacked on their shared cells: one
+    vec whose features are `rna:<gene>` then `atac:<peak>`, the ATAC
+    counts scaled by `bridge_weight`."""
+    if len(backends) != 2:
+        raise SystemExit("--multiome needs exactly 2 data files (rna atac)")
+    rna, atac = backends
+    if rna.num_columns != atac.num_columns:
+        raise SystemExit("multiome modalities must share cells")
+    import scipy.sparse as sp
+
+    cols = np.arange(rna.num_columns)
+    stacked = sp.vstack([rna.read_columns_csc(cols),
+                         atac.read_columns_csc(cols) * bridge_weight]).tocsc()
+    names = [f"rna:{g}" for g in rna.row_names()] + [f"atac:{p}" for p in atac.row_names()]
+    vec = SparseIoVec()
+    vec.push(MemoryBackend(stacked, names, rna.column_names()))
+    if batch_files:
+        vec.register_batches(read_batch_labels(batch_files))
+    log.info("multiome: %d genes + %d peaks (bridge %s)", rna.num_rows, atac.num_rows,
+             bridge_weight)
+    return vec
 
 
 def etm_layout(e_cell: np.ndarray, e_feat: np.ndarray, labels: np.ndarray, device):
@@ -103,13 +136,17 @@ def etm_layout(e_cell: np.ndarray, e_feat: np.ndarray, labels: np.ndarray, devic
     return co_embed.cpu().numpy(), log_theta.cpu().numpy(), log_beta.cpu().numpy()
 
 
-def run_bge(args: BgeArgs, *, vec=None, device="cuda") -> dict:
-    """End-to-end `senna bge`. `vec` overrides `args.data_files`."""
+def run_bge(args: BgeArgs, *, vec=None, backends=None, device="cuda") -> dict:
+    """End-to-end `senna bge`. `vec` overrides `args.data_files`; with
+    `--multiome`, `backends` (the two modalities, open) does."""
     check_supported(args)
     device = torch.device(device)
     timings: dict[str, float] = {}
     t_all = time.time()
-    if vec is None:
+    if args.multiome:
+        backends = backends or [open_sparse_matrix(f) for f in args.data_files]
+        vec = multiome_vec(backends, args.bridge_weight, args.batch_files)
+    elif vec is None:
         vec = load_data_vec(args.data_files, batch_files=args.batch_files)
     sort_dim = args.sort_dim
     if args.phase1_cells_per_pb > 0:
@@ -187,6 +224,21 @@ def run_bge(args: BgeArgs, *, vec=None, device="cuda") -> dict:
             f"{args.out}.topic_latent", matrix_columns(log_theta, "topic", "cell", cells)
         )
     timings["outputs_s"] = time.time() - t0
+    post = None
+    if args.posterior > 0:
+        from ...embedding.posterior import pb_gibbs
+
+        t0 = time.time()
+        post = pb_gibbs(
+            pb, res.e_feat, res.b_feat, res.pb_embeddings[0], np.zeros(pb.shape[0]),
+            n_sweeps=args.posterior, burnin=max(args.posterior // 4, 2), device=device,
+        )
+        written["feature_posterior"] = write_table(f"{args.out}.feature_posterior", {
+            "gene": np.asarray(genes), "pip": post.pip.max(axis=1),
+            "posterior_norm": np.linalg.norm(post.e_feat_mean, axis=1),
+        })
+        timings["posterior_s"] = time.time() - t0
+        log.info("posterior: %d sweeps, rhat max %.2f", args.posterior, post.rhat.max())
     timings["total_s"] = time.time() - t_all
     RunManifest(
         command="bge",
@@ -209,6 +261,101 @@ def run_bge(args: BgeArgs, *, vec=None, device="cuda") -> dict:
         "phase1_losses": res.phase1_losses,
         "phase2_losses": res.phase2_losses,
         "result": res,
+        "posterior": post,
         "outputs": written,
         "timings": timings,
     }
+
+
+@dataclass
+class RestArgs:
+    """The flags of the JAX package's `senna resolve-embedding-space`."""
+
+    out: str = "rest"
+    from_run: Optional[str] = None
+    data_files: Optional[Sequence[str]] = None
+    embedding_dim: Optional[int] = None
+    epochs: int = 400
+    learning_rate: float = 0.05
+    num_negatives: float = 5.0
+    runs: Optional[Sequence[str]] = None
+    reference: int = 0
+    no_scale: bool = False
+    seed: int = 0
+
+
+def _matrix_table(path: str) -> tuple[list[str], np.ndarray]:
+    """(first column as strings, the other columns as a float64 matrix)."""
+    cols = read_table(path)
+    names = list(cols)
+    return ([str(x) for x in cols[names[0]]],
+            np.stack([np.asarray(cols[c], np.float64) for c in names[1:]], axis=1))
+
+
+def run_rest(args: RestArgs, *, vec=None, device="cuda") -> dict:
+    """`senna rest --from RUN` (frozen-theta co-embedding) or `senna rest
+    --runs A B ...` (Procrustes alignment). `vec` overrides the data
+    files of `--from`."""
+    from ...embedding.resolve import resolve_embedding_spaces, rest_fit
+    from ...utils.manifest import manifest_path
+
+    if args.from_run:
+        prev = RunManifest.load(manifest_path(args.from_run))
+        lat = prev.outputs.get("latent")
+        if lat is None:
+            raise SystemExit("rest --from: source run has no latent")
+        cells, theta = _matrix_table(lat)
+        theta = theta.astype(np.float32)
+        if np.all(theta <= 0):
+            theta = np.exp(theta)
+        theta = theta / np.maximum(theta.sum(1, keepdims=True), 1e-30)
+        files = args.data_files or prev.inputs.get("data_files")
+        if vec is None:
+            if not files:
+                raise SystemExit("rest --from: no data files found")
+            vec = load_data_vec(files)
+        t0 = time.time()
+        res = rest_fit(theta, vec, embedding_dim=args.embedding_dim, epochs=args.epochs,
+                       learning_rate=args.learning_rate, n_negatives=args.num_negatives,
+                       seed=args.seed, device=device)
+        fit_s = time.time() - t0
+        out = {
+            "latent": write_table(f"{args.out}.latent",
+                                  matrix_columns(res["cell_embedding"], "h", "cell", cells)),
+            "feature_embedding": write_table(
+                f"{args.out}.feature_embedding",
+                matrix_columns(res["feature_embedding"], "h", "gene", vec.row_names())),
+        }
+        topic = write_table(f"{args.out}.topic_embedding",
+                            matrix_columns(res["topic_embedding"], "h"))
+        RunManifest(
+            command="resolve-embedding-space",
+            inputs={"from": args.from_run, "data_files": list(files or [])},
+            outputs=out, timings={"fit_s": fit_s}, engine="legume-tpu-torch",
+        ).save(args.out)
+        log.info("wrote %s, %s and %s", out["latent"], out["feature_embedding"], topic)
+        return {**res, "outputs": {**out, "topic_embedding": topic}, "fit_s": fit_s}
+    if not args.runs:
+        raise SystemExit("rest: provide --from <run> or --runs <prefixes>")
+    runs = []
+    for prefix in args.runs:
+        feats, e_feat = _matrix_table(table_path(f"{prefix}.feature_embedding"))
+        run = {"feat_names": feats, "e_feat": e_feat, "e_cell": None, "cell_names": None}
+        lat = table_path(f"{prefix}.latent")
+        if lat is not None:
+            run["cell_names"], run["e_cell"] = _matrix_table(lat)
+        runs.append(run)
+    aligned = resolve_embedding_spaces(runs, reference=args.reference,
+                                       allow_scale=not args.no_scale)
+    outputs = []
+    for i, run in enumerate(aligned):
+        paths = {"feature_embedding": write_table(
+            f"{args.out}.run{i}.feature_embedding",
+            matrix_columns(run["e_feat"], "h", "feature", run["feat_names"]))}
+        if run.get("e_cell") is not None:
+            paths["latent"] = write_table(
+                f"{args.out}.run{i}.latent",
+                matrix_columns(run["e_cell"], "h", "cell", run["cell_names"]))
+        outputs.append(paths)
+    log.info("wrote %d aligned runs under %s.run*", len(aligned), args.out)
+    return {"aligned": aligned, "outputs": outputs}

@@ -1,5 +1,6 @@
-"""Synthetic topic counts (the port's copy of `simulate_topic` from the
-JAX package's `data/sim.py`, same generator, same seeds, same draws).
+"""Synthetic counts (the port's copies of `simulate_topic`,
+`simulate_multimodal` and `simulate_multiome` from the JAX package's
+`data/sim.py`, same generators, same seeds, same draws).
 
     log beta(g,k)  = s_b * [ sqrt(pi_t) u(g,k) + sqrt(1-pi_t) v(g) ] - s_b^2/2
     log delta(g,b) =        sqrt(pi_b) z(g,b) + sqrt(1-pi_b) w(g)
@@ -124,3 +125,92 @@ def simulate_topic(
         row_names=[f"g{i}" for i in range(g)],
         col_names=[f"cell{j}" for j in range(n)],
     )
+
+
+@dataclass
+class MultimodalSim:
+    counts: list  # per modality [G_m, N] csc
+    theta: np.ndarray  # shared [N, K]
+    betas: list  # per modality [G_m, K]
+
+
+def simulate_multimodal(
+    rows_per_modality=(1000, 400),
+    cols: int = 800,
+    factors: int = 6,
+    pve_topic: float = 0.7,
+    beta_scale: float = 1.0,
+    depth: float = 1000.0,
+    seed: int = 11,
+) -> MultimodalSim:
+    """M coupled count matrices sharing latent topics with
+    modality-specific dictionaries (`data-beans-sim multimodal`)."""
+    rng = np.random.default_rng(seed)
+    k = factors
+    k_star = rng.integers(0, k, size=cols)
+    theta = np.full((cols, k), (1.0 - pve_topic) / k)
+    theta[np.arange(cols), k_star] += pve_topic
+
+    counts, betas = [], []
+    for g in rows_per_modality:
+        u = rng.standard_normal((g, k))
+        v = rng.standard_normal((g, 1))
+        log_beta = (
+            beta_scale * (np.sqrt(pve_topic) * u + np.sqrt(1 - pve_topic) * v)
+            - beta_scale**2 / 2
+        )
+        beta = np.exp(log_beta)
+        lam = (depth / g) * (beta @ theta.T)
+        counts.append(sp.csc_matrix(rng.poisson(lam).astype(np.float32)))
+        betas.append(beta)
+    return MultimodalSim(counts=counts, theta=theta, betas=betas)
+
+
+@dataclass
+class MultiomeSim:
+    rna: sp.csc_matrix  # [G, N]
+    atac: sp.csc_matrix  # [P, N]
+    theta: np.ndarray
+    peak_to_gene: np.ndarray  # [G, C] driving peak indices (-1 = none)
+    linked: np.ndarray  # [G] bool: gene has a cis-regulating peak
+
+
+def simulate_multiome(
+    genes: int = 300,
+    peaks: int = 600,
+    cols: int = 600,
+    factors: int = 5,
+    depth: float = 1500.0,
+    depth_atac: "float | None" = None,  # defaults to depth
+    # causal structure (MultiomeArgs): several driving peaks per linked
+    # gene, a fraction of genes with no cis-regulating peak, and a cis-PVE
+    # mixing the peak-driven rate with a free topic rate
+    n_causal_per_gene: int = 1,
+    linked_gene_fraction: float = 1.0,
+    pve_cis: float = 1.0,
+    seed: int = 13,
+) -> MultiomeSim:
+    """Paired ATAC + RNA with peak-gene ground truth
+    (`data-beans-sim multiome`)."""
+    rng = np.random.default_rng(seed)
+    mm = simulate_multimodal(
+        rows_per_modality=(peaks,), cols=cols, factors=factors, depth=depth, seed=seed
+    )
+    atac = mm.counts[0]
+    theta = mm.theta
+    beta_p = mm.betas[0]  # [P, K]
+    c = max(n_causal_per_gene, 1)
+    p2g = rng.integers(0, peaks, (genes, c))
+    linked = rng.uniform(size=genes) < linked_gene_fraction
+    p2g[~linked] = -1
+    # cis component: mean of the driving peaks' topic profiles;
+    # trans/free component: an independent factored profile
+    cis = beta_p[np.maximum(p2g, 0)].mean(axis=1)  # [G, K]
+    free = np.exp(0.5 * rng.standard_normal((genes, factors)))
+    w_cis = np.where(linked, pve_cis, 0.0)[:, None]
+    beta_g = (w_cis * cis + (1.0 - w_cis) * free) * np.exp(
+        0.2 * rng.standard_normal((genes, factors))
+    )
+    lam = (depth / genes) * (beta_g @ theta.T)
+    rna = sp.csc_matrix(rng.poisson(lam).astype(np.float32))
+    return MultiomeSim(rna=rna, atac=atac, theta=theta, peak_to_gene=p2g, linked=linked)

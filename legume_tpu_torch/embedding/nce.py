@@ -16,7 +16,10 @@ the JAX package: with a dense, unstratified q and H <= 128 both phases
 take kernel K4 (`nce_kernel.nce_epoch_grads`), which returns the loss and
 all four gradients in one pass and needs no autograd; with a
 batch-stratified q [P, D] or H > 128 they take `expected_nce_loss` under
-torch autograd, the counterpart of the JAX package's XLA path.
+torch autograd, the counterpart of the JAX package's XLA path. With
+`gene_chunk > 0` phase 1 takes `expected_nce_loss_chunked` under
+autograd over D zero-padded to a multiple of the chunk, as the JAX
+package does (its fused kernel is off for that option).
 
 The optimiser is optax's Adam(W) written in torch ops on one flat buffer
 of parameters, and the initial weights are the JAX package's threefry
@@ -68,7 +71,7 @@ class NceConfig:
     phase2_epochs: int = 100
     seed: int = 0
     ridge: float = 0.0  # feature-embedding L2, sum(1).mean() form
-    gene_chunk: int = 0  # > 0 is not ported
+    gene_chunk: int = 0  # > 0: phase 1's loss over gene chunks of this width
     feature_qc: bool = False
     hvg_min_excess: float = 0.0
     min_nnz_rows: float = 0.0
@@ -160,6 +163,42 @@ def expected_nce_loss(
     return loss
 
 
+def expected_nce_loss_chunked(
+    feat: FeatSide,
+    axis: AxisSide,
+    counts_pd: torch.Tensor,  # [P, D], D a multiple of gene_chunk, zero-padded
+    q_d: torch.Tensor,
+    m_p: torch.Tensor,
+    *,
+    k_neg: float,
+    ridge: float,
+    gene_chunk: int,
+    dtype: str = "float32",
+) -> torch.Tensor:
+    """The objective summed over gene chunks (the counterpart of the JAX
+    package's `_expected_nce_loss_chunked`): one [P, gene_chunk] score
+    plane at a time, so the loss and its gradients equal the dense
+    form's. Padding columns carry zero counts and zero q, so they add
+    nothing through either term."""
+    dt = _store_dtype(dtype)
+    num = torch.zeros((), dtype=torch.float32, device=counts_pd.device)
+    for lo in range(0, counts_pd.shape[1], gene_chunk):
+        sl = slice(lo, lo + gene_chunk)
+        scores = (
+            axis.e.to(dt) @ feat.e_feat[sl].to(dt).T
+            + feat.b_feat[sl].to(dt)[None, :]
+            + axis.b.to(dt)[:, None]
+        )
+        q = q_d[:, sl] if q_d.dim() == 2 else q_d[None, sl]
+        pos = counts_pd[:, sl].to(dt) * _log_sigmoid(scores)
+        neg = (k_neg * m_p[:, None] * q).to(dt) * _log_sigmoid(-scores)
+        num = num + pos.sum(dtype=torch.float32) + neg.sum(dtype=torch.float32)
+    loss = -num / torch.clamp_min(counts_pd.sum(dtype=torch.float32), 1.0)
+    if ridge > 0:
+        loss = loss + ridge * (feat.e_feat**2).sum(dim=1).mean()
+    return loss
+
+
 class _Adam:
     """optax's `adam` / `adamw` on one flat f32 buffer, updated in place:
     m/(1-b1^t) / (sqrt(v/(1-b2^t)) + eps), plus decoupled decay, times
@@ -232,8 +271,6 @@ def fit_bge(
     marginal to the batch-stratified form (negatives from the row's own
     batch, in exact expectation)."""
     cfg = config or NceConfig()
-    if cfg.gene_chunk > 0:
-        raise NotImplementedError("NceConfig.gene_chunk > 0 is not ported")
     device = torch.device(device)
     store_dt = _store_dtype(cfg.compute_dtype)
     timings: dict[str, float] = {}
@@ -256,13 +293,18 @@ def fit_bge(
             pb_counts = [np.asarray(pc, np.float32)[:, keep] for pc in pb_counts]
     keep_idx = np.flatnonzero(keep)
     d = pb_counts[0].shape[1]
+    d_pad = d
+    if cfg.gene_chunk > 0:
+        d_pad = -(-d // cfg.gene_chunk) * cfg.gene_chunk
+        pb_counts = [np.pad(np.asarray(pc, np.float32), ((0, 0), (0, d_pad - d)))
+                     for pc in pb_counts]
     n_lv = len(pb_counts)
-    use_kernel = pb_batches is None and h <= kernels.MAX_H
+    use_kernel = pb_batches is None and h <= kernels.MAX_H and cfg.gene_chunk <= 0
 
     # initial weights: the JAX package's draws (its kernel path draws
     # e_feat at (D rounded up to 128, H); the first D*H draws are these)
     k_f, *k_axes = prng.split(prng.key(cfg.seed), 1 + n_lv)
-    init = [0.1 * prng.normal(k_f, (d, h)), np.zeros(d, np.float32)]
+    init = [0.1 * prng.normal(k_f, (d_pad, h)), np.zeros(d_pad, np.float32)]
     for k, pc in zip(k_axes, pb_counts):
         init += [0.1 * prng.normal(k, (pc.shape[0], h)), np.zeros(pc.shape[0], np.float32)]
     theta, views = _flat(init, device)
@@ -308,9 +350,11 @@ def fit_bge(
             feat = FeatSide(tv[0], tv[1])
             loss = 0.0
             for i in range(n_lv):
-                loss = loss + expected_nce_loss(
-                    feat, AxisSide(tv[2 + 2 * i], tv[3 + 2 * i]), counts[i], qs[i], ms[i],
-                    k_neg=cfg.n_negatives, ridge=cfg.ridge, dtype=cfg.compute_dtype,
+                args = (feat, AxisSide(tv[2 + 2 * i], tv[3 + 2 * i]), counts[i], qs[i], ms[i])
+                kw = dict(k_neg=cfg.n_negatives, ridge=cfg.ridge, dtype=cfg.compute_dtype)
+                loss = loss + (
+                    expected_nce_loss_chunked(*args, gene_chunk=cfg.gene_chunk, **kw)
+                    if cfg.gene_chunk > 0 else expected_nce_loss(*args, **kw)
                 )
             loss = loss / n_lv
             (g,) = torch.autograd.grad(loss, th)
@@ -318,8 +362,8 @@ def fit_bge(
         loss_trace[ep] = loss
         opt.step(g)
     p1_losses = loss_trace.cpu().numpy()[::50].tolist()
-    e_feat = views[0].cpu().numpy()
-    b_feat = views[1].cpu().numpy()
+    e_feat = views[0][:d].cpu().numpy()  # without the chunk padding
+    b_feat = views[1][:d].cpu().numpy()
     pb_embeddings = [views[2 + 2 * i].cpu().numpy() for i in range(n_lv)]
     pb_biases = [views[3 + 2 * i].cpu().numpy() for i in range(n_lv)]
     del counts, qs, ms
@@ -330,7 +374,7 @@ def fit_bge(
     p2_losses: list[float] = []
     if data is not None:
         e_cell, b_cell, p2_losses = _fit_cells(
-            data, cfg, pb_counts, views[0], views[1], keep, keep_idx, d_full,
+            data, cfg, pb_counts, views[0][:d], views[1][:d], keep, keep_idx, d_full,
             pb_batches, cell_batches, device,
         )
     else:

@@ -117,7 +117,6 @@ def check_supported(args: TopicArgs):
     something else; an unknown decoder family is an error."""
     names = decoder_names(args.decoder)
     off = {
-        "--cnv": args.cnv,
         "--data-parallel": args.data_parallel,
         "--decoder gaussian-nb": "gaussian-nb" in names,
     }
@@ -144,20 +143,25 @@ def compute_level_sort_dims(finest: int, num_levels: int) -> list[int]:
     return dims
 
 
+def read_batch_labels(batch_files: Sequence[str]) -> np.ndarray:
+    """One label a line from each (optionally gzipped) file, in order."""
+    import gzip
+
+    labels = []
+    for f in batch_files:
+        opener = gzip.open if str(f).endswith(".gz") else open
+        with opener(f, "rt") as fh:
+            labels.extend(line.strip() for line in fh if line.strip())
+    return np.asarray(labels)
+
+
 def load_data_vec(data_files: Sequence[str], batch_files=None) -> SparseIoVec:
     vec = SparseIoVec()
     backends = [open_sparse_matrix(f) for f in data_files]
     for b in backends:
         vec.push(b)
     if batch_files:
-        import gzip
-
-        labels = []
-        for f in batch_files:
-            opener = gzip.open if str(f).endswith(".gz") else open
-            with opener(f, "rt") as fh:
-                labels.extend(line.strip() for line in fh if line.strip())
-        vec.register_batches(np.asarray(labels))
+        vec.register_batches(read_batch_labels(batch_files))
     elif len(backends) > 1:
         memb = np.concatenate([np.full(b.num_columns, i, np.int32) for i, b in enumerate(backends)])
         vec.register_batches(memb.astype(str))
@@ -609,6 +613,24 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
         f"{args.out}.log_likelihood",
         {"epoch": np.arange(len(scores.llik)), "llik": np.asarray(scores.llik), "kl": np.asarray(scores.kl)},
     )
+    if args.cnv:
+        # CNV side-channel: per-pseudobulk copy-number states of the finest
+        # level's means (adjusted when batch correction ran) against their
+        # cross-pseudobulk shared profile
+        from ..cocoa.cnv_call import call_cnv_on_residuals
+
+        t_cnv = time.time()
+        cnv = call_cnv_on_residuals(finest_mean, finest_mean.mean(1),
+                                    genes_per_bin=args.cnv_genes_per_bin, device=device)
+        n_pb, n_bins = cnv.states.shape
+        written["cnv"] = write_table(f"{args.out}.cnv", {
+            "pseudobulk": np.repeat(np.arange(n_pb), n_bins),
+            "bin": np.tile(np.arange(n_bins), n_pb),
+            "state": cnv.states.ravel(),
+            "log_ratio": cnv.log_ratio.ravel(),
+        })
+        timings["cnv_s"] = time.time() - t_cnv
+        log.info("cnv side-channel: %d pbs x %d bins", n_pb, n_bins)
     save_model(args.out, trainer, args, d, gene_names)
     part_path = f"{args.out}.partition.npz"
     np.savez(

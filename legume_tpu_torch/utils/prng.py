@@ -267,3 +267,35 @@ def choice_rows(keys: torch.Tensor, cum: torch.Tensor, n: int) -> torch.Tensor:
     float32 tensor on the keys' device: `[S, n]` int64 indices into `p`."""
     r = cum[-1] * (1.0 - uniform_rows(keys, n))
     return torch.searchsorted(cum, r, side="left")
+
+
+def uniform_keys(keys: np.ndarray, n: int, device, minval: float = 0.0,
+                 maxval: float = 1.0) -> torch.Tensor:
+    """`uniform(k, (n,), minval, maxval)` for each host key `k` of
+    `keys [S, 2]`, drawn on `device`: `[S, n]` float32."""
+    u = uniform_rows(key_rows(keys, device), n)
+    if minval == 0.0 and maxval == 1.0:
+        return u
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return torch.clamp_min(u * float(hi - lo) + float(lo), float(lo))
+
+
+def erfinv_rows(x: torch.Tensor) -> torch.Tensor:
+    """`erfinv_f32` in torch ops (float32, any device)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for i in range(1, 9):
+        p = torch.where(lt, _ERFINV_LT5[i], _ERFINV_GE5[i]) + p * w
+    big = float(np.finfo(np.float32).max)
+    return torch.where(x.abs() == 1.0, x * big, p * x)
+
+
+def normal_keys(keys: np.ndarray, n: int, device) -> torch.Tensor:
+    """`normal(k, (n,))` for each host key `k` of `keys [S, 2]`, drawn on
+    `device`: `[S, n]` float32 (within a float32 rounding of the host
+    draw: the device's `log1p` may round the other way)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32))
+    u = uniform_keys(keys, n, device, lo, 1.0)
+    return float(np.float32(np.sqrt(2))) * erfinv_rows(u)

@@ -1,10 +1,12 @@
 """`senna bge` end to end through both packages on the same zarr backend
-(80 genes x 300 cells, the data of `tests/test_cli_e2e.py::test_cli_bge`,
-without `--posterior`), the port on the CPU: the pseudobulk groups are
-equal, the cell latent and the feature embedding (the SIMBA co-embed)
-agree within 2e-4, the outputs and the manifest are written, and the
-options the port does not carry raise. Also: no module of the port, and
-not `chip_smoke.py`, imports JAX or the JAX package."""
+(80 genes x 300 cells, the data of `tests/test_cli_e2e.py::test_cli_bge`),
+the port on the CPU: the pseudobulk groups are equal, the cell latent and
+the feature embedding (the SIMBA co-embed) agree within 2e-4, the outputs
+and the manifest are written, `--posterior` and `--multiome` run and
+write the JAX package's tables, `NceConfig.gene_chunk` follows the dense
+form and JAX's chunked run, and the option the port does not carry
+raises. Also: no module of the port, and not `chip_smoke.py`, imports JAX
+or the JAX package."""
 
 import ast
 from pathlib import Path
@@ -91,9 +93,83 @@ def test_cli_runs_and_rejects_unported_options(runs, tmp_path):
     assert port_cli(argv) == 0
     assert (tmp_path / "cli.latent.parquet").exists()
     assert not (tmp_path / "cli.dictionary.parquet").exists()
-    for flag in (["--posterior", "4"], ["--multiome"], ["--data-parallel"]):
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            port_cli(argv + flag)
+    # --posterior runs and writes JAX's table
+    assert port_cli(argv + ["--posterior", "4", "--out", out + "_post"]) == 0
+    jcli.run_senna(["bge", *argv[2:-2], "--posterior", "4", "--out", out + "_jpost"])
+    t = pd.read_parquet(out + "_post.feature_posterior.parquet")
+    j = pd.read_parquet(out + "_jpost.feature_posterior.parquet")
+    assert list(t.columns) == list(j.columns) == ["gene", "pip", "posterior_norm"]
+    assert (t.gene == j.gene).all() and t.pip.between(0, 1).all()
+    assert np.isfinite(t.posterior_norm).all()
+    import json
+
+    doc = json.loads((tmp_path / "cli_post.gem.json").read_text())
+    assert doc["outputs"]["feature_posterior"].endswith("cli_post.feature_posterior.parquet")
+    # --multiome needs two files; data parallelism is not ported
+    with pytest.raises(SystemExit, match="exactly 2"):
+        port_cli(argv + ["--multiome"])
+    with pytest.raises(NotImplementedError, match="--data-parallel"):
+        port_cli(argv + ["--data-parallel"])
+
+
+def test_multiome_outputs_named_and_shaped_as_jax(tmp_path):
+    from legume_tpu.data.sim import simulate_multiome
+    from legume_tpu.data.sparse_io import create_sparse_from_csc
+
+    sim = simulate_multiome(genes=40, peaks=60, cols=200, seed=13)
+    cells = [f"c{j}" for j in range(200)]
+    rna, atac = str(tmp_path / "rna.zarr"), str(tmp_path / "atac.zarr")
+    create_sparse_from_csc(sim.rna, rna, [f"g{i}" for i in range(40)], cells)
+    create_sparse_from_csc(sim.atac, atac, [f"p{i}" for i in range(60)], cells)
+    flags = ["--data-files", rna, atac, "--multiome", "--bridge-weight", "0.5", "-d", "4",
+             "--epochs", "20", "--sort-dim", "3", "--proj-dim", "8", "--skip-etm"]
+    jcli.run_senna(["bge", *flags, "--out", str(tmp_path / "j")])
+    res = port_cli(["senna", "bge", *flags, "--out", str(tmp_path / "t"), "--device", "cpu"])
+    assert res == 0
+    for name, index in (("feature_embedding", "gene"), ("latent", "cell")):
+        j = _table(tmp_path / "j", name)
+        t = _table(tmp_path / "t", name)
+        assert list(t.columns) == list(j.columns) and t.shape == j.shape
+        assert (t[index] == j[index]).all()
+        assert np.isfinite(t.iloc[:, 1:].to_numpy()).all()
+    names = _table(tmp_path / "t", "feature_embedding").gene.tolist()
+    assert names[:2] == ["rna:g0", "rna:g1"] and names[-1] == "atac:p59" and len(names) == 100
+    # the stacked plane: RNA rows, then the ATAC rows scaled by the bridge weight
+    from legume_tpu_torch.cli.senna_cmds.embed_cmds import multiome_vec
+    from legume_tpu_torch.data import MemoryBackend
+
+    vec = multiome_vec([MemoryBackend(sim.rna, None, cells), MemoryBackend(sim.atac, None, cells)],
+                       0.5)
+    got = vec.read_columns_csc(np.arange(200)).toarray()
+    np.testing.assert_array_equal(got[:40], sim.rna.toarray())
+    np.testing.assert_array_equal(got[40:], 0.5 * sim.atac.toarray())
+    with pytest.raises(SystemExit, match="share cells"):
+        multiome_vec([MemoryBackend(sim.rna), MemoryBackend(sim.atac[:, :100])])
+
+
+@pytest.mark.parametrize("ridge", [0.0, 0.05])
+def test_gene_chunk_matches_dense_and_jax(ridge):
+    """`tests/test_nce.py::test_gene_chunked_phase1_matches_dense`'s
+    data and bar (2e-3 against the dense form), and JAX's own chunked run
+    within the port's phase-1 bar (2e-4; losses rtol 1e-4). With a ridge
+    both packages average it over the padded rows too (D rounded up to
+    the chunk), so the chunked run then follows JAX's, not the dense one."""
+    from legume_tpu.embedding.nce import NceConfig as JConfig
+    from legume_tpu.embedding.nce import fit_bge as j_fit_bge
+    from legume_tpu_torch.embedding.nce import NceConfig, fit_bge
+
+    counts = np.random.default_rng(0).poisson(1.0, (30, 50)).astype(np.float32)
+    kw = dict(embedding_dim=6, epochs=150, seed=2, ridge=ridge)
+    dense = fit_bge([counts], config=NceConfig(**kw), device="cpu")
+    chunked = fit_bge([counts], config=NceConfig(**kw, gene_chunk=16), device="cpu")
+    assert chunked.e_feat.shape == (50, 6)
+    if ridge == 0.0:
+        np.testing.assert_allclose(chunked.e_feat, dense.e_feat, atol=2e-3)
+        np.testing.assert_allclose(chunked.pb_embeddings[0], dense.pb_embeddings[0], atol=2e-3)
+    want = j_fit_bge([counts], config=JConfig(**kw, gene_chunk=16))
+    np.testing.assert_allclose(chunked.e_feat, want.e_feat, atol=2e-4)
+    np.testing.assert_allclose(chunked.pb_embeddings[0], want.pb_embeddings[0], atol=2e-4)
+    np.testing.assert_allclose(chunked.phase1_losses, want.phase1_losses, rtol=1e-4, atol=1e-5)
 
 
 def _imported_modules(path: Path) -> set[str]:

@@ -660,3 +660,97 @@ def test_topic_options_on_the_card_match_the_cpu(dev, tmp_path):
                                                    init_from=str(tmp_path / "nb"), **base),
                                   vec=vec, device=dev)
     assert np.isfinite(warm["latent"]).all()
+
+
+def test_ess_step_on_card_matches_cpu(dev):
+    from legume_tpu_torch.ops import mcmc
+    from legume_tpu_torch.utils import prng
+
+    rng = np.random.default_rng(3)
+    cur, nu, mu = (rng.normal(size=(500, 4)).astype(np.float32) for _ in range(3))
+
+    def run(device):
+        m = torch.from_numpy(mu).to(device)
+        lnpdf = lambda s, i: -0.5 * ((s - (m if i is None else m[i])) ** 2 * 4.0).sum(1)  # noqa: E731
+        c = torch.from_numpy(cur).to(device)
+        out, ln = mcmc.elliptical_slice_step_batched(prng.key(3), c, torch.from_numpy(nu).to(device),
+                                                     lnpdf, lnpdf(c, None))
+        return out.cpu().numpy(), ln.cpu().numpy()
+
+    (g, gl), (c, cl) = run(dev), run("cpu")
+    np.testing.assert_allclose(g, c, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gl, cl, rtol=1e-5, atol=1e-4)
+
+
+def test_rest_fit_on_card_matches_cpu(dev):
+    from legume_tpu_torch.embedding.resolve import rest_fit
+
+    rng = np.random.default_rng(0)
+    theta = rng.dirichlet(np.full(5, 0.5), 400).astype(np.float32)
+    y = rng.poisson(20 * (theta @ rng.gamma(1.0, 1.0, (90, 5)).T) / 5).astype(np.float32)
+    be = MemoryBackend(sp.csc_matrix(y.T))
+    g = rest_fit(theta, be, epochs=200, seed=3, device=dev)
+    c = rest_fit(theta, be, epochs=200, seed=3, device="cpu")
+    np.testing.assert_allclose(g["losses"], c["losses"], rtol=1e-4)
+    for name in ("cell_embedding", "feature_embedding", "topic_embedding"):
+        assert np.abs(g[name] - c[name]).max() <= 1e-3 * np.abs(c[name]).max(), name
+
+
+def test_cocoa_statistics_on_card_match_cpu(dev):
+    from legume_tpu_torch.cocoa import collapse as col
+    from legume_tpu_torch.cocoa import stat as cst
+    from legume_tpu_torch.cocoa.sim import simulate_one
+
+    sim = simulate_one(n_genes=80, n_indv=12, cells_per_indv=40, n_causal=10,
+                       pve_exposure_gene=0.6, depth=4000, seed=3)
+    be = MemoryBackend(sim.counts)
+    _, proj_kn = rp.project_columns(be, 16, seed=1, device="cpu")
+    proj = proj_kn.T.copy()
+    cache = col.build_match_cache(proj, sim.cell_indv, 12, knn=5, device="cpu")
+    gcache = col.build_match_cache(proj, sim.cell_indv, 12, knn=5, device=dev)
+    np.testing.assert_array_equal(gcache.idx, cache.idx)
+    n = sim.counts.shape[1]
+    z = np.random.default_rng(0).dirichlet([2.0, 1.0], n).astype(np.float32)
+    pb = (np.arange(n) % 4).astype(np.int64)
+    ex = np.stack([sim.exposure, np.random.default_rng(7).permutation(sim.exposure)])
+    kw = dict(cell_block=200)
+    for fn, args in ((col.collect_cocoa_stat, (sim.exposure,)), (col.collect_cocoa_stat_multi, (ex,))):
+        g = fn(be, z, sim.cell_indv, pb, 4, *args, cache, device=dev, **kw)
+        c = fn(be, z, sim.cell_indv, pb, 4, *args, cache, device="cpu", **kw)
+        for gs, cs in zip(g if isinstance(g, list) else [g], c if isinstance(c, list) else [c]):
+            for name in ("y1_sum_kdp", "y0_sum_kdp", "y1_sum_kdi", "size_kp", "size_kip"):
+                a, b = getattr(gs, name), getattr(cs, name)
+                assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), name
+    pg = cst.estimate_parameters(c[0], n_opt_iter=40, device=dev)
+    pc = cst.estimate_parameters(c[0], n_opt_iter=40, device="cpu")
+    np.testing.assert_allclose(cst.compute_exposure_contrast(pg, sim.exposure),
+                               cst.compute_exposure_contrast(pc, sim.exposure), rtol=0, atol=1e-4)
+
+
+def test_chunked_loss_matches_dense_on_card(dev):
+    from legume_tpu_torch.embedding.nce import (AxisSide, FeatSide, expected_nce_loss,
+                                                expected_nce_loss_chunked)
+
+    rng = np.random.default_rng(1)
+    p, d, h = 64, 1000, 16
+    c = torch.from_numpy(np.pad(rng.poisson(1.0, (p, d)).astype(np.float32), ((0, 0), (0, 24))))
+    q = c.sum(0) ** 0.75
+    q = q / q.sum()
+    m = c.sum(1)
+    feat = FeatSide(torch.from_numpy(rng.normal(0, 0.1, (d + 24, h)).astype(np.float32)),
+                    torch.from_numpy(rng.normal(0, 0.1, d + 24).astype(np.float32)))
+    axis = AxisSide(torch.from_numpy(rng.normal(0, 0.1, (p, h)).astype(np.float32)),
+                    torch.zeros(p))
+
+    def grads(fn, device, **kw):
+        f = FeatSide(*(t.clone().to(device).requires_grad_(True) for t in feat))
+        a = AxisSide(*(t.clone().to(device).requires_grad_(True) for t in axis))
+        loss = fn(f, a, c.to(device), q.to(device), m.to(device), k_neg=5.0, ridge=0.01, **kw)
+        loss.backward()
+        return [loss.item()] + [t.grad.cpu().numpy() for t in (*f, *a)]
+
+    want = grads(expected_nce_loss, "cpu")
+    got = grads(expected_nce_loss_chunked, dev, gene_chunk=256)
+    assert abs(got[0] - want[0]) <= 2e-5 * abs(want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()

@@ -65,12 +65,16 @@ def _knn_purity(y, labels, k=10):
     return (labels[nbr] == labels[:, None]).mean()
 
 
+def _graph_points():
+    rng = np.random.default_rng(4)
+    return np.concatenate([rng.normal(0, 0.3, (150, 5)), rng.normal(4, 0.3, (150, 5))]
+                          ).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def graph():
     """The fuzzy graph and SGD inputs of 300 points (two blobs)."""
-    rng = np.random.default_rng(4)
-    x = np.concatenate([rng.normal(0, 0.3, (150, 5)), rng.normal(4, 0.3, (150, 5))]
-                       ).astype(np.float32)
+    x = _graph_points()
     src, dst, w = jumap.fuzzy_edges(x, 15)
     xc = x - x.mean(0)
     u, s, _ = np.linalg.svd(xc, full_matrices=False)
@@ -95,6 +99,8 @@ def test_fuzzy_edges_equal_and_weights_exact(graph):
     kNN expands |q - r|^2 in float32 and is off by up to ~1e-4 at these
     coordinates, so the two packages' weights are held within 2e-4."""
     x = graph["x"]
+    # the points the JAX weights were made from, unchanged since
+    np.testing.assert_array_equal(x, _graph_points())
     src, dst, w = tumap.fuzzy_edges(x, 15, device="cpu")
     np.testing.assert_array_equal(src, graph["src"])
     np.testing.assert_array_equal(dst, graph["dst"])

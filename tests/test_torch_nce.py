@@ -141,5 +141,9 @@ def test_initial_draws_are_the_first_dh_of_the_kernel_paths():
 
 
 def test_unported_config_raises():
-    with pytest.raises(NotImplementedError, match="gene_chunk"):
-        fit_bge([_counts()], config=NceConfig(**KW, gene_chunk=64), device="cpu")
+    # gene_chunk is ported (tests/test_torch_bge.py holds it to JAX); a
+    # compute dtype the port has no path for still raises
+    res = fit_bge([_counts()], config=NceConfig(**KW, gene_chunk=64), device="cpu")
+    assert res.e_feat.shape == (150, KW["embedding_dim"])
+    with pytest.raises(ValueError, match="compute_dtype"):
+        fit_bge([_counts()], config=NceConfig(**KW, compute_dtype="float16"), device="cpu")

@@ -119,8 +119,9 @@ def test_cli_runs_and_rejects_unported_options(runs, tmp_path):
     assert port_cli(argv + ["--decoder", "multinomial", "--out", out + "_mn",
                             "--preload-data"]) == 0
     assert json.loads((tmp_path / "cli_mn.model.json").read_text())["decoder"] == "multinomial"
-    # what stays off: the CNV side channel, data parallelism, the vae decoder
-    for extra, name in ((["--cnv"], "--cnv"), (["--data-parallel"], "--data-parallel"),
+    # what stays off: data parallelism, the vae decoder (the CNV side
+    # channel runs: tests/test_torch_cnv.py)
+    for extra, name in ((["--data-parallel"], "--data-parallel"),
                         (["--decoder", "gaussian-nb"], "gaussian-nb")):
         with pytest.raises(NotImplementedError, match=name):
             port_cli(argv + extra)
