@@ -122,7 +122,38 @@ Phases (any failure exits non-zero; nothing is caught):
    cache reused by a second run;
 16. `senna topic --cnv --from` phase 2's run (its cnv table: 80 bins,
    states in {0, 1, 2});
-17. print the script's total seconds, one JSON line of all kernels, then
+17. `senna vae` at the CLI defaults (`-k 16`, encoder (128, 64), 2
+   levels, minibatch 100; 5 epochs) on phase 2's cells (K1 and K3
+   required; llik rising), `senna predict` with that model on phase 8's
+   held-out cells, `senna topic --decoder gaussian-nb --from` phase 2's
+   run; the trained encoder on 4,000 cells on the card against the CPU
+   (1e-3, as phase 8's; each one's distance from float64 printed);
+18. `senna svd` at its defaults on phase 2's cells (K2 takes the per-cell
+   Nystrom projection: one launch per 8,192-cell block, 13, required; K2
+   held against its plain version and `torch.sparse.mm` at svd's first
+   block), its batch-adjusted counts (written with `--save-adjusted`
+   where tensorstore imports, else formed on the card), `senna joint-svd`
+   on phase 13a's RNA and ATAC; `fit_svd` on 4,000 cells (without
+   batches) on the card against the CPU, stage by stage: the same
+   partition, the pseudobulk plane within 1e-5, the rSVD of one plane and
+   the per-cell projection with one basis within 1e-4 (groups of singular
+   values within 5% compared up to rotation); with batches the same,
+   reported only (one matched neighbour may part at a near tie);
+19. `senna joint-topic` at the CLI defaults (`-k 10`, encoder (128, 128),
+   nb; 5 epochs) on phase 13a's RNA and ATAC, and `--decoder delta` on
+   the RNA plane and a second `simulate_topic` draw of its shape (K1 and
+   K3 required; llik rising); each trained joint encoder on the card
+   against the CPU (1e-5 normwise);
+20. `senna masked-topic` at its defaults (`-k 10`, `--window 128`,
+   `--embed-dim 64`, minibatch 256; 5 epochs) on phase 2's cells with
+   `--batch-files` (its null stream's collapse: K1 and K3 required) and
+   `--eval-mask-fraction 0.1`; `masked-vae` and `masked-sbp
+   --gene-modules 8` on 20,000 of them (loss falling); `senna predict`
+   with the masked-vae model on phase 8's held-out cells, and the
+   batch-null model refused (the JAX package's predict fails on it); on
+   4,000 cells the card against the CPU: top-K windows and the union
+   equal, the encoder (normwise) and `masked_eval_loss` within 1e-5;
+21. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
 
 Every kernel check launches the kernel twice on the same inputs and
@@ -138,6 +169,7 @@ float32, as the reference package computes it.
 
 from __future__ import annotations
 
+import copy
 import importlib.util
 import json
 import subprocess
@@ -800,10 +832,12 @@ def dev32(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
 
-def bge_options_phase(work: str, bvec, bres, acounts, a32, K, dev, card: str, checks: dict) -> dict:
+def bge_options_phase(work: str, bvec, bres, acounts, a32, K, dev, card: str, checks: dict,
+                      keep: dict) -> dict:
     """Phases 13a-13d: `senna bge --multiome`, `--posterior`, `pb_gibbs`
     at the NCE anchor and `gene_chunk`. K4 is held against its plain
     version at the multiome run's own planes (rows added to `checks`).
+    The multiome backends stay in `keep["multiome"]` for phases 18-19.
     Returns each run's launches."""
     from legume_tpu_torch.cli.senna_cmds.embed_cmds import BgeArgs, multiome_vec, run_bge
     from legume_tpu_torch.data import MemoryBackend
@@ -869,7 +903,8 @@ def bge_options_phase(work: str, bvec, bres, acounts, a32, K, dev, card: str, ch
         row["path"] = "bge_multiome"
         print(json.dumps({"kernel_check": "nce_epoch", "card": card, **row}), flush=True)
     checks["nce_epoch"].extend(rows)
-    del ms, rna, atac, mres, mvec, x, pb_t
+    keep["multiome"] = (rna, atac)
+    del ms, mres, mvec, x, pb_t
 
     # ---- 13b: --posterior 45 on phase 5's cells
     pargs = BgeArgs(posterior=45, skip_etm=True, out=f"{work}/bge_post")
@@ -1155,6 +1190,416 @@ def topic_cnv_phase(work: str, vec, K, dev, card: str) -> dict:
     if not (np.isin(cnv["state"], [0, 1, 2]).all() and np.isfinite(cnv["log_ratio"]).all()):
         raise AssertionError("topic --cnv states or log-ratios out of range")
     return launches
+
+
+# ---- phases 17-20: vae, svd / joint-svd, joint-topic, the masked models ------
+
+
+def _run_line(name: str, res_timings: dict, t0: float, launches: dict, card: str, **extra) -> dict:
+    line = {"phase": name, "run_s": time.time() - t0, "timings": res_timings,
+            "launches": launches, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            **extra, "card": card}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def _subset(vec, n: int, with_batches: bool = True):
+    """The first `n` cells of `vec` as a vec of their own."""
+    from legume_tpu_torch.data import MemoryBackend, SparseIoVec
+
+    sub = SparseIoVec()
+    sub.push(MemoryBackend(vec.read_columns_csc(np.arange(n)), vec.row_names(),
+                           vec.column_names()[:n]))
+    if with_batches and vec.num_batches > 1:
+        sub.register_batches(np.asarray(vec.batch_names())[vec.batch_membership()[:n]])
+    return sub
+
+
+def vae_phase(work: str, vec, hvec, held_batch_file: str, K, dev, card: str) -> dict:
+    """Phase 17: `senna vae` at the CLI defaults (5 epochs) on phase 2's
+    cells, `senna predict` with that model on phase 8's held-out cells,
+    `senna topic --decoder gaussian-nb --from` phase 2; on 4,000 cells
+    the trained encoder on the card against the CPU (1e-4)."""
+    from legume_tpu_torch.cli.main import run_senna
+    from legume_tpu_torch.data.visitors import visit_columns_by_block
+    from legume_tpu_torch.senna import predict as P
+    from legume_tpu_torch.senna.topic import build_encoder, load_model
+
+    out = {}
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = run_senna(["vae", "--out", f"{work}/vae", "--epochs", "5", "--device", str(dev)], vec=vec)
+    torch.cuda.synchronize()
+    out["vae"] = _launched(K, ("project_normed", "collapse"), "senna vae")
+    z, llik = res["latent"], np.asarray(res["scores"].llik)
+    _run_line("senna_vae", res["timings"], t0, out["vae"], card, cells=vec.num_columns,
+              genes=vec.num_rows, groups_per_level=res["levels"].num_groups_per_level,
+              llik=llik.tolist(), latent_shape=list(z.shape))
+    if z.shape != (vec.num_columns, 16) or not np.isfinite(z).all():
+        raise AssertionError("vae latent not finite or of the wrong shape")
+    if not (np.isfinite(llik).all() and llik[-1] > llik[0]):
+        raise AssertionError(f"vae llik not finite or not rising: {llik}")
+
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    zp = P.predict_model(P.PredictArgs(model=f"{work}/vae", out=f"{work}/vae_predict",
+                                       batch_files=[held_batch_file]), vec=hvec, device=dev)
+    torch.cuda.synchronize()
+    out["vae_predict"] = dict(K.launch_counts)
+    _run_line("senna_predict_vae", {}, t0, out["vae_predict"], card, cells=hvec.num_columns,
+              latent_shape=list(zp.shape))
+    if zp.shape != (hvec.num_columns, 16) or not np.isfinite(zp).all():
+        raise AssertionError("vae predict latent not finite or of the wrong shape")
+
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    g = run_senna(["topic", "--from", f"{work}/topic", "--out", f"{work}/topic_gnb", "--decoder",
+                   "gaussian-nb", "--epochs", "5", "--device", str(dev)], vec=vec)
+    torch.cuda.synchronize()
+    out["topic_gaussian_nb"] = _launched(K, ("project_normed", "collapse"),
+                                         "senna topic --decoder gaussian-nb")
+    gl = np.asarray(g["scores"].llik)
+    _run_line("topic_gaussian_nb", g["timings"], t0, out["topic_gaussian_nb"], card,
+              llik=gl.tolist())
+    if not (np.isfinite(gl).all() and np.isfinite(g["latent"]).all()):
+        raise AssertionError("topic --decoder gaussian-nb: llik or latent not finite")
+
+    # the trained encoder on the first 4,000 cells, card against CPU within
+    # 1e-3, phase 8's bar for the topic encoder: the card's float32 latent
+    # lies ~2e-4 from the same encoder in float64 (the CPU's ~1e-4; both
+    # printed), so a bar of 1e-4 would sit below the card's own rounding
+    meta, flat, genes = load_model(f"{work}/vae")
+    first = _subset(vec, 4000)
+    remap = P.build_gene_remap(genes, first.row_names())
+    zs = {d: P.score_dense_backend(first, build_encoder(meta, flat, device=d), remap, device=d)
+          for d in (dev, "cpu")}
+    x64 = P._dense_block(next(iter(visit_columns_by_block(first, block_size=4096))), remap,
+                         "cpu").double()
+    with torch.no_grad():
+        z64 = build_encoder(meta, flat, device="cpu").double()(x64, train=False)[0].numpy()
+    err = float(np.abs(zs[dev] - zs["cpu"]).max())
+    card_f64, cpu_f64 = (float(np.abs(zs[d] - z64).max()) for d in (dev, "cpu"))
+    print(json.dumps({"phase": "vae_card_vs_cpu", "cells": 4000, "latent_max_abs_err": err,
+                      "card_vs_f64": card_f64, "cpu_vs_f64": cpu_f64, "card": card}), flush=True)
+    if not err <= 1e-3:
+        raise AssertionError(f"vae latent on the card vs the CPU: {err} > 1e-3 (from float64: "
+                             f"card {card_f64}, CPU {cpu_f64})")
+    return out
+
+
+def svd_phase(work: str, vec, multiome, K, dev, card: str, checks: dict) -> dict:
+    """Phase 18: `senna svd` at its defaults on phase 2's cells (13 K2
+    launches, K2 held against its plain version at svd's first block),
+    the batch-adjusted counts (written where tensorstore imports, else
+    formed on the card), `senna joint-svd` on phase 13a's multiome
+    modalities; on 4,000 cells the card against the CPU (factors within
+    1e-4 up to sign)."""
+    from legume_tpu_torch.cli.main import run_senna
+    from legume_tpu_torch.data.visitors import visit_columns_by_block
+    from legume_tpu_torch.ops.random_projection import block_to_device
+    from legume_tpu_torch.senna import svd as S
+
+    out = {}
+    can_write = importlib.util.find_spec("tensorstore") is not None
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = run_senna(["svd", "--data-files", "phase2", "--out", f"{work}/svd", "--device", str(dev),
+                     *(["--save-adjusted"] if can_write else [])], vec=vec)
+    torch.cuda.synchronize()
+    out["svd"] = _launched(K, ("project_normed", "collapse", "project_raw"), "senna svd")
+    f = res["factors"]
+    adjusted = {"written": can_write}
+    if not can_write:  # the writer needs tensorstore: form the matrix on the card instead
+        fin = res["levels"].collapsed[0]
+        t1 = time.time()
+        adj = S.adjusted_csc(vec, fin.mu_residual.mean().cpu().numpy(),
+                             res["levels"].groups_per_level[0], device=dev)
+        adjusted.update(seconds=time.time() - t1, shape=list(adj.shape), nnz=int(adj.nnz),
+                        finite=bool(np.isfinite(adj.data).all()))
+        if adj.shape != vec.shape or not np.isfinite(adj.data).all():
+            raise AssertionError("svd adjusted matrix not finite or of the wrong shape")
+    _run_line("senna_svd", res["timings"], t0, out["svd"], card, cells=vec.num_columns,
+              factors_shape=list(f.shape), singular_values=res["singular_values"].tolist(),
+              adjusted=adjusted)
+    n_blocks = -(-vec.num_columns // 8192)
+    if out["svd"]["project_raw"] != n_blocks:
+        raise AssertionError(f"svd K2 launches {out['svd']['project_raw']}, one a block ({n_blocks})")
+    if f.shape != (vec.num_columns, 20) or not np.isfinite(f).all():
+        raise AssertionError("svd factors not finite or of the wrong shape")
+
+    # K2 at svd's first block: log1p values, svd's basis
+    blk = next(iter(visit_columns_by_block(vec, block_size=8192)))
+    r, pt, v = block_to_device(blk, dev)
+    basis = torch.from_numpy(np.ascontiguousarray(res["basis"], np.float32)).to(dev)
+    row = check_projection(K, basis, r, pt, torch.log1p(v), normed=False, shape="svd_block")
+    row.update(launches_in_e2e=out["svd"]["project_raw"], path="senna_svd")
+    print(json.dumps({"kernel_check": "project_raw", "card": card, **row}), flush=True)
+    checks["project_raw"].append(row)
+
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    j = run_senna(["joint-svd", "--data-files", "rna", "--data-files", "atac", "--out",
+                   f"{work}/joint_svd", "--device", str(dev)], vecs=list(multiome))
+    torch.cuda.synchronize()
+    out["joint_svd"] = _launched(K, ("project_normed", "collapse", "project_raw"), "joint-svd")
+    _run_line("senna_joint_svd", j["timings"], t0, out["joint_svd"], card,
+              cells=multiome[0].num_columns, features=[m.num_rows for m in multiome],
+              factors_shape=list(j["factors"].shape))
+    d_joint = sum(m.num_rows for m in multiome)
+    if not np.isfinite(j["factors"]).all() or j["basis"].shape != (d_joint, 20):
+        raise AssertionError(f"joint-svd factors not finite, or the basis is not [{d_joint}, 20]")
+
+    # the batch-matched plane takes each cell's nearest neighbours across
+    # batches from the projection, which the card and the CPU give 1e-6
+    # apart: at near ties they part (phase 15 saw it in cocoa's cache),
+    # so the stages are held without batches and the batched run reported
+    vs_cpu = svd_card_vs_cpu(_subset(vec, 4000, with_batches=False), f"{work}/svd4k", dev)
+    batched = svd_card_vs_cpu(_subset(vec, 4000), f"{work}/svd4kb", dev)
+    print(json.dumps({"phase": "svd_card_vs_cpu", "cells": 4000, **vs_cpu,
+                      "with_batches_reported": batched, "card": card}), flush=True)
+    if not (vs_cpu["same_partition"] and vs_cpu["plane_max_rel_err"] <= 1e-5
+            and vs_cpu["rsvd_held_columns"] and vs_cpu["rsvd_basis_max_abs_err"] <= 1e-4
+            and vs_cpu["rsvd_factors_max_rel_err"] <= 1e-4
+            and vs_cpu["projection_max_rel_err"] <= 1e-4):
+        raise AssertionError(f"svd on the card vs the CPU: {vs_cpu}")
+    return out
+
+
+def svd_card_vs_cpu(first, out: str, dev) -> dict:
+    """`fit_svd` on the card and on the CPU, held stage by stage: the
+    partition equal and the pseudobulk plane the basis is fitted on
+    within 1e-5 (the collapse's bar); the rSVD of the CPU's plane on both
+    devices, within 1e-4 by `svd_held_errors`; the per-cell projection of
+    the cells through K2 and its plain version with the CPU's basis
+    within 1e-4 of each column's largest value. The end-to-end factors'
+    distance is reported beside them: the plane's 1e-5 turns components
+    whose singular values lie a few percent apart by about its size over
+    their gap."""
+    from legume_tpu_torch.ops.rsvd import rsvd
+    from legume_tpu_torch.senna import svd as S
+    from legume_tpu_torch.utils.prng import key_from_seed
+
+    fits = {d: S.fit_svd(S.SvdArgs(out=f"{out}_{d}"), vec=first, device=d) for d in (str(dev), "cpu")}
+    g, c = fits[str(dev)], fits["cpu"]
+    plane_err = float(np.abs(g["pb_dp"] - c["pb_dp"]).max() / np.abs(c["pb_dp"]).max())
+    x = np.log1p(c["pb_dp"])
+    k = len(c["singular_values"])
+    key = key_from_seed(S.SvdArgs.seed, 23)
+    rs = {}
+    for d in (str(dev), "cpu"):
+        u, sv, _ = rsvd(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(d), k, key=key)
+        rs[d] = {"basis": u, "singular_values": sv, "factors": S.project_cells(
+            first, u, block_size=8192, device="cpu")}
+    held, basis_err, f_err = svd_held_errors(rs[str(dev)], rs["cpu"])
+    proj = {d: S.project_cells(first, c["basis"], block_size=8192, device=d)
+            for d in (str(dev), "cpu")}
+    proj_err = float((np.abs(proj[str(dev)] - proj["cpu"]) / np.abs(proj["cpu"]).max(0)).max())
+    e2e_held, e2e_basis, e2e_f = svd_held_errors(g, c)
+    knn = {}
+    if first.num_batches > 1:  # the matched neighbours, each from its own projection
+        from legume_tpu_torch.ops.knn import matched_neighbors_across_batches
+
+        memb = first.batch_membership()
+        idx = {d: matched_neighbors_across_batches(fits[d]["levels"].proj_kn.T.copy(), memb,
+                                                   first.num_batches, 10, device=d)[0]
+               for d in (str(dev), "cpu")}
+        same_proj = matched_neighbors_across_batches(c["levels"].proj_kn.T.copy(), memb,
+                                                     first.num_batches, 10, device=str(dev))[0]
+        knn = {"matched_entries_differ": int((idx[str(dev)] != idx["cpu"]).sum()),
+               "matched_entries_differ_same_projection": int((same_proj != idx["cpu"]).sum()),
+               "projection_max_abs_diff": float(np.abs(g["levels"].proj_kn
+                                                       - c["levels"].proj_kn).max())}
+    return {
+        "same_partition": bool(np.array_equal(g["levels"].groups_per_level[0],
+                                              c["levels"].groups_per_level[0])),
+        "plane_max_rel_err": plane_err, "singular_values_cpu": c["singular_values"].tolist(),
+        "rsvd_held_columns": held, "rsvd_basis_max_abs_err": basis_err,
+        "rsvd_factors_max_rel_err": f_err, "projection_max_rel_err": proj_err,
+        "e2e_held_columns": e2e_held, "e2e_basis_max_abs_err": e2e_basis,
+        "e2e_factors_max_rel_err": e2e_f, **knn,
+    }
+
+
+def svd_held_errors(got: dict, want: dict, gap: float = 0.05):
+    """(held columns, basis error, factor error) of two svd fits. The
+    columns group where neighbouring singular values lie within `gap`
+    of each other; each group is compared up to its rotation (a sign for
+    one column): the basis as U_got A against U_want with A = U_got^T
+    U_want over the group, the factors as F_got A against F_want
+    relative to each column's largest value. The last group is not held:
+    its gap to the components the truncation drops is unknown, and the
+    rSVD's trailing vectors follow the QR's rounding."""
+    s = want["singular_values"]
+    bounds, j = [], 0
+    while j < len(s):
+        e = j + 1
+        while e < len(s) and s[e - 1] - s[e] <= gap * s[e - 1]:
+            e += 1
+        bounds.append((j, e))
+        j = e
+    basis_err = f_err = 0.0
+    held = []
+    for a, b in bounds[:-1]:
+        rot = got["basis"][:, a:b].T @ want["basis"][:, a:b]
+        basis_err = max(basis_err, float(np.abs(got["basis"][:, a:b] @ rot
+                                                - want["basis"][:, a:b]).max()))
+        scale = np.abs(want["factors"][:, a:b]).max(0)
+        f_err = max(f_err, float((np.abs(got["factors"][:, a:b] @ rot - want["factors"][:, a:b])
+                                  / scale).max()))
+        held.extend(range(a, b))
+    return held, basis_err, f_err
+
+
+def joint_topic_phase(work: str, multiome, K, dev, card: str) -> dict:
+    """Phase 19: `senna joint-topic` at the CLI defaults (5 epochs) on
+    phase 13a's RNA and ATAC; `--decoder delta` on the RNA plane and a
+    second `simulate_topic` draw of its shape; the trained joint encoder
+    on the card against the CPU (1e-5, normwise)."""
+    from legume_tpu_torch.cli.main import run_senna
+    from legume_tpu_torch.data import MemoryBackend
+    from legume_tpu_torch.data.sim import simulate_topic
+
+    out, runs = {}, {}
+    rna, _ = multiome
+    t0 = time.time()
+    second = simulate_topic(rows=rna.num_rows, cols=rna.num_columns, factors=8, batches=1, seed=19)
+    sim_s = time.time() - t0
+    pairs = {"joint_topic": list(multiome),
+             "joint_topic_delta": [rna, MemoryBackend(second.counts)]}
+    for name, mods in pairs.items():
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = run_senna(["joint-topic", *[a for _ in mods for a in ("--data-files", "m")],
+                         "--out", f"{work}/{name}", "--epochs", "5", "--device", str(dev),
+                         *(["--decoder", "delta"] if name.endswith("delta") else [])], vecs=mods)
+        torch.cuda.synchronize()
+        out[name] = _launched(K, ("project_normed", "collapse"), name)
+        llik = np.asarray(res["scores"].llik)
+        _run_line(name, res["timings"], t0, out[name], card, cells=mods[0].num_columns,
+                  features=[m.num_rows for m in mods], pseudobulks=int(res["pb_latent"].shape[0]),
+                  llik=llik.tolist(), **({"simulate_s": sim_s} if name.endswith("delta") else {}))
+        if not (np.isfinite(llik).all() and llik[-1] > llik[0]
+                and np.isfinite(res["pb_latent"]).all()):
+            raise AssertionError(f"{name}: llik not finite or not rising, or latent not finite")
+        runs[name] = res
+    errs = {}
+    for name, res in runs.items():
+        enc = res["trainer"].encoder
+        x = res["input"][:4000]
+        with torch.no_grad():
+            got = enc(torch.from_numpy(x).to(dev), train=False)[0].cpu()
+            want = copy.deepcopy(enc).cpu()(torch.from_numpy(x), train=False)[0]
+        errs[name] = float((got - want).abs().max() / want.abs().max())
+    print(json.dumps({"phase": "joint_topic_card_vs_cpu", "rows": int(min(4000, len(x))),
+                      "encoder_normwise_rel_err": errs, "card": card}), flush=True)
+    if not all(e <= 1e-5 for e in errs.values()):
+        raise AssertionError(f"joint encoder on the card vs the CPU: {errs}")
+    return out
+
+
+def _masked_argv(name: str, out: str, dev, *extra) -> list:
+    return [name, "--data-files", "phase2", "--out", out, "--epochs", "5", "--device", str(dev),
+            *extra]
+
+
+def masked_phase(work: str, vec, hvec, K, dev, card: str) -> dict:
+    """Phase 20: `masked-topic` at its defaults (5 epochs) on phase 2's
+    cells with `--batch-files` (its null stream's collapse takes K1 and
+    K3) and `--eval-mask-fraction 0.1`; `masked-vae` and `masked-sbp
+    --gene-modules 8` on 20,000 of them; `senna predict` with the
+    masked-vae model on phase 8's held-out cells (and the batch-null
+    model refused, as the JAX package's predict fails on it); on 4,000
+    cells the card against the CPU: windows and unions equal, the encoder
+    and `masked_eval_loss` within 1e-5."""
+    from legume_tpu_torch.cli.main import run_senna
+    from legume_tpu_torch.models import indexed as I
+    from legume_tpu_torch.senna import predict as P
+
+    out = {}
+    bfile = _write_lines(f"{work}/train.batch.txt", np.asarray(vec.batch_names())[
+        vec.batch_membership()])
+    runs = {}
+    sub20 = _subset(vec, 20_000, with_batches=False)
+    plan = {
+        "masked_topic": (vec, ["--batch-files", bfile, "--eval-mask-fraction", "0.1"],
+                         ("project_normed", "collapse")),
+        "masked_vae": (sub20, [], ()),
+        "masked_sbp": (sub20, ["--gene-modules", "8"], ()),
+    }
+    for name, (data, extra, need) in plan.items():
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = run_senna(_masked_argv(name.replace("_", "-"), f"{work}/{name}", dev, *extra), vec=data)
+        torch.cuda.synchronize()
+        out[name] = _launched(K, need, name)
+        trace = np.asarray(res["trace"])
+        _run_line(name, res["timings"], t0, out[name], card, cells=data.num_columns,
+                  window=128, trace=trace.tolist(), eval_loss=res["eval_loss"])
+        if not (np.isfinite(trace).all() and trace[-1] < trace[0]
+                and np.isfinite(res["latent"]).all()):
+            raise AssertionError(f"{name}: loss not finite or not falling, or latent not finite")
+        runs[name] = res
+    if runs["masked_topic"]["eval_loss"] is None or not np.isfinite(runs["masked_topic"]["eval_loss"]):
+        raise AssertionError("masked-topic: no finite held-out eval loss")
+
+    K.reset_launch_counts()
+    t0 = time.time()
+    zp = P.predict_model(P.PredictArgs(model=f"{work}/masked_vae", out=f"{work}/masked_predict"),
+                         vec=hvec, device=dev)
+    torch.cuda.synchronize()
+    out["masked_predict"] = dict(K.launch_counts)
+    try:
+        P.predict_model(P.PredictArgs(model=f"{work}/masked_topic", out=f"{work}/mp_null"),
+                        vec=hvec, device=dev)
+    except ValueError as e:
+        refused = str(e)[:100]
+    else:
+        raise AssertionError("predict ran a masked model trained with a batch-null stream")
+    _run_line("senna_predict_masked", {}, t0, out["masked_predict"], card, cells=hvec.num_columns,
+              latent_shape=list(zp.shape), batch_null_model_refused=refused)
+    if zp.shape != (hvec.num_columns, 10) or not np.isfinite(zp).all():
+        raise AssertionError("masked predict latent not finite or of the wrong shape")
+
+    # card against CPU on the first 4,000 cells with masked-topic's model
+    res = runs["masked_topic"]
+    first = _subset(vec, 4000)
+    card_dev = str(dev)
+    win = {d: I.build_topk_windows(first, 128, device=d) for d in (card_dev, "cpu")}
+    same_windows = bool(np.array_equal(win[card_dev].ids, win["cpu"].ids)
+                        and np.array_equal(win[card_dev].vals, win["cpu"].vals))
+    ids = torch.from_numpy(win["cpu"].ids[:256])
+    same_union = bool(torch.equal(I.union_ids(ids.to(dev), 4096, vec.num_rows).cpu(),
+                                  I.union_ids(ids, 4096, vec.num_rows)))
+    data = I.IndexedData(ids=res["data"].ids[:4000], vals=res["data"].vals[:4000],
+                         log_q=res["data"].log_q, n_genes=vec.num_rows)
+    memb = res["null_membership"][:4000]
+    cfg = I.MaskedTrainConfig(minibatch=256, eval_mask_frac=0.1, null_plane=res["null_plane"],
+                              null_membership=memb)
+    cpu_model = copy.deepcopy(res["model"]).cpu()
+    models = ((card_dev, res["model"]), ("cpu", cpu_model))
+    z = {d: I.encode_all(m, data, null_plane=res["null_plane"], null_membership=memb, device=d)
+         for d, m in models}
+    ev = {d: I.masked_eval_loss(m, data, cfg, device=d) for d, m in models}
+    # the encoder's log theta held normwise, as the joint encoder's
+    # (values reach about -16: a float32 rounding there is 1e-6)
+    enc_err = float(np.abs(z[card_dev] - z["cpu"]).max())
+    enc_rel = enc_err / float(np.abs(z["cpu"]).max())
+    ev_err = abs(ev[card_dev] - ev["cpu"])
+    print(json.dumps({"phase": "masked_card_vs_cpu", "cells": 4000, "windows_equal": same_windows,
+                      "union_equal": same_union, "encoder_max_abs_err": enc_err,
+                      "encoder_normwise_rel_err": enc_rel, "eval_loss": ev,
+                      "eval_loss_abs_err": ev_err, "card": card}), flush=True)
+    if not (same_windows and same_union and enc_rel <= 1e-5 and ev_err <= 1e-5):
+        raise AssertionError(f"masked on the card vs the CPU: windows {same_windows}, union "
+                             f"{same_union}, encoder {enc_rel}, eval loss {ev_err}")
+    return out
 
 
 def main() -> int:
@@ -1629,23 +2074,33 @@ def run(work: str, t_script: float) -> int:
     option_launches = topic_options_phase(work, sim, vec, args.out, levels, sub, K, dev, card)
 
     # ---- phases 13-16: bge options, rest, cocoa, topic --cnv -----------------
-    slice9 = bge_options_phase(work, bvec, bres, acounts, anchor["float32"], K, dev, card, checks)
+    kept: dict = {}
+    slice9 = bge_options_phase(work, bvec, bres, acounts, anchor["float32"], K, dev, card, checks,
+                               kept)
     slice9["rest"] = rest_phase(work, vec, K, dev, card)
     slice9.update(cocoa_phase(work, K, dev, card, checks))
     slice9["topic_cnv"] = topic_cnv_phase(work, vec, K, dev, card)
 
-    # ---- phase 17: the kernels line, then the device line -----------------
+    # ---- phases 17-20: vae, svd / joint-svd, joint-topic, masked models ----
+    slice10 = vae_phase(work, vec, hvec, bfile, K, dev, card)
+    slice10.update(svd_phase(work, vec, kept["multiome"], K, dev, card, checks))
+    slice10.update(joint_topic_phase(work, kept["multiome"], K, dev, card))
+    slice10.update(masked_phase(work, vec, hvec, K, dev, card))
+
+    # ---- phase 21: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
-    # and `shapes` holds every checked shape of K3 and K4, each with the
-    # run (`path`) whose launches `launches_in_e2e` counts. `launches` is
-    # the count of the kernel's own main paths: `senna topic` for K1-K2,
-    # `senna topic` and `senna clustering`'s BHC sums for K3, `senna bge`
-    # for K4; `launches_bge` is each kernel's count in bge,
+    # and `shapes` holds every checked shape, each with the run (`path`)
+    # whose launches `launches_in_e2e` counts. `launches` is the count of
+    # the kernel's own main paths: `senna topic` for K1, `senna svd` for
+    # K2, `senna topic` and `senna clustering`'s BHC sums for K3, `senna
+    # bge` for K4; `launches_bge` is each kernel's count in bge,
     # `launches_clustering` K3's in clustering, `launches_topic_options`
     # each kernel's count summed over phase 12's runs, and
-    # `launches_<path>` its count in each run of phases 13-16 (multiome,
-    # posterior, rest, diff, collapse, topic_cnv).
+    # `launches_<path>` its count in each run of phases 13-20 (multiome,
+    # posterior, rest, diff, collapse, topic_cnv; vae, vae_predict,
+    # topic_gaussian_nb, svd, joint_svd, joint_topic, joint_topic_delta,
+    # masked_topic, masked_vae, masked_sbp, masked_predict).
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
@@ -1657,12 +2112,13 @@ def run(work: str, t_script: float) -> int:
         main = max(checks[name], key=lambda r: r.get("launches_in_e2e", 0))
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": (blaunches[name] if name == "nce_epoch" else
-                         launches[name] + claunches[name]),
+            "launches": (blaunches[name] if name == "nce_epoch" else launches[name]
+                         + claunches[name] + (slice10["svd"][name] if name == "project_raw" else 0)),
             "launches_bge": blaunches[name],
             "launches_layout_pseudotime_plot": sum(layout_launches.values()),
             "launches_topic_options": option_launches.get(name, 0),
-            **{f"launches_{path}": counts[name] for path, counts in slice9.items()},
+            **{f"launches_{path}": counts[name]
+               for path, counts in {**slice9, **slice10}.items()},
             **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),

@@ -1,6 +1,7 @@
 """Command line of the port: `python -m legume_tpu_torch.cli.main senna
-{topic,bge,resolve-embedding-space (rest),predict,eval-topic,clustering,
-layout,pseudotime,plot,plot-topic} ...` and `python -m
+{topic,vae,svd,joint-svd,joint-topic,masked-topic,masked-vae,masked-sbp,
+bge,resolve-embedding-space (rest),predict,eval-topic,clustering,layout,
+pseudotime,plot,plot-topic} ...` and `python -m
 legume_tpu_torch.cli.main cocoa {diff,collapse,simulate-one,
 simulate-collider} ...`.
 
@@ -11,8 +12,9 @@ resolves the latent (and `plot-topic`'s dictionary) from that run's
 `{run}.senna.json`; `clustering` and `layout` record their outputs back
 into it. `senna topic --from <run>` inherits the run's data files and
 reuses its cell -> pseudobulk partition. A caller holding the cells in
-memory passes them to `run_senna(argv, vec=)`; `topic` then reads them
-instead of `--data-files`.
+memory passes them to `run_senna(argv, vec=)` (`vecs=`, one per modality,
+for `joint-topic` and `joint-svd`); the command then reads them instead
+of `--data-files`.
 """
 
 from __future__ import annotations
@@ -262,19 +264,33 @@ def _run_clustering(a):
     return labels
 
 
-def run_senna(argv, *, vec=None):
+def run_senna(argv, *, vec=None, vecs=None):
     from ..senna.topic import TopicArgs, fit_topic_model
     from ..utils.prng import DEFAULT_PROJECTION_SEED
+    from .senna_cmds import embed_cmds, masked_cmds, topic_cmds
 
     ap = argparse.ArgumentParser(prog="senna")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _topic_parser(sub)
+    topic_cmds.add_topic_parsers(sub)
+    embed_cmds.add_svd_parsers(sub)
+    masked_cmds.add_masked_parsers(sub)
     _bge_parser(sub)
     _rest_parser(sub)
     _predict_parser(sub)
     _clustering_parser(sub)
     _layout_parsers(sub)
     a = ap.parse_args(argv)
+    trainers = {
+        "vae": lambda: topic_cmds.run_vae(a, vec=vec),
+        "joint-topic": lambda: topic_cmds.run_joint_topic(a, vecs=vecs),
+        "svd": lambda: embed_cmds.run_svd(a, vec=vec),
+        "joint-svd": lambda: embed_cmds.run_joint_svd(a, vecs=vecs),
+        **{name: (lambda: masked_cmds.run_masked(a, vec=vec))
+           for name in ("masked-topic", "masked-vae", "masked-sbp")},
+    }
+    if a.cmd in trainers:
+        return trainers[a.cmd]()
     if a.cmd in ("resolve-embedding-space", "rest"):
         from .senna_cmds.embed_cmds import RestArgs, run_rest
 
@@ -430,9 +446,9 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     logging.basicConfig(level=logging.INFO, format="[%(levelname)s %(name)s] %(message)s")
     if not argv or argv[0] not in ("senna", "cocoa"):
-        print("usage: python -m legume_tpu_torch.cli.main senna {topic,bge,"
-              "resolve-embedding-space,rest,predict,eval-topic,clustering,layout,pseudotime,"
-              "plot,plot-topic,plot-strand} ...\n"
+        print("usage: python -m legume_tpu_torch.cli.main senna {topic,vae,svd,joint-svd,"
+              "joint-topic,masked-topic,masked-vae,masked-sbp,bge,resolve-embedding-space,rest,"
+              "predict,eval-topic,clustering,layout,pseudotime,plot,plot-topic,plot-strand} ...\n"
               "       python -m legume_tpu_torch.cli.main cocoa {diff,collapse,simulate-one,"
               "simulate-collider} ...")
         return 1

@@ -359,3 +359,55 @@ def run_rest(args: RestArgs, *, vec=None, device="cuda") -> dict:
         outputs.append(paths)
     log.info("wrote %d aligned runs under %s.run*", len(aligned), args.out)
     return {"aligned": aligned, "outputs": outputs}
+
+
+def add_svd_parsers(sub) -> None:
+    """`senna svd` and `senna joint-svd`, the JAX flags and defaults."""
+    p = sub.add_parser("svd", help="streaming Nystrom rSVD embedding")
+    p.add_argument("--data-files", nargs="+", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--batch-files", nargs="+", default=None)
+    p.add_argument("--n-factors", type=int, default=20)
+    p.add_argument("--block-size", type=int, default=8192)
+    p.add_argument("--column-sum-norm", type=float, default=0.0)
+    p.add_argument("--save-adjusted", action="store_true")
+    p.add_argument("--qc", action="store_true")
+    p.add_argument("--qc-min-total", type=float, default=0.0)
+    p.add_argument("--qc-min-genes", type=int, default=0)
+    p.add_argument("--qc-max-mito-frac", type=float, default=1.0)
+    p.add_argument("--hvg-genes", type=int, default=0)
+    p.add_argument("--cnv", action="store_true")
+    p.add_argument("--data-parallel", action="store_true")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+    p = sub.add_parser("joint-svd", help="multi-modality rSVD (shared cells)")
+    p.add_argument("--data-files", nargs="+", required=True, action="append",
+                   help="repeat once per modality")
+    p.add_argument("--out", required=True)
+    p.add_argument("--n-factors", type=int, default=20)
+    p.add_argument("--proj-dim", type=int, default=50)
+    p.add_argument("--sort-dim", type=int, default=10)
+    p.add_argument("--block-size", type=int, default=8192)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+
+def run_svd(a, *, vec=None) -> dict:
+    from ...senna.svd import SvdArgs, fit_svd
+    from ...utils.prng import DEFAULT_PROJECTION_SEED
+
+    fields = {k: v for k, v in vars(a).items() if k not in ("cmd", "device", "seed")}
+    seed = a.seed if a.seed is not None else DEFAULT_PROJECTION_SEED
+    return fit_svd(SvdArgs(**fields, seed=seed), vec=vec, device=a.device)
+
+
+def run_joint_svd(a, *, vecs=None) -> dict:
+    from ...senna.svd import fit_joint_svd
+    from ...utils.prng import DEFAULT_PROJECTION_SEED
+
+    return fit_joint_svd(
+        a.data_files, a.out, n_factors=a.n_factors, proj_dim=a.proj_dim, sort_dim=a.sort_dim,
+        block_size=a.block_size, seed=a.seed if a.seed is not None else DEFAULT_PROJECTION_SEED,
+        vecs=vecs, device=a.device,
+    )

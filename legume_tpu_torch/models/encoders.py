@@ -110,3 +110,61 @@ class LogSoftmaxEncoder(nn.Module):
     def latent_gaussian_params(self, x_nd, x0_nd=None, *, train: bool = False):
         """`(mu, lnvar)` heads."""
         return self.trunk(x_nd, x0_nd, train=train)
+
+
+class GaussianEncoder(nn.Module):
+    """Gaussian-latent encoder (`senna vae`): the same trunk, the latent
+    returned without the simplex map."""
+
+    def __init__(self, n_features: int, n_latent: int, layers: Sequence[int],
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.n_topics = n_latent
+        self.layers = tuple(layers)
+        self.trunk = GaussianTrunk(n_features, n_latent, layers, generator)
+
+    def forward(self, x_nd, x0_nd=None, *, train: bool, eps: torch.Tensor | None = None):
+        z_mean, z_lnvar = self.trunk(x_nd, x0_nd, train=train)
+        z = losses.gaussian_reparameterize(z_mean, z_lnvar, eps) if eps is not None else z_mean
+        return z, losses.gaussian_kl(z_mean, z_lnvar)
+
+    def latent_gaussian_params(self, x_nd, x0_nd=None, *, train: bool = False):
+        return self.trunk(x_nd, x0_nd, train=train)
+
+
+class LogSoftmaxJointEncoder(nn.Module):
+    """Multi-modality softmax encoder: one Gaussian trunk per modality
+    slice of the concatenated input (each with its own BatchNorm
+    statistics); the modality latents and KLs sum. Training takes one
+    standard-normal draw per modality, `eps [M, N, K]`."""
+
+    def __init__(self, n_features: Sequence[int], n_topics: int, layers: Sequence[int],
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.n_topics = n_topics
+        self.layers = tuple(layers)
+        self.n_features = tuple(n_features)
+        self.n_draws = len(self.n_features)
+        self.trunks = nn.ModuleList(GaussianTrunk(d, n_topics, layers, generator)
+                                    for d in self.n_features)
+
+    def _modality_params(self, x_nd, x0_nd, *, train: bool):
+        out, lo = [], 0
+        for d, trunk in zip(self.n_features, self.trunks):
+            x0 = None if x0_nd is None else x0_nd[..., lo : lo + d]
+            out.append(trunk(x_nd[..., lo : lo + d], x0, train=train))
+            lo += d
+        return out
+
+    def forward(self, x_nd, x0_nd=None, *, train: bool, eps: torch.Tensor | None = None):
+        params = self._modality_params(x_nd, x0_nd, train=train)
+        z = sum(losses.gaussian_reparameterize(m, v, eps[i]) if eps is not None else m
+                for i, (m, v) in enumerate(params))
+        kl = sum(losses.gaussian_kl(m, v) for m, v in params)
+        return torch.log_softmax(z, dim=-1), kl
+
+    def latent_gaussian_params(self, x_nd, x0_nd=None, *, train: bool = False):
+        """Summed means; the variances of the summed Gaussians add."""
+        params = self._modality_params(x_nd, x0_nd, train=train)
+        mean = sum(m for m, _ in params)
+        return mean, torch.logsumexp(torch.stack([v for _, v in params]), dim=0)

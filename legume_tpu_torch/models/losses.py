@@ -48,3 +48,20 @@ def smooth_topics(log_z_nk: torch.Tensor, alpha: float) -> torch.Tensor:
         return log_z_nk
     k = log_z_nk.shape[-1]
     return torch.log(torch.exp(log_z_nk) * (1.0 - alpha) + alpha / k)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Stable log sigmoid: min(x, 0) - log1p(exp(-|x|))."""
+    return torch.minimum(x, torch.zeros_like(x)) - torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def stick_breaking_log_simplex(logits_nk: torch.Tensor) -> torch.Tensor:
+    """Deterministic stick-breaking logits -> log-simplex:
+    log theta_k = eta_k + sum_{j<=k} log(1 - v_j) for k < K-1, and the
+    last topic takes the closing mass (rows sum to 1 by telescoping)."""
+    k = logits_nk.shape[-1]
+    if k == 1:
+        return torch.zeros_like(logits_nk)
+    eta = logits_nk[..., : k - 1]
+    incl = torch.cumsum(log_sigmoid(-eta), dim=-1)
+    return torch.cat([eta + incl, incl[..., -1:]], dim=-1)

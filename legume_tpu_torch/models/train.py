@@ -2,8 +2,13 @@
 package's `models/train.py`).
 
 `decoders[level]` is one decoder, or a list of decoder families scored
-on the same `log z` and target, whose lliks sum with `decoder_weights`
-(default equal). The anchor penalty acts on every decoder of a level.
+on the same `log z`, whose lliks sum with `decoder_weights` (default
+equal); with `target_slices` decoder j of a level scores columns
+`[start_j, end_j)` of the target (one modality each, `joint-topic`),
+else every family scores the whole target. The anchor penalty acts on
+every softmax dictionary of a level. The encoder may be the topic
+encoder, the Gaussian-latent one (`senna vae`, with `topic_smoothing`
+0) or the joint one, which takes one noise draw per modality.
 
 A shared encoder and one decoder per pseudobulk level train with AdamW
 (weight decay 0.01) under a global-norm gradient clip that skips the
@@ -67,6 +72,21 @@ class LevelData:
         return self.input.shape[0]
 
 
+def clip_grads_nonfinite_(params, max_norm: float) -> None:
+    """Global L2 clip of the gradients in place; a non-finite norm zeroes
+    every gradient (the step is skipped). A parameter without a gradient
+    (another level's decoder) gets a zero one."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    finite = torch.isfinite(norm)
+    scale = torch.where(finite, torch.clamp(max_norm / (norm + 1e-6), max=1.0), 0.0)
+    for g in grads:
+        g.copy_(torch.where(finite, g * scale, torch.zeros_like(g)))
+
+
 def _pad_level(level: LevelData, mb: int, device):
     """(input, null, target or None, row weight) padded to whole minibatches."""
     p = level.n
@@ -98,6 +118,7 @@ class MixedTrainer:
         anchor_weights: Sequence[np.ndarray] | None = None,  # per level [K, D]
         anchor_penalty: float = 0.0,
         decoder_weights: Sequence[float] | None = None,
+        target_slices: Sequence[tuple[int, int]] | None = None,
         device="cuda",
     ):
         self.device = torch.device(device)
@@ -106,6 +127,7 @@ class MixedTrainer:
             torch.nn.ModuleList(d) if isinstance(d, (list, tuple)) else d for d in decoders
         ).to(self.device)
         self.decoder_weights = list(decoder_weights) if decoder_weights else None
+        self.target_slices = list(target_slices) if target_slices else None
         self.config = config
         fws = feature_weights if feature_weights is not None else [None] * len(decoders)
         self.feature_weights = [
@@ -131,12 +153,14 @@ class MixedTrainer:
         fw = self.feature_weights[level]
         if isinstance(self.decoders[level], torch.nn.ModuleList):
             weights = self.decoder_weights or [1.0] * len(decs)
-            llik = sum(dw * dec(log_z, yb, fw)[1] for dec, dw in zip(decs, weights))
+            sl = self.target_slices or [(0, yb.shape[1])] * len(decs)
+            llik = sum(dw * dec(log_z, yb[:, a:b], fw)[1]
+                       for dec, dw, (a, b) in zip(decs, weights, sl))
         else:
             llik = decs[0](log_z, yb, fw)[1]
         loss = torch.sum((kl - llik) * wb) / torch.clamp(wb.sum(), min=1.0)
         if self.anchor_weights is not None and self.anchor_penalty > 0:
-            for dec in decs:
+            for dec in (d for d in decs if hasattr(d, "log_beta_kd")):
                 ce = -torch.mean(torch.sum(self.anchor_weights[level] * dec.log_beta_kd(), dim=-1))
                 loss = loss + self.anchor_penalty * ce
         return loss, (llik * wb).sum(), (kl * wb).sum(), (yb.sum(-1) * wb).sum()
@@ -148,15 +172,7 @@ class MixedTrainer:
 
     def _clip_and_step(self):
         """Global-norm clip with the non-finite skip, then AdamW."""
-        for p in self.params:
-            if p.grad is None:  # decoders of other levels: zero gradient
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        finite = torch.isfinite(norm)
-        scale = torch.where(finite, torch.clamp(self.config.grad_clip / (norm + 1e-6), max=1.0), 0.0)
-        for g in grads:
-            g.copy_(torch.where(finite, g * scale, torch.zeros_like(g)))
+        clip_grads_nonfinite_(self.params, self.config.grad_clip)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=False)
 
@@ -166,12 +182,14 @@ class MixedTrainer:
         perm = torch.randperm(p_pad, generator=gen, device=self.device)
         sums = torch.zeros(3, dtype=torch.float32, device=self.device)
         k = self.encoder.n_topics
+        draws = getattr(self.encoder, "n_draws", None)
+        eps_shape = (mb, k) if draws is None else (draws, mb, k)
         for lb in range(0, p_pad, mb):
             idx = perm[lb : lb + mb]
             xb = x[idx]
             nb = None if null is None else null[idx]
             yb = xb if y is None else y[idx]
-            eps = torch.randn(mb, k, generator=gen, device=self.device)
+            eps = torch.randn(*eps_shape, generator=gen, device=self.device)
             loss, llik, kl, cnt = self.minibatch_loss(level, xb, nb, yb, w[idx], eps)
             loss.backward()
             self._clip_and_step()

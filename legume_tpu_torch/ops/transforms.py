@@ -34,6 +34,11 @@ def count_rate_clean(values, values_null=None, values_mean=None) -> torch.Tensor
     return values / torch.clamp(divisor, min=EPS_DIV)
 
 
+def anscombe_lite(values, values_null=None, values_mean=None) -> torch.Tensor:
+    """Anscombe of the cleaned count rate."""
+    return anscombe(count_rate_clean(values, values_null, values_mean))
+
+
 def anscombe_residual(y_nf, x0_nf=None, mu_f=None) -> torch.Tensor:
     """Full encoder-input transform of [N, D] counts."""
     a = anscombe(count_rate_clean(y_nf, x0_nf, mu_f))

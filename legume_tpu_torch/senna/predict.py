@@ -1,13 +1,20 @@
 """`senna predict` / `eval-topic`: held-out latent inference (the port of
 the JAX package's `senna/predict.py`).
 
-Loads a model saved by `senna topic` in either package (weights,
-metadata, training gene names; every decoder family, coarsened and
-multi-decoder models too, though only the encoder scores), maps the held-out backend's gene rows
-onto the training vocabulary (case-insensitive exact match, then `_`
-tokens; many-to-one), and streams cell blocks through the encoder at
-eval, optionally with a per-batch null stream, per-batch delta
-estimation and per-cell refinement against the frozen dictionary.
+Loads a model saved in either package (weights, metadata, training gene
+names) and maps the held-out backend's gene rows onto the training
+vocabulary (case-insensitive exact match, then `_` tokens; many-to-one).
+By the model's type:
+
+- `topic` (every decoder family, coarsened and multi-decoder models too,
+  though only the encoder scores): cell blocks stream through the
+  encoder at eval, optionally with a per-batch null stream, per-batch
+  delta estimation and per-cell refinement against the frozen
+  dictionary;
+- `vae`: the same blocks through the Gaussian encoder (latent `z{k}`);
+- `masked-*`: top-K windows on the held-out genes, remapped to the
+  training vocabulary, through the indexed encoder.
+
 Outputs `{out}.latent` (and `{out}.delta`) tables and a manifest.
 
 Every entry point runs on the card unless the caller passes
@@ -28,11 +35,19 @@ import torch
 
 from ..data import SparseIoVec
 from ..data.visitors import visit_columns_by_block
+from ..models.convert import masked_params_from_jax
+from ..models.indexed import (
+    IndexedData,
+    MaskedTopicModel,
+    build_topk_windows,
+    encode_all,
+    selection_log_q,
+)
 from ..ops import sparse as sparse_ops
 from ..utils.manifest import RunManifest
 from ..utils.output import matrix_columns, read_table, table_path, write_table
 from ..utils.precision import full_f32_matmul
-from .topic import build_model, load_data_vec, load_model
+from .topic import build_encoder, build_model, load_data_vec, load_model
 
 log = logging.getLogger(__name__)
 
@@ -340,10 +355,6 @@ def predict_model(args: PredictArgs, *, vec: SparseIoVec | None = None,
     t_all = t0 = time.time()
     meta, flat, train_genes = load_model(args.model)
     kind = meta.get("model_type", "topic")
-    if kind != "topic":
-        raise NotImplementedError(
-            f"senna predict port does not support {kind!r} models yet (dense topic models only)"
-        )
     if vec is None:
         vec = load_data_vec(args.data_files)
     remap = build_gene_remap(train_genes, vec.row_names())
@@ -353,7 +364,6 @@ def predict_model(args: PredictArgs, *, vec: SparseIoVec | None = None,
     if (args.refine_steps > 0 or args.decoder_only or args.residual_out
             or (args.batch_files and args.delta_iters > 0)):
         log_dict = _load_log_dictionary(args.model, train_genes)
-    encoder, _ = build_model(meta, flat, device=device)
     timings["load_s"] = time.time() - t0
 
     t0 = time.time()
@@ -363,6 +373,51 @@ def predict_model(args: PredictArgs, *, vec: SparseIoVec | None = None,
         batch_profiles = _batch_mean_profiles(vec, remap, cell_batch, block_size=args.block_size)
     timings["batch_profiles_s"] = time.time() - t0
 
+    delta_db = None
+    col = "topic"
+    t0 = time.time()
+    if kind.startswith("masked"):
+        z = score_masked_backend(vec, meta, flat, remap, device=device)
+        col = "z" if meta.get("latent") == "gaussian" else "topic"
+        timings["score_s"] = time.time() - t0
+    elif kind == "vae":
+        encoder = build_encoder(meta, flat, device=device)
+        z = score_dense_backend(vec, encoder, remap, block_size=args.block_size,
+                                cell_batch=cell_batch, batch_profiles=batch_profiles, device=device)
+        col = "z"
+        timings["score_s"] = time.time() - t0
+    else:
+        z, delta_db = _predict_topic(args, vec, meta, flat, train_genes, remap, log_dict,
+                                     cell_batch, batch_profiles, timings, device)
+
+    t0 = time.time()
+    if delta_db is not None:
+        write_table(f"{args.out}.delta", {
+            "gene": np.asarray([str(g) for g in train_genes]),
+            **{f"batch{b}": delta_db[:, b] for b in range(delta_db.shape[1])},
+        })
+    outputs = {"latent": write_table(f"{args.out}.latent",
+                                     matrix_columns(z, col, "cell", vec.column_names()))}
+    if args.residual_out:
+        outputs["residual"] = str(args.residual_out)
+    timings["outputs_s"] = time.time() - t0
+    timings["total_s"] = time.time() - t_all
+    RunManifest(
+        command="predict",
+        inputs={"data_files": list(args.data_files), "model": args.model},
+        outputs=outputs,
+        params={"n_mapped": remap.n_mapped},
+        timings=timings,
+        engine="legume-tpu-torch",
+    ).save(args.out)
+    return z
+
+
+def _predict_topic(args: PredictArgs, vec, meta, flat, train_genes, remap: GeneRemap, log_dict,
+                   cell_batch, batch_profiles, timings: dict, device):
+    """A topic model's latent (and per-batch delta, or None): delta
+    estimation, the encoder with refinement, the residual backend."""
+    encoder, _ = build_model(meta, flat, device=device)
     t0 = time.time()
     delta_db = None
     if cell_batch is not None and log_dict is not None and args.delta_iters >= 0:
@@ -395,28 +450,37 @@ def predict_model(args: PredictArgs, *, vec: SparseIoVec | None = None,
     if args.residual_out:
         write_residual_backend(args, vec, z, log_dict, delta_db, remap, cell_batch, device=device)
     timings["residual_s"] = time.time() - t0
+    return z, delta_db
 
-    t0 = time.time()
-    if delta_db is not None:
-        write_table(f"{args.out}.delta", {
-            "gene": np.asarray([str(g) for g in train_genes]),
-            **{f"batch{b}": delta_db[:, b] for b in range(delta_db.shape[1])},
-        })
-    outputs = {"latent": write_table(f"{args.out}.latent",
-                                     matrix_columns(z, "topic", "cell", vec.column_names()))}
-    if args.residual_out:
-        outputs["residual"] = str(args.residual_out)
-    timings["outputs_s"] = time.time() - t0
-    timings["total_s"] = time.time() - t_all
-    RunManifest(
-        command="predict",
-        inputs={"data_files": list(args.data_files), "model": args.model},
-        outputs=outputs,
-        params={"n_mapped": remap.n_mapped},
-        timings=timings,
-        engine="legume-tpu-torch",
-    ).save(args.out)
-    return z
+
+def score_masked_backend(vec: SparseIoVec, meta: dict, flat: dict, remap: GeneRemap, *,
+                         device="cuda") -> np.ndarray:
+    """Held-out inference of a masked model: top-K windows on the held-out
+    genes, ids remapped to the training vocabulary (unmapped genes and
+    the pad to `d_train`), log q over the training axis, the indexed
+    encoder at eval. A model trained with a batch-null stream
+    (`--batch-files`) raises: predict has no null stream for it, and the
+    JAX package's predict fails on such a model too."""
+    state = masked_params_from_jax(flat)
+    embed_dim, modules = int(meta.get("embed_dim", 64)), int(meta.get("gene_modules", 0))
+    hidden, in_dim = state["encoder.hidden.weight"].shape
+    if in_dim != embed_dim + 2 * modules:
+        raise ValueError(
+            f"masked model {meta.get('model_type')} was trained with a batch-null stream "
+            "(--batch-files): its encoder pools a null stream that senna predict does not "
+            f"form ({in_dim} inputs, {embed_dim + 2 * modules} without it)")
+    d_train = remap.d_train
+    win = build_topk_windows(vec, int(meta.get("window", 128)), device=device)
+    pad = win.ids >= vec.num_rows
+    ids = remap.row_map[np.clip(win.ids, 0, vec.num_rows - 1)]
+    ids[pad] = d_train
+    ids = ids.astype(np.int32)
+    data = IndexedData(ids=ids, vals=win.vals, log_q=selection_log_q(ids, d_train),
+                       n_genes=d_train)
+    model = MaskedTopicModel(d_train, int(meta["n_topics"]), embed_dim=embed_dim, hidden=hidden,
+                             latent=meta.get("latent", "simplex"), n_gene_modules=modules)
+    model.load_state_dict(state)
+    return encode_all(model, data, raw_latent=meta.get("latent") == "gaussian", device=device)
 
 
 def _model_table(model_prefix: str, name: str) -> dict[str, np.ndarray] | None:

@@ -41,7 +41,7 @@ from ..data import MemoryBackend, SparseIoVec, open_sparse_matrix
 from ..data.visitors import visit_columns_by_block
 from ..models.convert import params_from_jax, params_to_jax
 from ..models.decoders import DECODERS
-from ..models.encoders import LogSoftmaxEncoder
+from ..models.encoders import GaussianEncoder, LogSoftmaxEncoder
 from ..models.train import LevelData, MixedTrainer, TrainConfig
 from ..ops import collapse as clp
 from ..ops import random_projection as rp
@@ -116,13 +116,8 @@ def check_supported(args: TopicArgs):
     """Options the port does not carry yet raise instead of running
     something else; an unknown decoder family is an error."""
     names = decoder_names(args.decoder)
-    off = {
-        "--data-parallel": args.data_parallel,
-        "--decoder gaussian-nb": "gaussian-nb" in names,
-    }
-    missing = [name for name, on in off.items() if on]
-    if missing:
-        raise NotImplementedError(f"senna topic port does not support {', '.join(missing)} yet")
+    if args.data_parallel:
+        raise NotImplementedError("senna topic port does not support --data-parallel yet")
     unknown = [n for n in names if n not in DECODERS]
     if not names or unknown:
         raise ValueError(f"unknown decoder {unknown or args.decoder!r}; choose from {sorted(DECODERS)}")
@@ -554,7 +549,9 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
         log.info("warm start from %s applied", args.init_from)
     elif anchor is not None and multi:
         log.info("multi-decoder: anchor prior via CE penalty only")
-    elif anchor is not None:
+    elif anchor is not None and names[0] != "gaussian-nb":
+        # (the JAX package's overlay leaves gaussian-nb's loading matrix
+        # at its init: the anchor logits land beside it, unused)
         init_dictionaries = [anchor.init_logits(fc) for fc in coarsenings]
     t0 = time.time()
     scores = trainer.train(
@@ -631,7 +628,7 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
         })
         timings["cnv_s"] = time.time() - t_cnv
         log.info("cnv side-channel: %d pbs x %d bins", n_pb, n_bins)
-    save_model(args.out, trainer, args, d, gene_names)
+    save_model(args.out, trainer_params(trainer), args, d, gene_names)
     part_path = f"{args.out}.partition.npz"
     np.savez(
         part_path,
@@ -770,23 +767,30 @@ def evaluate_latent_by_encoder(
     return torch.cat(pieces).cpu().numpy()
 
 
-def save_model(out: str, trainer: MixedTrainer, args, n_features: int, gene_names):
-    """Weights in the JAX package's flat layout + the same metadata, so
-    either package loads a model the other saved."""
+def trainer_params(trainer: MixedTrainer) -> dict[str, np.ndarray]:
+    """A dense trainer's weights in the JAX package's flat layout."""
     levels = [
         [d.state_dict() for d in dec] if isinstance(dec, torch.nn.ModuleList) else dec.state_dict()
         for dec in trainer.decoders
     ]
-    flat = params_to_jax(trainer.encoder.state_dict(), levels)
+    return params_to_jax(trainer.encoder.state_dict(), levels)
+
+
+def save_model(out: str, flat: dict, args, n_features: int, gene_names, *,
+               model_type: str = "topic", extra_meta: dict | None = None):
+    """Flat weights `{"a/b/c": array}` and the JAX package's metadata, so
+    either package loads a model the other saved; `model_type` (topic,
+    vae, masked-*) selects predict's dispatch."""
     np.savez(f"{out}.model.npz", **flat)
     meta = {
-        "model_type": "topic",
-        "n_topics": args.n_latent_topics,
+        "model_type": model_type,
+        "n_topics": getattr(args, "n_latent_topics", getattr(args, "n_latent", 0)),
         "n_features": n_features,
-        "encoder_layers": list(args.encoder_layers),
-        "decoder": args.decoder,
-        "num_levels": args.num_levels,
+        "encoder_layers": list(getattr(args, "encoder_layers", ())),
+        "decoder": getattr(args, "decoder", ""),
+        "num_levels": getattr(args, "num_levels", 1),
         "gene_names_file": f"{out}.genes.txt",
+        **(extra_meta or {}),
     }
     with open(f"{out}.model.json", "w") as f:
         json.dump(meta, f, indent=2)
@@ -809,18 +813,22 @@ def load_model(out: str):
 
 def build_model(meta: dict, flat: dict, device="cuda"):
     """(encoder, per level a decoder or a list of them, one per family of
-    `meta["decoder"]`) holding saved weights. Each decoder is sized from
-    its saved dictionary, so a coarsened level's is narrower than D."""
-    enc_state, dec_states = params_from_jax(flat)
-    d, k = meta["n_features"], meta["n_topics"]
-    encoder = LogSoftmaxEncoder(d, k, tuple(meta["encoder_layers"]))
-    encoder.load_state_dict(enc_state)
-    names = decoder_names(meta.get("decoder") or "nb")
-    if "gaussian-nb" in names:
-        raise NotImplementedError("senna topic port does not support --decoder gaussian-nb yet")
+    `meta["decoder"]`) holding saved weights: a `vae` model's Gaussian
+    encoder and gaussian-nb decoders, else the topic encoder. Each
+    decoder is sized from its saved weights, so a coarsened level's is
+    narrower than D."""
+    encoder = build_encoder(meta, flat, device)
+    _, dec_states = params_from_jax(flat)
+    vae = meta.get("model_type", "topic") == "vae"
+    names = ["gaussian-nb"] if vae else decoder_names(meta.get("decoder") or "nb")
 
     def build(name, state):
-        n_topics, n_feat = state["dictionary"].shape
+        if name == "gaussian-nb":
+            # a JAX topic run's anchor overlay may leave unused logits here
+            state = {key: v for key, v in state.items() if key != "dictionary"}
+            n_topics, n_feat = state["dictionary.kernel"].shape
+        else:
+            n_topics, n_feat = state["dictionary"].shape
         dec = DECODERS[name](n_feat, n_topics)
         dec.load_state_dict(state)
         return dec.to(device)
@@ -832,4 +840,15 @@ def build_model(meta: dict, flat: dict, device="cuda"):
             raise ValueError(f"model has {len(states)} decoders a level, metadata names {names}")
         fams = [build(nm, st) for nm, st in zip(names, states)]
         decoders.append(fams if isinstance(state, list) else fams[0])
-    return encoder.to(device).eval(), decoders
+    return encoder, decoders
+
+
+def build_encoder(meta: dict, flat: dict, device="cuda"):
+    """The saved encoder alone, at eval: a `vae` model's Gaussian
+    encoder, else the topic encoder."""
+    enc_state, _ = params_from_jax(flat)
+    vae = meta.get("model_type", "topic") == "vae"
+    encoder = (GaussianEncoder if vae else LogSoftmaxEncoder)(
+        meta["n_features"], meta["n_topics"], tuple(meta["encoder_layers"]))
+    encoder.load_state_dict(enc_state)
+    return encoder.to(device).eval()

@@ -193,6 +193,17 @@ def choice(k: np.ndarray, p: np.ndarray, shape=()) -> np.ndarray:
     return np.searchsorted(cum, r, side="left").astype(np.int64)
 
 
+def permutation(k: np.ndarray, n: int) -> np.ndarray:
+    """`jax.random.permutation(key, n)`: rounds of a stable sort of
+    `arange(n)` by fresh 32-bit keys (3 ln n / ln(2^32 - 1) rounds)."""
+    x = np.arange(n, dtype=np.int64)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        k, sub = split(k)
+        x = x[np.argsort(random_bits(sub, (n,)), kind="stable")]
+    return x
+
+
 def generator_from_key(k: np.ndarray, device="cpu") -> torch.Generator:
     """A torch generator seeded from threefry key data (for the streams
     that are compared by distribution, not draw for draw)."""

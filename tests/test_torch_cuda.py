@@ -754,3 +754,187 @@ def test_chunked_loss_matches_dense_on_card(dev):
     assert abs(got[0] - want[0]) <= 2e-5 * abs(want[0])
     for g, w in zip(got[1:], want[1:]):
         assert np.abs(g - w).max() <= 1e-4 * np.abs(w).max()
+
+
+# ---- slice 10: vae, svd, joint-topic, the masked models ------------------------
+
+
+def _normwise(got, want) -> float:
+    return float((got.cpu() - want).abs().max() / max(float(want.abs().max()), 1e-30))
+
+
+def test_topk_windows_and_union_on_the_card_equal_the_cpu(dev):
+    from legume_tpu_torch.models import indexed as idx
+
+    rng = np.random.default_rng(4)
+    counts = sp.csc_matrix((rng.poisson(0.8, (300, 500)) * (rng.random((300, 500)) < 0.5))
+                           .astype(np.float32))
+    w = np.tile(np.asarray([1.0, 0.5, 0.0], np.float32), 100)
+    for weights in (None, w):
+        got = idx.build_topk_windows(MemoryBackend(counts), 32, gene_weights=weights,
+                                     block_size=128, device=dev)
+        want = idx.build_topk_windows(MemoryBackend(counts), 32, gene_weights=weights,
+                                      block_size=128, device="cpu")
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_array_equal(got.vals, want.vals)
+        np.testing.assert_array_equal(got.log_q, want.log_q)
+    ids = torch.from_numpy(want.ids[:64])
+    for cap in (50, 301):
+        np.testing.assert_array_equal(idx.union_ids(ids.to(dev), cap, 300).cpu().numpy(),
+                                      idx.union_ids(ids, cap, 300).numpy())
+
+
+def _forward_and_grads(module, fn, device):
+    module = module.to(device)
+    module.zero_grad()
+    out = fn(module, device)
+    out.sum().backward()
+    return out.detach().cpu(), {n: p.grad.detach().cpu().clone()
+                                for n, p in module.named_parameters() if p.grad is not None}
+
+
+@pytest.mark.parametrize("which", ["vae", "joint_delta", "masked_simplex", "masked_gaussian",
+                                   "masked_sbp"])
+def test_new_models_forward_and_grads_card_vs_cpu(dev, which):
+    import copy
+
+    from legume_tpu_torch.models import decoders, encoders, indexed
+
+    g = torch.Generator().manual_seed(3)
+    rng = np.random.default_rng(3)
+    if which == "vae":
+        x = torch.from_numpy(rng.poisson(2.0, (64, 200)).astype(np.float32))
+        module = torch.nn.ModuleList([encoders.GaussianEncoder(200, 8, (32, 16), generator=g),
+                                      decoders.GaussianNbDecoder(200, 8, generator=g)])
+        eps = torch.randn(64, 8, generator=g)
+
+        def fn(m, d, dt=torch.float32):
+            z, kl = m[0](x.to(d, dt), None, train=True, eps=eps.to(d, dt))
+            return m[1](z, x.to(d, dt))[1] - kl
+    elif which == "joint_delta":
+        x = torch.from_numpy(rng.poisson(2.0, (64, 300)).astype(np.float32))
+        module = torch.nn.ModuleList([
+            encoders.LogSoftmaxJointEncoder((150, 150), 6, (32,), generator=g),
+            decoders.DeltaTopicDecoder(150, 6, 2, generator=g)])
+        eps = torch.randn(2, 64, 6, generator=g)
+
+        def fn(m, d, dt=torch.float32):
+            log_z, kl = m[0](x.to(d, dt), None, train=True, eps=eps.to(d, dt))
+            return m[1](log_z, x.to(d, dt))[1] - kl
+    else:
+        latent = which.split("_")[1]
+        n_genes = 300
+        ids = torch.from_numpy(np.sort(rng.choice(n_genes + 1, (64, 32)), 1).astype(np.int32))
+        vals = torch.from_numpy(rng.poisson(2.0, (64, 32)).astype(np.float32))
+        mask = torch.from_numpy(rng.random((64, 32)) < 0.3)
+        null = torch.from_numpy(rng.uniform(0.3, 2.0, (64, 32)).astype(np.float32))
+        module = indexed.MaskedTopicModel(n_genes, 6, embed_dim=16, hidden=32, latent=latent,
+                                          n_gene_modules=4, with_null=True, generator=g)
+        union = indexed.union_ids(ids, 400, n_genes)
+        lq = torch.from_numpy(rng.normal(-5, 1, 400).astype(np.float32))
+        eps = torch.randn(64, 6, generator=g)
+
+        def fn(m, d, dt=torch.float32):
+            return m(ids.to(d), vals.to(d, dt), union.to(d), lq.to(d, dt), (union < n_genes).to(d),
+                     mask.to(d), train=True, eps=eps.to(d, dt), null_vals=null.to(d, dt))[0]
+    want, gw = _forward_and_grads(copy.deepcopy(module), fn, "cpu")
+    _, g64 = _forward_and_grads(copy.deepcopy(module).double(),
+                                lambda m, d: fn(m, d, torch.float64), "cpu")
+    got, gg = _forward_and_grads(module, fn, dev)
+    assert _normwise(got, want) <= 1e-5
+    for name in gw:
+        # within 1e-5 of the CPU's, or else as near float64 as the CPU's
+        # float32 gradient is, within a factor 2 (two float32 sums in
+        # different orders each lie up to their rounding from float64)
+        if _normwise(gg[name], gw[name]) > 1e-5:
+            cpu_f64 = _normwise(gw[name].double(), g64[name])
+            assert _normwise(gg[name].double(), g64[name]) <= 2 * cpu_f64, name
+
+
+def _svd_held_errors(got, want, gap=0.05):
+    """As `chip_smoke.py::svd_held_errors`: each group of singular values within
+    `gap` compared up to its rotation, the last group (whose gap to the
+    truncated components is unknown) not held."""
+    s = want["singular_values"]
+    bounds, j = [], 0
+    while j < len(s):
+        e = j + 1
+        while e < len(s) and s[e - 1] - s[e] <= gap * s[e - 1]:
+            e += 1
+        bounds.append((j, e))
+        j = e
+    held, basis_err, f_err = [], 0.0, 0.0
+    for a, b in bounds[:-1]:
+        rot = got["basis"][:, a:b].T @ want["basis"][:, a:b]
+        basis_err = max(basis_err, float(np.abs(got["basis"][:, a:b] @ rot
+                                                - want["basis"][:, a:b]).max()))
+        f_err = max(f_err, float((np.abs(got["factors"][:, a:b] @ rot - want["factors"][:, a:b])
+                                  / np.abs(want["factors"][:, a:b]).max(0)).max()))
+        held.extend(range(a, b))
+    return held, basis_err, f_err
+
+
+def _vec(counts, batch=None):
+    vec = SparseIoVec()
+    vec.push(MemoryBackend(counts))
+    if batch is not None:
+        vec.register_batches(np.asarray(batch).astype(str))
+    return vec
+
+
+def test_vae_svd_and_masked_runs_on_the_card_match_the_cpu(dev, tmp_path):
+    """vae at 0 epochs (the same CPU-drawn init on both) within 1e-4;
+    svd's partition equal, its pseudobulk plane within 1e-5, the rSVD of
+    one plane and the per-cell projection with one basis within 1e-4; a
+    masked run (JAX's key schedule, drawn alike on both) with its trace
+    and eval loss within 1e-4."""
+    import types
+
+    from legume_tpu_torch.cli.senna_cmds.masked_cmds import run_masked
+    from legume_tpu_torch.ops.rsvd import rsvd
+    from legume_tpu_torch.senna import svd as tsvd
+    from legume_tpu_torch.utils.prng import key_from_seed
+    from legume_tpu_torch.senna import vae as tvae
+
+    sim = simulate_topic(rows=300, cols=1500, factors=5, batches=2, seed=7)
+    runs = {}
+    for d in (dev, "cpu"):
+        runs[str(d)] = tvae.fit_vae(tvae.VaeArgs(out=str(tmp_path / f"vae_{d}"), epochs=0,
+                                                 n_latent=6, block_size=512),
+                                    vec=_vec(sim.counts, sim.batch), device=d)
+    np.testing.assert_array_equal(runs["cuda"]["levels"].groups_per_level[0],
+                                  runs["cpu"]["levels"].groups_per_level[0])
+    np.testing.assert_allclose(runs["cuda"]["latent"], runs["cpu"]["latent"], rtol=0, atol=1e-4)
+    # svd stage by stage (`chip_smoke.py::svd_card_vs_cpu`): the plane the
+    # basis is fitted on, the rSVD of one plane, the per-cell projection
+    svd = {str(d): tsvd.fit_svd(tsvd.SvdArgs(out=str(tmp_path / f"svd_{d}"), block_size=512),
+                                vec=_vec(sim.counts, sim.batch), device=d) for d in (dev, "cpu")}
+    g, c = svd["cuda"], svd["cpu"]
+    np.testing.assert_array_equal(g["levels"].groups_per_level[0], c["levels"].groups_per_level[0])
+    assert np.abs(g["pb_dp"] - c["pb_dp"]).max() <= 1e-5 * np.abs(c["pb_dp"]).max()
+    x = torch.from_numpy(np.log1p(c["pb_dp"]).astype(np.float32))
+    rs = {}
+    for d in (dev, "cpu"):
+        u, sv, _ = rsvd(x.to(d), 20, key=key_from_seed(tsvd.SvdArgs.seed, 23))
+        rs[str(d)] = {"basis": u, "singular_values": sv, "factors": tsvd.project_cells(
+            _vec(sim.counts), u, block_size=512, device="cpu")}
+    held, basis_err, f_err = _svd_held_errors(rs["cuda"], rs["cpu"])
+    assert len(held) >= 5 and basis_err <= 1e-4 and f_err <= 1e-4, (held, basis_err, f_err)
+    proj = {str(d): tsvd.project_cells(_vec(sim.counts), c["basis"], block_size=512, device=d)
+            for d in (dev, "cpu")}
+    np.testing.assert_allclose(proj["cuda"] / np.abs(proj["cpu"]).max(0),
+                               proj["cpu"] / np.abs(proj["cpu"]).max(0), rtol=0, atol=1e-4)
+    masked = {}
+    for d in (dev, "cpu"):
+        a = types.SimpleNamespace(
+            cmd="masked-topic", data_files=[], out=str(tmp_path / f"m_{d}"), n_latent_topics=6,
+            window=32, embed_dim=16, gene_modules=2, epochs=2, minibatch_size=128,
+            mask_frac=0.15, mask_schedule="fixed", mask_rate_lo=0.05, mask_rate_hi=0.5,
+            masked_likelihood="nb", learning_rate=1e-3, weight_decay=0.01, grad_clip=0.0,
+            feature_embedding_l2=0.0, kl_weight=1e-3, eval_mask_fraction=0.1, eval_seed=0,
+            data_parallel=False, frozen_features=None, init_feature_embedding=None,
+            batch_files=None, adj_method="residual", sort_dim=6, iter_opt=10,
+            feature_network=None, seed=0, latent="simplex", device=str(d))
+        masked[str(d)] = run_masked(a, vec=_vec(sim.counts))
+    np.testing.assert_allclose(masked["cuda"]["trace"], masked["cpu"]["trace"], rtol=1e-4)
+    assert abs(masked["cuda"]["eval_loss"] - masked["cpu"]["eval_loss"]) <= 1e-4

@@ -17,6 +17,7 @@ from legume_tpu.senna import predict as jpred
 from legume_tpu.senna import topic as jtopic
 from legume_tpu_torch.cli.main import main as port_cli
 from legume_tpu_torch.data.sim import simulate_topic
+from legume_tpu_torch.data.visitors import visit_columns_by_block
 from legume_tpu_torch.senna import predict as tpred
 from legume_tpu_torch.senna import topic as ttopic
 from legume_tpu_torch.utils.output import read_table
@@ -225,6 +226,10 @@ def test_eval_topic_alias_through_the_cli(env, tmp_path):
 
 @pytest.mark.parametrize("kind", ["masked-topic", "vae"])
 def test_unported_model_kinds_raise(env, tmp_path, kind):
+    """Both kinds are ported now (tests/test_torch_{masked,vae}.py); a
+    topic model's weights relabelled as one: as a vae the trunk scores
+    (latent `z{k}`, the mean heads), as a masked model the weights do not
+    fit and loading raises."""
     import json
     import shutil
 
@@ -235,9 +240,20 @@ def test_unported_model_kinds_raise(env, tmp_path, kind):
     meta = json.loads(open(f"{src}.model.json").read())
     meta.update(model_type=kind, gene_names_file=f"{dst}.genes.txt")
     open(f"{dst}.model.json", "w").write(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match=kind):
-        tpred.predict_model(tpred.PredictArgs(data_files=[env["hpath"]], model=dst,
-                                              out=str(tmp_path / "o")), device="cpu")
+    args = tpred.PredictArgs(data_files=[env["hpath"]], model=dst, out=str(tmp_path / "o"))
+    if kind == "masked-topic":
+        with pytest.raises(KeyError, match="unknown masked-model parameter"):
+            tpred.predict_model(args, device="cpu")
+        return
+    z = tpred.predict_model(args, device="cpu")
+    t = read_table(str(tmp_path / "o.latent.parquet"))
+    assert list(t)[1:] == [f"z{k}" for k in range(4)]
+    x = tpred._dense_block(next(iter(visit_columns_by_block(ttopic.load_data_vec([env["hpath"]]),
+                                                            block_size=4096))),
+                           _remaps(env)[1], "cpu")
+    with torch.no_grad():
+        want = _port_encoder(env).latent_gaussian_params(x)[0].numpy()
+    np.testing.assert_allclose(z, want, rtol=1e-6, atol=1e-6)
 
 
 def test_topic_eval_refinement_matches_jax(env):
