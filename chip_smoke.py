@@ -5,7 +5,9 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. build the hand-written kernels of `legume_tpu_torch/csrc/` with nvcc
-   for sm_90a and print the card's name and power limit;
+   for sm_90a and print the card's name and power limit, then which zstd
+   provider (pyarrow's codec, `libzstd.so.1`) and HDF5 library the
+   machine has;
 2. run `senna topic` through the port's entry point with its default
    `TopicArgs` (only `epochs` cut to 5) on a simulated 100,000-cell x
    2,000-gene, 2-batch, 8-factor data set held in a `MemoryBackend`,
@@ -49,9 +51,8 @@ Phases (any failure exits non-zero; nothing is caught):
    hold the first 4,096-cell block against the port's CPU run (1e-3,
    with and without refinement; each float32 run's distance from the
    block in float64 is printed beside it); run `--decoder-only` on 10,000 of
-   the cells; form the residual matrix on the card (the writers need
-   tensorstore or h5py, which the card's machine may lack: their
-   availability is printed);
+   the cells; form the residual matrix on the card (which writers import
+   is printed);
 9. run `senna clustering` on that latent: kmeans (K = 10) with the BHC
    merge tree over the counts, its per-cluster sums through K3 (counts
    zeroed just before, one launch per 4,096-cell block required), held
@@ -131,8 +132,8 @@ Phases (any failure exits non-zero; nothing is caught):
 18. `senna svd` at its defaults on phase 2's cells (K2 takes the per-cell
    Nystrom projection: one launch per 8,192-cell block, 13, required; K2
    held against its plain version and `torch.sparse.mm` at svd's first
-   block), its batch-adjusted counts (written with `--save-adjusted`
-   where tensorstore imports, else formed on the card), `senna joint-svd`
+   block), its batch-adjusted counts (written with `--save-adjusted` to a
+   `.zarr` store and opened again), `senna joint-svd`
    on phase 13a's RNA and ATAC; `fit_svd` on 4,000 cells (without
    batches) on the card against the CPU, stage by stage: the same
    partition, the pseudobulk plane within 1e-5, the rSVD of one plane and
@@ -153,7 +154,38 @@ Phases (any failure exits non-zero; nothing is caught):
    batch-null model refused (the JAX package's predict fails on it); on
    4,000 cells the card against the CPU: top-K windows and the union
    equal, the encoder (normwise) and `masked_eval_loss` within 1e-5;
-21. print the script's total seconds, one JSON line of all kernels, then
+21. stores: phase 2's cells written to `.zarr` and `.zarr.zip` by the
+   port's own writer (no tensorstore), read back equal, with the write
+   and read seconds; `senna topic --data-files x.zarr --batch-files`
+   with phase 2's arguments and 1 epoch (K1 and K3 required), its
+   partitions equal to phase 2's at every level;
+22. annotation through the port's CLI: `qmatrix` on phase 2's dictionary
+   with one gene set a simulated factor (its 50 most specific genes) and
+   `--latent`; `annotate-by-enrichment --data-files x.zarr` and
+   `annotate-ontology --by module-score` (a toy OBO and GAF made from the
+   seed) over phase 2's cells clustered by top topic; `annotate-by-
+   projection --from` phase 5's bge run and `--train-latent` onto phase
+   8's held-out latent;
+23. `deconvolve --from` on 10,000 of phase 2's cells at 2,000 genes (50
+   archetypes; K3 one launch per 2,048-cell block, required, and held
+   against its plain version at the first block's archetype plane) on
+   bulk samples pooled from all cells at known type fractions, and
+   `deconvolve --reference` of eight marker-block rate profiles on
+   Poisson bulk samples (mean fraction error below 0.05, worst R-hat
+   printed);
+24. `impute` in self mode on 20,000 cells, writing its `.zarr`, and in
+   reference mode with phase 8's model (5,000 held-out query cells);
+25. `probe` in model mode with `--counterfactual` (20,000 held-out query
+   cells, 20,000 calibration cells) and in latent mode;
+26. `senna fne` at the CLI defaults (500 epochs, d = 32) on a
+   stochastic-block graph of 10,000 genes in 50 modules: 500 K4 launches
+   in the full form, K4 held against its plain version at that plane
+   with tied weights;
+27. on small inputs the card against the CPU: the Q-matrix and a
+   permutation p-value equal, fne's embedding within 1e-4 after 50
+   epochs, deconvolve's fractions within 0.03, a block read from x.zarr
+   equal to the matrix and its K1 projection within K1's bar;
+28. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
 
 Every kernel check launches the kernel twice on the same inputs and
@@ -524,7 +556,8 @@ def layout_phase(work: str, zp: np.ndarray, topic_out: str, K, dev, card: str) -
         K.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        cli(["senna", *argv, "--device", "cuda"])
+        on_card = not argv[0].startswith("plot")  # plot and plot-topic run on the host
+        cli(["senna", *argv, *(["--device", "cuda"] if on_card else [])])
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches[name] = sum(K.launch_counts.values())
@@ -1293,35 +1326,30 @@ def vae_phase(work: str, vec, hvec, held_batch_file: str, K, dev, card: str) -> 
 def svd_phase(work: str, vec, multiome, K, dev, card: str, checks: dict) -> dict:
     """Phase 18: `senna svd` at its defaults on phase 2's cells (13 K2
     launches, K2 held against its plain version at svd's first block),
-    the batch-adjusted counts (written where tensorstore imports, else
-    formed on the card), `senna joint-svd` on phase 13a's multiome
+    the batch-adjusted counts written to `{out}.adjusted.zarr`
+    (`--save-adjusted`), `senna joint-svd` on phase 13a's multiome
     modalities; on 4,000 cells the card against the CPU (factors within
     1e-4 up to sign)."""
     from legume_tpu_torch.cli.main import run_senna
     from legume_tpu_torch.data.visitors import visit_columns_by_block
     from legume_tpu_torch.ops.random_projection import block_to_device
-    from legume_tpu_torch.senna import svd as S
+
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
 
     out = {}
-    can_write = importlib.util.find_spec("tensorstore") is not None
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     res = run_senna(["svd", "--data-files", "phase2", "--out", f"{work}/svd", "--device", str(dev),
-                     *(["--save-adjusted"] if can_write else [])], vec=vec)
+                     "--save-adjusted"], vec=vec)
     torch.cuda.synchronize()
     out["svd"] = _launched(K, ("project_normed", "collapse", "project_raw"), "senna svd")
     f = res["factors"]
-    adjusted = {"written": can_write}
-    if not can_write:  # the writer needs tensorstore: form the matrix on the card instead
-        fin = res["levels"].collapsed[0]
-        t1 = time.time()
-        adj = S.adjusted_csc(vec, fin.mu_residual.mean().cpu().numpy(),
-                             res["levels"].groups_per_level[0], device=dev)
-        adjusted.update(seconds=time.time() - t1, shape=list(adj.shape), nnz=int(adj.nnz),
-                        finite=bool(np.isfinite(adj.data).all()))
-        if adj.shape != vec.shape or not np.isfinite(adj.data).all():
-            raise AssertionError("svd adjusted matrix not finite or of the wrong shape")
+    adj = open_sparse_matrix(f"{work}/svd.adjusted.zarr")
+    adjusted = {"shape": list(adj.shape), "nnz": adj.num_nonzeros,
+                "bytes": _store_bytes(f"{work}/svd.adjusted.zarr")}
+    if adj.shape != vec.shape:
+        raise AssertionError(f"svd adjusted store has shape {adj.shape}")
     _run_line("senna_svd", res["timings"], t0, out["svd"], card, cells=vec.num_columns,
               factors_shape=list(f.shape), singular_values=res["singular_values"].tolist(),
               adjusted=adjusted)
@@ -1602,6 +1630,462 @@ def masked_phase(work: str, vec, hvec, K, dev, card: str) -> dict:
     return out
 
 
+# ---- phases 21-27: stores, annotation, deconvolution, impute, probe, fne --
+
+
+def storage_libraries() -> dict:
+    """Which zstd provider and HDF5 library the machine has (the port's
+    stores need pyarrow's zstd; `.h5` needs h5py)."""
+    import ctypes
+    import ctypes.util
+
+    def loadable(name: str) -> bool:
+        try:
+            ctypes.CDLL(name)
+            return True
+        except OSError:
+            return False
+
+    try:
+        import pyarrow as pa
+
+        pa_zstd = bool(pa.Codec.is_available("zstd"))
+    except ImportError:
+        pa_zstd = False
+    return {
+        "zstd_pyarrow": pa_zstd, "libzstd.so.1": loadable("libzstd.so.1"),
+        "libhdf5": ctypes.util.find_library("hdf5") or ctypes.util.find_library("hdf5_serial"),
+        "h5py": importlib.util.find_spec("h5py") is not None,
+        "tensorstore": importlib.util.find_spec("tensorstore") is not None,
+    }
+
+
+def _store_bytes(path: str) -> int:
+    p = Path(path)
+    return p.stat().st_size if p.is_file() else sum(f.stat().st_size for f in p.rglob("*")
+                                                     if f.is_file())
+
+
+def store_phase(work: str, sim, res, K, dev, card: str) -> tuple[dict, str]:
+    """Phase 21: phase 2's cells written to `.zarr` and `.zarr.zip` by the
+    port's writer and read back equal to the matrix in memory; `senna
+    topic --data-files x.zarr --batch-files` with phase 2's arguments and
+    1 epoch gives phase 2's partitions at every level."""
+    from legume_tpu_torch.cli.main import run_senna
+    from legume_tpu_torch.data.sparse_io import create_sparse_from_csc, open_sparse_matrix
+
+    line, out = {}, {}
+    for ext in (".zarr", ".zarr.zip"):
+        path = f"{work}/x{ext}"
+        t0 = time.time()
+        create_sparse_from_csc(sim.counts, path, sim.row_names, sim.col_names)
+        line[f"write{ext}_s"] = time.time() - t0
+        line[f"bytes{ext}"] = _store_bytes(path)
+        t0 = time.time()
+        b = open_sparse_matrix(path)
+        got = b.read_columns_csc(np.arange(b.num_columns))
+        line[f"read{ext}_s"] = time.time() - t0
+        if not (got.shape == sim.counts.shape and (got != sim.counts).nnz == 0
+                and b.row_names() == list(sim.row_names)
+                and b.column_names() == list(sim.col_names)):
+            raise AssertionError(f"{path} read back unlike the matrix written")
+    store = f"{work}/x.zarr"
+    bfile = _write_lines(f"{work}/x.batch.txt", sim.batch.astype(str))
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    r = run_senna(["topic", "--data-files", store, "--batch-files", bfile, "--out",
+                   f"{work}/topic_zarr", "--epochs", "1", "--device", str(dev)])
+    torch.cuda.synchronize()
+    out["topic_zarr"] = _launched(K, ("project_normed", "collapse"), "topic --data-files x.zarr")
+    same = [bool(np.array_equal(a, b)) for a, b in zip(r["levels"].groups_per_level,
+                                                       res["levels"].groups_per_level)]
+    _run_line("senna_topic_zarr", r["timings"], t0, out["topic_zarr"], card,
+              cells=sim.counts.shape[1], nnz=int(sim.counts.nnz), **line,
+              memory_run_timings=res["timings"], same_partitions_as_memory=same)
+    if not (len(same) == len(res["levels"].groups_per_level) and all(same)):
+        raise AssertionError(f"topic from x.zarr: partitions unlike phase 2's: {same}")
+    return out, store
+
+
+def _factor_gmt(work: str, sim, top: int = 50) -> str:
+    """One gene set per simulated factor: its `top` most specific genes."""
+    lb = np.log(sim.beta)
+    spec = lb - lb.mean(1, keepdims=True)
+    lines = [f"factor{k}\tsimulated\t" + "\t".join(sim.row_names[i] for i in
+                                                   np.argsort(-spec[:, k])[:top])
+             for k in range(sim.beta.shape[1])]
+    return _write_lines(f"{work}/factors.gmt", lines)
+
+
+def _toy_ontology(work: str, sim, seed: int = 7) -> tuple[str, str]:
+    """An OBO of a root, one term a factor and two subterms each, and a GAF
+    that annotates each subterm with 10 of its factor's top genes, the
+    factor term with the next 20 and every term with 5 random genes."""
+    rng = np.random.default_rng(seed)
+    lb = np.log(sim.beta)
+    spec = lb - lb.mean(1, keepdims=True)
+    obo = ["format-version: 1.2", "", "[Term]", "id: CL:0000000", "name: cell", ""]
+    gaf = ["!gaf-version: 2.2"]
+    names = sim.row_names
+    for k in range(sim.beta.shape[1]):
+        fac = f"CL:{1000 + k:07d}"
+        obo += ["[Term]", f"id: {fac}", f"name: factor{k} cell", "is_a: CL:0000000 ! cell", ""]
+        order = np.argsort(-spec[:, k])
+        gaf += [f"SIM\t{i}\t{names[i]}\t\t{fac}" for i in order[20:40]]
+        for s in range(2):
+            sub = f"CL:{2000 + 2 * k + s:07d}"
+            obo += ["[Term]", f"id: {sub}", f"name: factor{k} subtype{s}", f"is_a: {fac}", ""]
+            gaf += [f"SIM\t{i}\t{names[i]}\t\t{sub}" for i in order[10 * s : 10 * s + 10]]
+            gaf += [f"SIM\t{i}\t{names[i]}\t\t{sub}" for i in rng.choice(len(names), 5)]
+    return (_write_lines(f"{work}/toy.obo", obo), _write_lines(f"{work}/toy.gaf", gaf))
+
+
+def annotation_phase(work: str, sim, res, topic_out: str, store: str, K, dev, card: str) -> dict:
+    """Phase 22: `qmatrix` on phase 2's dictionary with one gene set a
+    simulated factor, and `--latent` phase 2's latent; `annotate-by-
+    enrichment --data-files x.zarr` and `annotate-ontology` (a toy OBO
+    and GAF) over phase 2's cells clustered by their top topic (phase 9's
+    clusters are of the held-out cells); `annotate-by-projection --from`
+    phase 5's bge run and `--train-latent` (phase 2's latent and clusters,
+    onto phase 8's held-out latent)."""
+    from legume_tpu_torch.cli.main import run_senna
+    from legume_tpu_torch.utils.output import read_table, table_path, write_table
+
+    out = {}
+    gmt = _factor_gmt(work, sim)
+    obo, gaf = _toy_ontology(work, sim)
+    top = res["latent"].argmax(1)
+    clusters = write_table(f"{work}/topic_top.clusters",
+                           {"cell": np.asarray(sim.col_names), "cluster": top})
+    runs = {
+        "qmatrix": ["qmatrix", "--dictionary", table_path(f"{topic_out}.dictionary"),
+                    "--markers", gmt, "--latent", table_path(f"{topic_out}.latent"),
+                    "--out", f"{work}/qm"],
+        "annotate_by_enrichment": ["annotate-by-enrichment", "--data-files", store,
+                                   "--clusters", clusters, "--markers", gmt, "--num-perm", "20",
+                                   "--bootstrap", "20", "--out", f"{work}/abe"],
+        "annotate_ontology": ["annotate-ontology", "--data-files", store, "--clusters", clusters,
+                              "--obo", obo, "--gaf", gaf, "--by", "module-score",
+                              "--out", f"{work}/ont"],
+        "annotate_by_projection_from": ["annotate-by-projection", "--from",
+                                        f"{work}/bge.gem.json", "--markers", gmt,
+                                        "--out", f"{work}/abp"],
+        "annotate_by_projection_train": ["annotate-by-projection", "--train-latent",
+                                         table_path(f"{topic_out}.latent"), "--train-clusters",
+                                         clusters, "--latent", table_path(f"{work}/predict.latent"),
+                                         "--out", f"{work}/abt"],
+    }
+    results = {}
+    for name, argv in runs.items():
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        # annotate-ontology and annotate-by-enrichment run on the host alone
+        on_card = argv[0] in ("qmatrix", "annotate-by-projection")
+        results[name] = run_senna(argv + ["--device", str(dev)] if on_card else argv)
+        torch.cuda.synchronize()
+        out[name] = dict(K.launch_counts)
+        extra = {}
+        if name == "qmatrix":
+            q = results[name]
+            best = q["z"].argmax(1)
+            extra = {"sets": len(q["labels"]), "topics": int(q["z"].shape[1]),
+                     "significant_pairs": int((q["q"] < 0.05).sum()),
+                     "best_topic_per_set": best.tolist(),
+                     "best_z": q["z"][np.arange(len(best)), best].tolist()}
+            cells = read_table(table_path(f"{work}/qm.cell_annotation"))
+            extra["cell_labels"] = {str(k): int(v) for k, v in zip(
+                *np.unique(cells["annotation"], return_counts=True))}
+            if not (np.isfinite(q["z"]).all() and len(cells["annotation"]) == len(top)):
+                raise AssertionError("qmatrix: z not finite or cell labels missing")
+        else:
+            table = read_table(table_path(argv[argv.index("--out") + 1] + ".annotation"))
+            extra = {"rows": len(table["annotation"]), "labels": {
+                str(k): int(v) for k, v in zip(*np.unique(table["annotation"],
+                                                          return_counts=True))}}
+        _run_line(name, {}, t0, out[name], card, **extra)
+    return out
+
+
+def _bulk_tsv(path: str, counts, genes, names) -> str:
+    import pandas as pd
+
+    pd.DataFrame(np.asarray(counts, np.float32), index=names, columns=genes).to_csv(path, sep="\t")
+    return path
+
+
+def deconvolve_phase(work: str, sim, vec, res, K, dev, card: str, checks: dict, *,
+                     n: int = 10_000, archetypes: int = 50) -> dict:
+    """Phase 23: `deconvolve --from` at full gene width on 10,000 of phase
+    2's cells (its latent as the run's, the cells' top simulated factor
+    as the annotation; bulk samples pooled from all 100,000 cells at known
+    type fractions; one granularity of 50 archetypes), its sums through
+    K3 (one launch per 2,048-cell block, K3 held at the first block's
+    archetype plane); `deconvolve --reference` of eight marker-block rate
+    profiles on Poisson bulk samples of known fractions."""
+    import pandas as pd
+
+    from legume_tpu_torch.cli.main import run_senna
+    from legume_tpu_torch.data.visitors import visit_columns_by_block
+    from legume_tpu_torch.ops.random_projection import block_to_device
+    from legume_tpu_torch.utils.output import read_table, table_path, write_table
+
+    out = {}
+    sub = _subset(vec, n, with_batches=False)
+    genes, cells = list(sim.row_names), list(sim.col_names)
+    types = sim.theta.argmax(1)
+    n_types = sim.theta.shape[1]
+    rng = np.random.default_rng(23)
+    lat = write_table(f"{work}/dec_run.latent", {"cell": np.asarray(cells[:n]), **{
+        f"topic{k}": res["latent"][:n, k] for k in range(res["latent"].shape[1])}})
+    Path(f"{work}/dec_run.senna.json").write_text(json.dumps(
+        {"command": "topic", "inputs": {}, "outputs": {"latent": lat}}))
+    ann = _write_lines(f"{work}/dec_ann.tsv", [f"{c}\ttype{k}" for c, k in zip(cells[:n], types)])
+    planted = rng.dirichlet(np.ones(n_types), 4)
+    csc = sim.counts.tocsc()
+    bulk = np.stack([np.asarray(csc[:, np.concatenate([
+        rng.choice(np.nonzero(types == k)[0], int(round(planted[s, k] * 2000)))
+        for k in range(n_types)])].sum(1)).ravel() for s in range(4)])
+    bulk_path = _bulk_tsv(f"{work}/bulk.tsv", bulk, genes, [f"s{s}" for s in range(4)])
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    frac = run_senna(["deconvolve", "--bulk", bulk_path, "--from", f"{work}/dec_run",
+                      "--annotation", ann, "--archetypes", str(archetypes), "--out", f"{work}/dec",
+                      "--device", str(dev)], vec=sub)
+    torch.cuda.synchronize()
+    out["deconvolve"] = _launched(K, ("collapse",), "deconvolve --from")
+    memb = read_table(table_path(f"{work}/dec.membership"))[f"archetype_k{archetypes}"]
+    r_comp = int(memb.max()) + 1
+    k3_expected = -(-n // 2048)
+    err = np.abs(np.asarray(frac) - planted)
+    _run_line("senna_deconvolve_from", {}, t0, out["deconvolve"], card, cells=n, genes=len(genes),
+              archetypes=r_comp, plane_shape=[len(genes), r_comp], collapse_expected=k3_expected,
+              fraction_abs_err_mean=float(err.mean()), fraction_abs_err_max=float(err.max()))
+    if out["deconvolve"]["collapse"] != k3_expected:
+        raise AssertionError(f"deconvolve K3 launches {out['deconvolve']['collapse']}, "
+                             f"expected {k3_expected}")
+    if not (np.isfinite(frac).all() and np.abs(np.asarray(frac).sum(1) - 1).max() < 1e-3):
+        raise AssertionError("deconvolve --from: fractions not a finite simplex")
+    # K3 at the archetype plane: the first 2,048-cell block over the communities
+    blk = next(iter(visit_columns_by_block(sub, block_size=2048)))
+    r, p, v = block_to_device(blk, dev)
+    seg = torch.from_numpy(np.where(memb[:2048] >= 0, memb[:2048], r_comp).astype(np.int32)).to(dev)
+    row = check_collapse(K, r, p, v, seg, num_genes=len(genes), num_groups=r_comp,
+                         shape="archetype_plane")
+    row.update(launches_in_e2e=out["deconvolve"]["collapse"], path="senna_deconvolve")
+    print(json.dumps({"kernel_check": "collapse", "card": card, **row}), flush=True)
+    checks["collapse"].append(row)
+
+    # direct mode: eight rate profiles over the same genes, each with a
+    # block of markers (the simulated types' mean profiles overlap too much
+    # for any chain to separate), and Poisson bulk samples at known
+    # fractions, 50,000 counts each
+    mu = rng.gamma(0.3, 1.0, (len(genes), n_types)) * 5.0
+    block = len(genes) // (2 * n_types)
+    for k in range(n_types):
+        mu[k * block : (k + 1) * block, k] *= 10.0
+    mu /= mu.sum(0, keepdims=True)
+    pd.DataFrame(mu, index=genes, columns=[f"type{k}" for k in range(n_types)]).reset_index(
+        names="gene").to_parquet(f"{work}/dec_ref.parquet")
+    true_ref = rng.dirichlet(np.ones(n_types), 6)
+    lam = true_ref @ mu.T
+    y = rng.poisson(50_000 * lam / lam.sum(1, keepdims=True))
+    ref_bulk = _bulk_tsv(f"{work}/bulk_ref.tsv", y, genes, [f"r{s}" for s in range(6)])
+    K.reset_launch_counts()
+    t0 = time.time()
+    dres = run_senna(["deconvolve", "--bulk", ref_bulk, "--reference", f"{work}/dec_ref.parquet",
+                      "--out", f"{work}/dec_ref", "--device", str(dev)])
+    torch.cuda.synchronize()
+    out["deconvolve_reference"] = dict(K.launch_counts)
+    ref_err = np.abs(dres.fractions - true_ref)
+    _run_line("senna_deconvolve_reference", {}, t0, out["deconvolve_reference"], card,
+              samples=6, types=n_types, fraction_abs_err_mean=float(ref_err.mean()),
+              fraction_abs_err_max=float(ref_err.max()), worst_rhat=float(dres.rhat.max()),
+              min_ess=float(dres.ess.min()))
+    if not ref_err.mean() < 0.05:
+        raise AssertionError(f"deconvolve --reference: mean fraction error {ref_err.mean()}")
+    return out
+
+
+def impute_probe_phase(work: str, vec, hvec, res, topic_out: str, K, dev, card: str, *,
+                       n: int = 20_000, n_query: int = 5000) -> dict:
+    """Phases 24-25: `impute` in self mode on 20,000 of phase 2's cells
+    (writing its `.zarr`) and in reference mode (phase 8's model; 5,000
+    held-out query cells against phase 2's 100,000); `probe` in model mode
+    with `--counterfactual` (20,000 held-out query cells against 20,000
+    calibration cells of phase 2) and in latent mode."""
+    from legume_tpu_torch.cli.main import run_senna
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+    from legume_tpu_torch.utils.output import table_path, write_table
+
+    out = {}
+    sub = _subset(vec, n, with_batches=False)
+    lat_all = table_path(f"{topic_out}.latent")
+    lat = write_table(f"{work}/imp_sub.latent", {"cell": np.asarray(sub.column_names()), **{
+        f"topic{k}": res["latent"][:n, k] for k in range(res["latent"].shape[1])}})
+    runs = {
+        "impute": (["impute", "--data-files", "x", "--latent", lat, "--out", f"{work}/imp"],
+                   dict(vec=sub)),
+        "impute_reference": (["impute", "--data-files", "q", "--model", topic_out,
+                              "--reference-latent", lat_all, "--reference-data", "x",
+                              "--out", f"{work}/impref"],
+                             dict(vecs=[_subset(hvec, n_query, with_batches=False), vec])),
+        "probe": (["probe", "--model", topic_out, "--data-files", "q", "--calibration", "c",
+                   "--counterfactual", "--out", f"{work}/probe"],
+                  dict(vecs=[_subset(hvec, n, with_batches=False), sub])),
+        "probe_latent": (["probe", "--train-latent", lat_all, "--heldout-latent",
+                          table_path(f"{work}/predict.latent"), "--out", f"{work}/probe_lat"], {}),
+    }
+    for name, (argv, kw) in runs.items():
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got = run_senna(argv + ["--device", str(dev)], **kw)
+        torch.cuda.synchronize()
+        out[name] = dict(K.launch_counts)
+        extra = {}
+        if name == "impute":
+            b = open_sparse_matrix(f"{work}/imp.zarr")
+            extra = {"store_shape": list(b.shape), "store_nnz": b.num_nonzeros,
+                     "store_bytes": _store_bytes(f"{work}/imp.zarr")}
+            if b.shape != sub.shape or not np.isfinite(got).all():
+                raise AssertionError("impute: store of the wrong shape or values not finite")
+        elif name == "impute_reference":
+            extra = {"shape": list(got.shape)}
+            if got.shape != (n_query, vec.num_rows) or not np.isfinite(got).all():
+                raise AssertionError("impute --model: wrong shape or values not finite")
+        elif name == "probe":
+            extra = {"verdict": got.verdict, "flag_rate": got.flag_rate,
+                     "threshold": got.threshold, "counterfactual": got.counterfactual}
+            if not (np.isfinite(got.q_fit).all() and np.isfinite(got.cal_fit).all()):
+                raise AssertionError("probe: fit scores not finite")
+        else:
+            extra = {"verdict": got.verdict, "drift_score": got.drift_score,
+                     "novelty_frac": got.novelty_frac}
+        _run_line(name, {}, t0, out[name], card, **extra)
+    return out
+
+
+def sbm_edges(n: int, modules: int, seed: int, within: int = 15):
+    """A weighted stochastic-block graph: `n` genes in `modules` equal
+    modules, each gene tied to `within` random genes of its module and one
+    anywhere, weights 1-3."""
+    rng = np.random.default_rng(seed)
+    module = np.arange(n) % modules
+    size = n // modules
+    src = np.repeat(np.arange(n), within + 1)
+    mates = rng.integers(0, size, (n, within)) * modules + module[:, None]
+    dst = np.concatenate([mates, rng.integers(0, n, (n, 1))], 1).ravel()
+    keep = src != dst
+    w = rng.integers(1, 4, keep.sum())
+    return [(f"gene{a}", f"gene{b}", float(c)) for a, b, c in zip(src[keep], dst[keep], w)], module
+
+
+def fne_phase(work: str, K, dev, card: str, checks: dict, *, nodes: int = 10_000,
+              modules: int = 50) -> dict:
+    """Phase 26: `senna fne` with the CLI defaults (500 epochs, d = 32) on a
+    stochastic-block graph of 10,000 genes in 50 modules: every epoch one
+    K4 launch in its full form (500 required, none in the axis form); K4
+    held against its plain version at that plane with tied weights."""
+    from legume_tpu_torch.cli.main import run_senna
+    from legume_tpu_torch.senna.fne import fne_plane
+
+    edges, module = sbm_edges(nodes, modules, seed=26)
+    path = _write_lines(f"{work}/edges.tsv", (f"{a}\t{b}\t{w:g}" for a, b, w in edges))
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = run_senna(["fne", "--edges", path, "--out", f"{work}/fne", "--device", str(dev)])
+    torch.cuda.synchronize()
+    launches = _launched(K, ("nce_epoch",), "senna fne")
+    emb = res.embedding
+    order = np.asarray([int(n[4:]) for n in res.names])
+    unit = emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
+    mod = module[order]
+    cos = unit[:2000] @ unit.T  # the first 2,000 genes against all
+    same = mod[:2000, None] == mod[None, :]
+    _run_line("senna_fne", {}, t0, launches, card, nodes=len(res.names), edges=len(edges),
+              losses=res.losses, cos_within=float(cos[same].mean()),
+              cos_across=float(cos[~same].mean()))
+    if launches["nce_epoch"] != 500 or launches["nce_epoch_axis"] != 0:
+        raise AssertionError(f"fne K4 launches {launches}, expected 500 in the full form")
+    if not (np.isfinite(emb).all() and res.losses[-1] < res.losses[0]):
+        raise AssertionError(f"fne: embedding not finite or loss not falling: {res.losses}")
+    # K4 at fne's plane, tied weights: e_axis = e_feat, b_axis = b_feat
+    names, plane, q = fne_plane(edges, 0.75)
+    c = dev32(plane, dev)
+    e, b = dev32(emb, dev), dev32(res.bias, dev)
+    row = check_nce(K, c, dev32(q, dev), e, b, e, b, c.sum(1), shape="fne_plane_tied")
+    row.update(launches_in_e2e=launches["nce_epoch"], path="senna_fne")
+    print(json.dumps({"kernel_check": "nce_epoch", "card": card, **row}), flush=True)
+    checks["nce_epoch"].append(row)
+    return {"fne": launches}
+
+
+def slice11_card_vs_cpu(work: str, sim, topic_out: str, store: str, dev, card: str) -> None:
+    """Phase 27 on small inputs, the card against the CPU: the Q-matrix
+    and a permutation p-value equal, fne's embedding within 1e-4 after 50
+    epochs, deconvolve's fractions within 0.03 (chains of two generators),
+    and a block read from x.zarr equal to the matrix with its K1
+    projection within K1's bar of the CPU's."""
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+    from legume_tpu_torch.ops import kernels as K
+    from legume_tpu_torch.ops.enrichment import geneset_topic_qmatrix, gsea_permutation_pvalue
+    from legume_tpu_torch.ops.random_projection import projection_basis
+    from legume_tpu_torch.senna.deconvolve import DeconvConfig, deconvolve
+    from legume_tpu_torch.senna.fne import fit_fne
+    from legume_tpu_torch.senna.predict import _load_log_dictionary
+    from legume_tpu_torch.data.knowledge import read_gmt
+
+    rep = {}
+    log_dict = _load_log_dictionary(topic_out, list(sim.row_names))
+    sets = read_gmt(f"{work}/factors.gmt")
+    qs = {d: geneset_topic_qmatrix(log_dict.T, list(sim.row_names), sets, n_perm=50, seed=1,
+                                   device=d) for d in (dev, "cpu")}
+    rep["qmatrix_equal"] = all(np.array_equal(qs[dev][k], qs["cpu"][k])
+                               for k in ("es", "z", "pvalue", "q"))
+    rng = np.random.default_rng(27)
+    scores, mask = rng.normal(size=2000), rng.random(2000) < 0.02
+    gs = [gsea_permutation_pvalue(scores, mask, n_permutations=500, seed=3, device=d)
+          for d in (dev, "cpu")]
+    rep["gsea_equal"] = gs[0] == gs[1]
+    edges, _ = sbm_edges(500, 5, seed=27)
+    fs = [fit_fne(edges, epochs=50, seed=1, device=d) for d in (dev, "cpu")]
+    rep["fne_embedding_max_abs_err"] = float(np.abs(fs[0].embedding - fs[1].embedding).max())
+    rep["fne_loss_max_abs_err"] = float(np.abs(np.subtract(fs[0].losses, fs[1].losses)).max())
+    d_, r_ = 300, 4
+    mu = rng.gamma(0.3, 1.0, (d_, r_)) * 5.0
+    for m in range(r_):
+        mu[m * 60 : (m + 1) * 60, m] *= 10.0
+    frac = rng.dirichlet(np.ones(r_), 4)
+    lam = frac @ mu.T
+    y = rng.poisson(lam / lam.sum(1, keepdims=True) * 50_000).astype(np.float32)
+    ds = [deconvolve(y, mu / mu.sum(0), config=DeconvConfig(n_sweeps=400, burn_in=150, seed=1),
+                     device=d) for d in (dev, "cpu")]
+    rep["deconvolve_fraction_max_abs_err"] = float(np.abs(ds[0].fractions - ds[1].fractions).max())
+    rep["deconvolve_vs_truth_max_abs_err"] = [float(np.abs(x.fractions - frac).max()) for x in ds]
+    b = open_sparse_matrix(store)
+    cols = np.arange(min(4096, b.num_columns))
+    blk = b.read_columns_csc(cols)
+    rep["store_block_equal"] = bool((blk != sim.counts[:, cols]).nnz == 0)
+    basis = projection_basis(b.num_rows, 50, 5)
+    proj = {}
+    for d in (dev, "cpu"):
+        rows = torch.from_numpy(blk.indices.astype(np.int32)).to(d)
+        ptr = torch.from_numpy(blk.indptr.astype(np.int32)).to(d)
+        vals = torch.from_numpy(blk.data.astype(np.float32)).to(d)
+        proj[d] = K.project(torch.from_numpy(basis).to(d), rows, ptr, vals, normed=True).cpu()
+    scale = float(proj["cpu"].abs().max())
+    rep["store_block_k1_rel_err"] = float((proj[dev] - proj["cpu"]).abs().max()) / scale
+    print(json.dumps({"phase": "slice11_card_vs_cpu", **rep, "card": card}), flush=True)
+    if not (rep["qmatrix_equal"] and rep["gsea_equal"] and rep["fne_embedding_max_abs_err"] <= 1e-4
+            and rep["deconvolve_fraction_max_abs_err"] <= 0.03 and rep["store_block_equal"]
+            and rep["store_block_k1_rel_err"] <= RTOL_K1):
+        raise AssertionError(f"slice 11 on the card vs the CPU: {rep}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1642,6 +2126,7 @@ def run(work: str, t_script: float) -> int:
         print(json.dumps({"ptxas": name, "lines": regs}), flush=True)
     card = device_line()
     print(card, flush=True)
+    print(json.dumps({"phase": "storage_libraries", **storage_libraries()}), flush=True)
 
     # ---- phase 2: senna topic end to end ---------------------------------
     t0 = time.time()
@@ -1962,7 +2447,7 @@ def run(work: str, t_script: float) -> int:
     resid = P.residual_csc(hvec, zp, log_dict, remap, delta_db=delta, cell_batch=cb, device=dev)
     torch.cuda.synchronize()
     residual_s = time.time() - t0
-    writers = {"zarr (tensorstore)": importlib.util.find_spec("tensorstore") is not None,
+    writers = {"zarr (pyarrow zstd)": storage_libraries()["zstd_pyarrow"],
                "h5 (h5py)": importlib.util.find_spec("h5py") is not None,
                "h5 blosc (libblosc)": blosc_codec.available(),
                "parquet (pandas, pyarrow)": have_parquet()}
@@ -2087,7 +2572,15 @@ def run(work: str, t_script: float) -> int:
     slice10.update(joint_topic_phase(work, kept["multiome"], K, dev, card))
     slice10.update(masked_phase(work, vec, hvec, K, dev, card))
 
-    # ---- phase 21: the kernels line, then the device line -----------------
+    # ---- phases 21-27: stores, annotation, deconvolve, impute, probe, fne --
+    slice11, store = store_phase(work, sim, res, K, dev, card)
+    slice11.update(annotation_phase(work, sim, res, args.out, store, K, dev, card))
+    slice11.update(deconvolve_phase(work, sim, vec, res, K, dev, card, checks))
+    slice11.update(impute_probe_phase(work, vec, hvec, res, args.out, K, dev, card))
+    slice11.update(fne_phase(work, K, dev, card, checks))
+    slice11_card_vs_cpu(work, sim, args.out, store, dev, card)
+
+    # ---- phase 28: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
     # and `shapes` holds every checked shape, each with the run (`path`)
@@ -2100,7 +2593,11 @@ def run(work: str, t_script: float) -> int:
     # `launches_<path>` its count in each run of phases 13-20 (multiome,
     # posterior, rest, diff, collapse, topic_cnv; vae, vae_predict,
     # topic_gaussian_nb, svd, joint_svd, joint_topic, joint_topic_delta,
-    # masked_topic, masked_vae, masked_sbp, masked_predict).
+    # masked_topic, masked_vae, masked_sbp, masked_predict; topic_zarr,
+    # qmatrix, annotate_by_enrichment, annotate_ontology,
+    # annotate_by_projection_from, annotate_by_projection_train,
+    # deconvolve, deconvolve_reference, impute, impute_reference, probe,
+    # probe_latent, fne).
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
@@ -2118,7 +2615,7 @@ def run(work: str, t_script: float) -> int:
             "launches_layout_pseudotime_plot": sum(layout_launches.values()),
             "launches_topic_options": option_launches.get(name, 0),
             **{f"launches_{path}": counts[name]
-               for path, counts in {**slice9, **slice10}.items()},
+               for path, counts in {**slice9, **slice10, **slice11}.items()},
             **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),

@@ -1,20 +1,26 @@
-"""Command line of the port: `python -m legume_tpu_torch.cli.main senna
+"""Command line of the port: `python -m legume_tpu_torch senna
 {topic,vae,svd,joint-svd,joint-topic,masked-topic,masked-vae,masked-sbp,
-bge,resolve-embedding-space (rest),predict,eval-topic,clustering,layout,
-pseudotime,plot,plot-topic} ...` and `python -m
-legume_tpu_torch.cli.main cocoa {diff,collapse,simulate-one,
-simulate-collider} ...`.
+bge,fne,resolve-embedding-space (rest),predict,eval-topic,clustering,
+layout,pseudotime,plot,plot-topic,qmatrix,annotate-ontology,
+annotate-by-enrichment,annotate-by-projection,deconvolve,probe,impute}
+...` and `python -m legume_tpu_torch cocoa {diff,collapse,simulate-one,
+simulate-collider} ...` (or `python -m legume_tpu_torch.cli.main`, or the
+`legume-torch` script).
 
 The flags are those of the JAX package's commands; the ones the port
 does not carry yet are accepted and raise `NotImplementedError` when set.
-`--device` picks the torch device (default `cuda`). `--from <run>`
+`--device` picks the torch device (default `cuda`); the commands that
+run on the host alone (`plot`, `plot-topic`, `annotate-ontology`,
+`annotate-by-enrichment`) have none. `--from <run>`
 resolves the latent (and `plot-topic`'s dictionary) from that run's
 `{run}.senna.json`; `clustering` and `layout` record their outputs back
 into it. `senna topic --from <run>` inherits the run's data files and
 reuses its cell -> pseudobulk partition. A caller holding the cells in
 memory passes them to `run_senna(argv, vec=)` (`vecs=`, one per modality,
 for `joint-topic` and `joint-svd`); the command then reads them instead
-of `--data-files`.
+of `--data-files` (`vecs=[query, calibration]` for `probe --model` and
+`[query, reference]` for `impute --model`). A first Ctrl-C ends a
+trainer's epochs and lets the command write its partial outputs.
 """
 
 from __future__ import annotations
@@ -214,7 +220,6 @@ def _layout_parsers(sub):
     p.add_argument("--png", action="store_true")
     p.add_argument("--no-pdf", action="store_true")
     p.add_argument("--out", required=True)
-    p.add_argument("--device", default="cuda", help="torch device (default: cuda; unused)")
 
     p = sub.add_parser("plot-topic", help="structure bars + top genes per topic")
     p.add_argument("--latent", default=None)
@@ -226,7 +231,6 @@ def _layout_parsers(sub):
     p.add_argument("--group-by", default=None)
     p.add_argument("--no-struct", action="store_true")
     p.add_argument("--no-dict", action="store_true")
-    p.add_argument("--device", default="cuda", help="torch device (default: cuda; unused)")
 
     p = sub.add_parser("plot-strand", help="Watson/Crick mirrored genomic-activity ideograms")
     p.add_argument("--activity", required=True)
@@ -267,7 +271,7 @@ def _run_clustering(a):
 def run_senna(argv, *, vec=None, vecs=None):
     from ..senna.topic import TopicArgs, fit_topic_model
     from ..utils.prng import DEFAULT_PROJECTION_SEED
-    from .senna_cmds import embed_cmds, masked_cmds, topic_cmds
+    from .senna_cmds import annotate_cmds, embed_cmds, masked_cmds, topic_cmds
 
     ap = argparse.ArgumentParser(prog="senna")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -280,6 +284,8 @@ def run_senna(argv, *, vec=None, vecs=None):
     _predict_parser(sub)
     _clustering_parser(sub)
     _layout_parsers(sub)
+    annotate_cmds.add_annotate_parsers(sub)
+    embed_cmds.add_fne_parser(sub)
     a = ap.parse_args(argv)
     trainers = {
         "vae": lambda: topic_cmds.run_vae(a, vec=vec),
@@ -291,6 +297,8 @@ def run_senna(argv, *, vec=None, vecs=None):
     }
     if a.cmd in trainers:
         return trainers[a.cmd]()
+    if a.cmd == "fne":
+        return embed_cmds.run_fne(a)
     if a.cmd in ("resolve-embedding-space", "rest"):
         from .senna_cmds.embed_cmds import RestArgs, run_rest
 
@@ -317,6 +325,18 @@ def run_senna(argv, *, vec=None, vecs=None):
         return predict_model(PredictArgs(**fields), device=a.device)
     if a.cmd == "clustering":
         return _run_clustering(a)
+    A = annotate_cmds
+    annotators = {
+        "qmatrix": lambda: A.cmd_qmatrix(a),
+        "annotate-ontology": lambda: A.cmd_annotate_ontology(a, vec=vec),
+        "annotate-by-enrichment": lambda: A.cmd_annotate_by_enrichment(a, vec=vec),
+        "annotate-by-projection": lambda: A.cmd_annotate_by_projection(a),
+        "deconvolve": lambda: A.cmd_deconvolve(a, vec=vec),
+        "probe": lambda: A.cmd_probe(a, vecs=vecs),
+        "impute": lambda: A.cmd_impute(a, vec=vec, vecs=vecs),
+    }
+    if a.cmd in annotators:
+        return annotators[a.cmd]()
     if a.cmd in ("layout", "pseudotime", "plot", "plot-topic"):
         from .senna_cmds import layout_cmds as L
 
@@ -445,11 +465,16 @@ def run_cocoa(argv, *, vec=None):
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     logging.basicConfig(level=logging.INFO, format="[%(levelname)s %(name)s] %(message)s")
+    from ..utils.stop import install_sigint_handler
+
+    install_sigint_handler()  # a first Ctrl-C ends training with partial outputs
     if not argv or argv[0] not in ("senna", "cocoa"):
-        print("usage: python -m legume_tpu_torch.cli.main senna {topic,vae,svd,joint-svd,"
-              "joint-topic,masked-topic,masked-vae,masked-sbp,bge,resolve-embedding-space,rest,"
-              "predict,eval-topic,clustering,layout,pseudotime,plot,plot-topic,plot-strand} ...\n"
-              "       python -m legume_tpu_torch.cli.main cocoa {diff,collapse,simulate-one,"
+        print("usage: python -m legume_tpu_torch senna {topic,vae,svd,joint-svd,"
+              "joint-topic,masked-topic,masked-vae,masked-sbp,bge,fne,resolve-embedding-space,"
+              "rest,predict,eval-topic,clustering,layout,pseudotime,plot,plot-topic,plot-strand,"
+              "qmatrix,annotate-ontology,annotate-by-enrichment,annotate-by-projection,"
+              "deconvolve,probe,impute} ...\n"
+              "       python -m legume_tpu_torch cocoa {diff,collapse,simulate-one,"
               "simulate-collider} ...")
         return 1
     (run_senna if argv[0] == "senna" else run_cocoa)(argv[1:])

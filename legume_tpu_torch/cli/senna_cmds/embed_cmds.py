@@ -411,3 +411,39 @@ def run_joint_svd(a, *, vecs=None) -> dict:
         block_size=a.block_size, seed=a.seed if a.seed is not None else DEFAULT_PROJECTION_SEED,
         vecs=vecs, device=a.device,
     )
+
+
+def add_fne_parser(sub) -> None:
+    """`senna fne`, the JAX flags and defaults."""
+    p = sub.add_parser("fne", help="feature-network embedding from an edge list")
+    p.add_argument("--edges", required=True, help="TSV: src dst [weight]")
+    p.add_argument("--out", required=True)
+    p.add_argument("-d", "--embedding-dim", type=int, default=32)
+    p.add_argument("--epochs", type=int, default=500)
+    p.add_argument("--learning-rate", "--lr", type=float, default=0.05)
+    p.add_argument("--num-negatives", type=float, default=5.0,
+                   help="expected negatives per positive edge unit (exact expectation)")
+    p.add_argument("--neg-alpha", type=float, default=0.75,
+                   help="marginal^alpha negative distribution")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+
+
+def run_fne(a):
+    """`senna fne`: `{out}.embedding` (node, h0..h{d-1})."""
+    import pandas as pd
+
+    from ...senna.fne import fit_fne
+    from ...utils.output import matrix_columns, write_table
+
+    df = pd.read_csv(a.edges, sep="\t", header=None)
+    edges = [tuple(r) for r in df.itertuples(index=False)]
+    res = fit_fne(
+        edges, embedding_dim=a.embedding_dim, epochs=a.epochs, seed=a.seed,
+        learning_rate=a.learning_rate, n_negatives=a.num_negatives, neg_alpha=a.neg_alpha,
+        device=a.device,
+    )
+    path = write_table(f"{a.out}.embedding", matrix_columns(
+        res.embedding, "h", "node", np.asarray([str(n) for n in res.names])))
+    print(f"wrote {path} ({len(res.names)} nodes)")
+    return res

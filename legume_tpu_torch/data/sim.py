@@ -214,3 +214,22 @@ def simulate_multiome(
     lam = (depth / genes) * (beta_g @ theta.T)
     rna = sp.csc_matrix(rng.poisson(lam).astype(np.float32))
     return MultiomeSim(rna=rna, atac=atac, theta=theta, peak_to_gene=p2g, linked=linked)
+
+
+def write_topic_sim(sim: TopicSim, output: str) -> str:
+    """Write the backend and the ground-truth sidecars the way the
+    reference does (`data-beans-sim/README.md` outputs table): the counts
+    at `{output}.zarr` (or `output` itself with a `.zarr` / `.h5`
+    suffix), the dictionary, proportions and log batch effects as tables
+    (`utils/output.py::write_table`) and the batch labels as
+    `{output}.batch.gz`. Returns the backend's path."""
+    from ..utils.output import matrix_columns, write_table
+    from .sparse_io import create_sparse_from_csc
+
+    path = output if output.endswith((".zarr", ".h5")) else output + ".zarr"
+    create_sparse_from_csc(sim.counts, path, sim.row_names, sim.col_names)
+    write_table(output + ".dict", matrix_columns(sim.beta, "k", "row", sim.row_names))
+    write_table(output + ".prop", matrix_columns(sim.theta, "k", "cell", sim.col_names))
+    write_table(output + ".ln_batch", matrix_columns(sim.ln_delta, "b", "row", sim.row_names))
+    np.savetxt(output + ".batch.gz", sim.batch, fmt="%d")
+    return path

@@ -14,15 +14,16 @@ Matrix orientation: rows = features/genes (D), columns = cells (N).
 [D, len(cols)].
 
 - ``MemoryBackend``: scipy CSC in RAM (simulations, tests, small runs).
-- ``ZarrBackend``: zarr v3 directory through tensorstore (zstd level 5);
-  a `.zarr.zip` archive is extracted once beside itself and read as a
-  directory.
+- ``ZarrBackend``: zarr v3 directory (zstd level 5), read and written by
+  this module; column arrays up to 1 GiB are decoded whole on the first
+  column read, larger ones read by chunk ranges; a `.zarr.zip` archive is
+  extracted once beside itself and read as a directory.
 - ``H5Backend``: HDF5 through h5py, chunks blosc-compressed by the
   system libblosc and moved with direct chunk reads and writes.
 
-The optional libraries (tensorstore, h5py, libblosc, pyarrow for the
-zstd of zarr string arrays) are imported only on the paths that need
-them, so the compute path needs numpy, scipy and torch alone. A store
+The optional libraries (pyarrow for zstd, h5py and libblosc for `.h5`)
+are imported only on the paths that need them, so the compute path needs
+numpy, scipy and torch alone. A store
 written here is what the JAX package writes for the same matrix, and
 each package reads the other's.
 """
@@ -30,7 +31,6 @@ each package reads the other's.
 from __future__ import annotations
 
 import abc
-import importlib.util
 import json
 import logging
 import os
@@ -48,31 +48,132 @@ _ZSTD_LEVEL = 5
 
 
 # ----------------------------------------------------------------------------
-# zarr v3 helpers (tensorstore)
+# zarr v3 arrays: the package's own reader and writer
 # ----------------------------------------------------------------------------
+#
+# Each 1-d array is a directory holding a `zarr.json` (regular chunk grid of
+# `min(_CHUNK, max(n, 1))` elements, default chunk keys, codecs `bytes`
+# little-endian then `zstd` level 5 without checksum, fill value 0) and its
+# chunks at `c/{i}`. Every chunk is stored at the full chunk shape (the edge
+# chunk padded with the fill value), and a chunk whose bytes all equal the
+# fill value is not written, as tensorstore's zarr3 driver does: a missing
+# chunk reads as the fill value. zstd is pyarrow's codec.
 
 
-def _zarr3_spec(path: str, key: str, *, shape=None, dtype=None, create=False):
-    spec = {
-        "driver": "zarr3",
-        "kvstore": {"driver": "file", "path": os.path.join(path, key.lstrip("/"))},
+def _zstd():
+    """pyarrow's zstd codec (level 5), or ImportError."""
+    try:
+        import pyarrow as pa
+    except ImportError as e:  # pragma: no cover - depends on the host
+        raise ImportError(
+            "zarr stores need zstd: install pyarrow, whose zstd codec this package uses "
+            "(libzstd.so.1 through ctypes is not used)"
+        ) from e
+    if not pa.Codec.is_available("zstd"):  # pragma: no cover
+        raise ImportError("this pyarrow has no zstd codec; zarr stores need it "
+                          "(libzstd.so.1 through ctypes is not used)")
+    return pa.Codec("zstd", compression_level=_ZSTD_LEVEL)
+
+
+def _zarr_array_meta(n: int, dtype: np.dtype) -> dict:
+    dtype = np.dtype(dtype)
+    return {
+        "chunk_grid": {"configuration": {"chunk_shape": [min(_CHUNK, max(int(n), 1))]},
+                       "name": "regular"},
+        "chunk_key_encoding": {"name": "default"},
+        "codecs": [
+            {"configuration": {"endian": "little"}, "name": "bytes"},
+            {"configuration": {"checksum": False, "level": _ZSTD_LEVEL}, "name": "zstd"},
+        ],
+        "data_type": dtype.name,
+        "fill_value": 0.0 if dtype.kind == "f" else 0,
+        "node_type": "array",
+        "shape": [int(n)],
+        "zarr_format": 3,
     }
-    if create:
-        spec["metadata"] = {
-            "shape": list(shape),
-            "data_type": dtype,
-            "chunk_grid": {
-                "name": "regular",
-                "configuration": {"chunk_shape": [min(_CHUNK, max(int(shape[0]), 1))]},
-            },
-            "codecs": [
-                {"name": "bytes", "configuration": {"endian": "little"}},
-                {"name": "zstd", "configuration": {"level": _ZSTD_LEVEL}},
-            ],
-        }
-        spec["create"] = True
-        spec["delete_existing"] = True
-    return spec
+
+
+def _chunk_path(adir: Path, meta: dict, i: int) -> Path:
+    """Chunk `i`'s file under the default chunk key encoding."""
+    sep = meta.get("chunk_key_encoding", {}).get("configuration", {}).get("separator", "/")
+    return adir / "c" / str(i) if sep == "/" else adir / f"c{sep}{i}"
+
+
+def write_zarr_array(path: str, key: str, arr: np.ndarray, dtype: str):
+    """Write a 1-d array at `path/key`, replacing whatever was there."""
+    arr = np.ascontiguousarray(np.asarray(arr, dtype=np.dtype(dtype).newbyteorder("<")))
+    adir = Path(path) / key.lstrip("/")
+    if adir.exists():
+        shutil.rmtree(adir)
+    adir.mkdir(parents=True)
+    meta = _zarr_array_meta(len(arr), arr.dtype)
+    (adir / "zarr.json").write_text(json.dumps(meta, sort_keys=True, separators=(",", ":")))
+    chunk = meta["chunk_grid"]["configuration"]["chunk_shape"][0]
+    if len(arr) == 0:
+        return
+    codec = _zstd()
+    for i, c0 in enumerate(range(0, len(arr), chunk)):
+        block = arr[c0 : c0 + chunk]
+        if len(block) < chunk:  # the edge chunk is stored at full shape
+            block = np.concatenate([block, np.zeros(chunk - len(block), arr.dtype)])
+        raw = block.tobytes()
+        if raw.count(0) == len(raw):  # all fill value: not stored
+            continue
+        target = _chunk_path(adir, meta, i)
+        target.parent.mkdir(parents=True, exist_ok=True)
+        target.write_bytes(codec.compress(raw, asbytes=True))
+
+
+class _ZarrArray:
+    """A 1-d zarr v3 array opened for ranged reads."""
+
+    def __init__(self, path: str, key: str):
+        self.dir = Path(path) / key.lstrip("/")
+        meta = json.loads((self.dir / "zarr.json").read_text())
+        if meta.get("node_type") != "array" or len(meta["shape"]) != 1:
+            raise ValueError(f"{self.dir}: not a 1-d zarr v3 array")
+        if meta["chunk_grid"].get("name") != "regular":
+            raise ValueError(f"{self.dir}: chunk grid {meta['chunk_grid'].get('name')!r}")
+        self.meta = meta
+        self.n = int(meta["shape"][0])
+        self.chunk = int(meta["chunk_grid"]["configuration"]["chunk_shape"][0])
+        endian = "<"
+        self.zstd = False
+        for c in meta.get("codecs", []):
+            name = c["name"] if isinstance(c, dict) else str(c)
+            if name == "bytes":
+                endian = ">" if c.get("configuration", {}).get("endian") == "big" else "<"
+            elif name == "zstd":
+                self.zstd = True
+            else:
+                raise ValueError(f"{self.dir}: codec {name!r} is not supported")
+        self.dtype = np.dtype(meta["data_type"]).newbyteorder(endian)
+        self.fill = np.asarray(meta.get("fill_value", 0) or 0).astype(self.dtype)
+
+    def decode(self, i: int) -> np.ndarray:
+        """Chunk `i` at full chunk shape."""
+        p = _chunk_path(self.dir, self.meta, i)
+        if not p.exists():
+            return np.full(self.chunk, self.fill, self.dtype)
+        raw = p.read_bytes()
+        nbytes = self.chunk * self.dtype.itemsize
+        if self.zstd:
+            raw = _zstd().decompress(raw, decompressed_size=nbytes, asbytes=True)
+        if len(raw) != nbytes:
+            raise ValueError(f"{p}: {len(raw)} bytes, expected {nbytes}")
+        return np.frombuffer(raw, self.dtype)
+
+
+    def read(self, lb: int = 0, ub: int | None = None) -> np.ndarray:
+        """Elements [lb, ub), decoding only the chunks that cover them, one
+        at a time into the output."""
+        lo, hi = int(lb), self.n if ub is None else min(int(ub), self.n)
+        out = np.empty(max(hi - lo, 0), self.dtype.newbyteorder("="))
+        for i in range(lo // self.chunk, -(-hi // self.chunk) if hi > lo else 0):
+            c0 = i * self.chunk
+            s0, s1 = max(lo, c0), min(hi, c0 + self.chunk)
+            out[s0 - lo : s1 - lo] = self.decode(i)[s0 - c0 : s1 - c0]
+        return out
 
 
 def write_zarr_group_metadata(path: str, attributes: dict | None = None, *, key: str = ""):
@@ -138,6 +239,14 @@ class SparseBackend(abc.ABC):
         return (self.num_rows, self.num_columns)
 
 
+def _take_columns(csc: sp.csc_matrix, columns) -> sp.csc_matrix:
+    cols = np.asarray(columns, dtype=np.int64)
+    if len(cols) and cols[-1] - cols[0] == len(cols) - 1 and np.all(np.diff(cols) == 1):
+        # a contiguous range slices the CSC arrays without a gather
+        return csc[:, int(cols[0]) : int(cols[-1]) + 1]
+    return csc[:, cols]
+
+
 class MemoryBackend(SparseBackend):
     """In-memory backend over a scipy CSC matrix."""
 
@@ -160,11 +269,7 @@ class MemoryBackend(SparseBackend):
         return int(self._csc.nnz)
 
     def read_columns_csc(self, columns):
-        cols = np.asarray(columns, dtype=np.int64)
-        if len(cols) and cols[-1] - cols[0] == len(cols) - 1 and np.all(np.diff(cols) == 1):
-            # a contiguous range slices the CSC arrays without a gather
-            return self._csc[:, int(cols[0]) : int(cols[-1]) + 1]
-        return self._csc[:, cols]
+        return _take_columns(self._csc, columns)
 
     def row_names(self):
         return self._row_names
@@ -292,25 +397,62 @@ class _CompressedFileBackend(SparseBackend):
 
 
 class ZarrBackend(_CompressedFileBackend):
-    """Zarr v3 directory store through tensorstore. Names are zarr v3
-    string arrays at `row_names` / `column_names` (written where pyarrow
-    provides zstd) with a `{key}.names.txt` mirror beside each; reading
+    """Zarr v3 directory store (this module's reader and writer; numpy
+    and pyarrow only). Names are zarr v3 string arrays at `row_names` /
+    `column_names` with a `{key}.names.txt` mirror beside each; reading
     takes the string array first, then the mirror."""
 
-    def _open(self, key: str, **create):
-        import tensorstore as ts
+    WHOLE_BYTES = 1 << 30  # a column array up to this size is decoded whole, once
 
-        return ts.open(_zarr3_spec(self.path, key, **create)).result()
+    def __init__(self, path: str):
+        import threading
+
+        super().__init__(path)
+        self._arrays: dict[str, _ZarrArray] = {}
+        self._csc: sp.csc_matrix | None = None
+        self._csc_lock = threading.Lock()
+
+    def _array(self, key: str) -> _ZarrArray:
+        arr = self._arrays.get(key)
+        if arr is None:
+            arr = self._arrays[key] = _ZarrArray(self.path, key)
+        return arr
 
     def _read_array(self, key, lb=0, ub=None):
-        store = self._open(key)
-        if ub is None:
-            return np.asarray(store[...].read().result())
-        return np.asarray(store[lb:ub].read().result())
+        return self._array(key).read(lb, ub)
+
+    def _whole_csc(self) -> sp.csc_matrix | None:
+        """The column arrays decoded whole (once), where each fits in
+        WHOLE_BYTES: column reads are then slices and gathers in memory."""
+        if self._csc is None:
+            arrays = [self._array(k) for k in ("by_column/data", "by_column/indices")]
+            if max(a.n * a.dtype.itemsize for a in arrays) > self.WHOLE_BYTES:
+                return None
+            with self._csc_lock:
+                if self._csc is None:
+                    data, indices = (a.read() for a in arrays)
+                    # uint64 row indices below 2^63: reinterpreted, not copied
+                    self._csc = sp.csc_matrix(
+                        (data.astype(np.float32, copy=False),
+                         indices.view(np.int64) if indices.dtype == np.uint64
+                         else indices.astype(np.int64, copy=False),
+                         self._column_indptr()), shape=(self.num_rows, self.num_columns))
+        return self._csc
+
+    def read_columns_csc(self, columns):
+        """Columns from the arrays decoded whole where they fit in
+        WHOLE_BYTES (scattered reads, such as the matched-neighbour
+        statistics', are then in-memory gathers); else one ranged read per
+        run of columns."""
+        whole = self._whole_csc()
+        if whole is not None:
+            return _take_columns(whole, columns)
+        return super().read_columns_csc(columns)
 
     def _write_array(self, key, arr, dtype):
-        arr = np.ascontiguousarray(arr)
-        self._open(key, shape=arr.shape, dtype=dtype, create=True)[...].write(arr).result()
+        write_zarr_array(self.path, key, arr, dtype)
+        self._arrays.pop(key, None)
+        self._csc = None
 
     def _read_name_list(self, key):
         from .zarr_strings import read_string_array
@@ -322,10 +464,9 @@ class ZarrBackend(_CompressedFileBackend):
         return p.read_text().rstrip("\n").split("\n") if p.exists() else None
 
     def _write_name_list(self, key, names):
-        if importlib.util.find_spec("pyarrow") is not None:
-            from .zarr_strings import write_string_array
+        from .zarr_strings import write_string_array
 
-            write_string_array(self.path, key, [str(n) for n in names])
+        write_string_array(self.path, key, [str(n) for n in names])
         _names_path(self.path, key).write_text("\n".join(str(n) for n in names) + "\n")
 
     def _write_shape_metadata(self, d, n, nnz):
@@ -350,8 +491,11 @@ class H5Backend(_CompressedFileBackend):
     writer falls back to gzip. The shape lives in root attributes."""
 
     def _file(self, mode="r"):
-        import h5py
-
+        try:
+            import h5py
+        except ImportError as e:
+            raise ImportError(f"{self.path}: .h5 stores need h5py, which is not installed "
+                              "(.zarr and .zarr.zip stores need only pyarrow)") from e
         return h5py.File(self.path, mode)
 
     @staticmethod

@@ -1,7 +1,8 @@
 """SparseIoVec: a vertical stack of backends presented as one
 (features x all-cells) matrix, with the batch registry the collapse
 layer needs (the port's copy of the JAX package's `data/vec.py`,
-without the multi-host helpers)."""
+without the multi-host helpers), and `read_data_on_shared_rows`, which
+stacks backends whose feature rows differ."""
 
 from __future__ import annotations
 
@@ -11,6 +12,43 @@ import numpy as np
 import scipy.sparse as sp
 
 from .sparse_io import SparseBackend
+
+
+def read_data_on_shared_rows(backends, *, mode: str = "union") -> "SparseIoVec":
+    """Stack backends whose feature rows differ, aligned on the union
+    (or, with `mode="intersection"`, the intersection) of row names
+    (`auxiliary-data/src/data_loading.rs:95` equivalent). Each backend
+    is read once into a row-remapped in-memory copy; features it lacks
+    read as zeros."""
+    from .sparse_io import MemoryBackend
+
+    all_names = [b.row_names() for b in backends]
+    if mode == "union":
+        shared: list[str] = []
+        seen = set()
+        for names in all_names:
+            for nm in names:
+                if nm not in seen:
+                    seen.add(nm)
+                    shared.append(nm)
+    else:
+        inter = set(all_names[0])
+        for names in all_names[1:]:
+            inter &= set(names)
+        shared = [nm for nm in all_names[0] if nm in inter]
+
+    pos = {nm: i for i, nm in enumerate(shared)}
+    vec = SparseIoVec()
+    for b, names in zip(backends, all_names):
+        coo = b.read_columns_csc(np.arange(b.num_columns)).tocoo()
+        row_map = np.asarray([pos.get(nm, -1) for nm in names], dtype=np.int64)
+        ok = row_map[coo.row] >= 0
+        remapped = sp.coo_matrix(
+            (coo.data[ok], (row_map[coo.row[ok]], coo.col[ok])),
+            shape=(len(shared), b.num_columns),
+        ).tocsc()
+        vec.push(MemoryBackend(remapped, shared, b.column_names()))
+    return vec
 
 
 class SparseIoVec:

@@ -33,6 +33,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.stop import stop_requested
 from .losses import smooth_topics
 
 
@@ -239,6 +240,10 @@ class MixedTrainer:
         self.encoder.train()
         done = 0
         while done < cfg.epochs:
+            if stop_requested():
+                # graceful SIGINT: stop at an epoch-chunk boundary, as the
+                # JAX trainer does, and let the caller write partial outputs
+                break
             chunk = min(cfg.epochs_per_call, cfg.epochs - done)
             sums = torch.zeros(chunk, 3, dtype=torch.float32, device=self.device)
             for level, (x, null, y, w) in enumerate(padded):

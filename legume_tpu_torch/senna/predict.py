@@ -320,7 +320,7 @@ def write_residual_backend(
     device="cuda",
 ) -> None:
     """`residual_csc` written to `args.residual_out` with the held-out
-    names (needs tensorstore for `.zarr`, h5py for `.h5`)."""
+    names (`.h5` needs h5py)."""
     from ..data.sparse_io import create_sparse_from_csc
 
     residual = residual_csc(

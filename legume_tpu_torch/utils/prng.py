@@ -171,18 +171,31 @@ def randint(k: np.ndarray, shape, minval: int, maxval: int) -> np.ndarray:
     return (np.int64(minval) + off.astype(np.int64)).astype(np.int32)
 
 
-def cumsum_f32(x: np.ndarray, base: int = 16) -> np.ndarray:
-    """float32 `jnp.cumsum` as XLA's CPU backend computes it: blocks of
-    `base` summed in order, each block offset by the exclusive prefix of
-    the block totals, which recurses the same way."""
-    x = np.asarray(x, np.float32)
-    n = len(x)
+def cumsum_rows_f32(x: torch.Tensor, base: int = 16) -> torch.Tensor:
+    """float32 `jnp.cumsum` along the last axis of [B, D], as XLA's CPU
+    backend computes it: blocks of `base` summed in order, each block
+    offset by the exclusive prefix of the block totals, which recurses
+    the same way. Elementwise adds only, so it rounds alike on any
+    device."""
+    b, n = x.shape
     if n <= base:
-        return np.cumsum(x, dtype=np.float32)
+        out = x.clone()
+        for j in range(1, n):
+            out[:, j] = out[:, j - 1] + x[:, j]
+        return out
     m = -(-n // base) * base
-    inner = np.cumsum(np.pad(x, (0, m - n)).reshape(-1, base), axis=1, dtype=np.float32)
-    ex = np.concatenate([np.zeros(1, np.float32), cumsum_f32(inner[:, -1], base)[:-1]])
-    return (inner + ex[:, None]).ravel()[:n]
+    inner = torch.nn.functional.pad(x, (0, m - n)).reshape(b, -1, base).clone()
+    for j in range(1, base):
+        inner[:, :, j] = inner[:, :, j - 1] + inner[:, :, j]
+    totals = cumsum_rows_f32(inner[:, :, -1].contiguous(), base)
+    ex = torch.cat([torch.zeros(b, 1, dtype=x.dtype, device=x.device), totals[:, :-1]], 1)
+    return (inner + ex[:, :, None]).reshape(b, m)[:, :n]
+
+
+def cumsum_f32(x: np.ndarray, base: int = 16) -> np.ndarray:
+    """`cumsum_rows_f32` of one numpy vector."""
+    t = torch.from_numpy(np.asarray(x, np.float32).reshape(1, -1))
+    return cumsum_rows_f32(t, base)[0].numpy()
 
 
 def choice(k: np.ndarray, p: np.ndarray, shape=()) -> np.ndarray:

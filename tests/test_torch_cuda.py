@@ -938,3 +938,97 @@ def test_vae_svd_and_masked_runs_on_the_card_match_the_cpu(dev, tmp_path):
         masked[str(d)] = run_masked(a, vec=_vec(sim.counts))
     np.testing.assert_allclose(masked["cuda"]["trace"], masked["cpu"]["trace"], rtol=1e-4)
     assert abs(masked["cuda"]["eval_loss"] - masked["cpu"]["eval_loss"]) <= 1e-4
+
+
+# ---- slice 11: fne's tied K4, deconvolve's archetype K3, the new commands ----
+
+
+def _sbm_plane(n, modules, seed):
+    """fne's plane and marginal for a stochastic-block graph of `n` genes."""
+    from legume_tpu_torch.senna.fne import fne_plane
+
+    rng = np.random.default_rng(seed)
+    module = np.arange(n) % modules
+    src = np.repeat(np.arange(n), 16)
+    dst = np.concatenate([rng.integers(0, n // modules, (n, 15)) * modules + module[:, None],
+                          rng.integers(0, n, (n, 1))], 1).ravel()
+    w = rng.integers(1, 4, len(src)).astype(float)
+    edges = [(f"g{a}", f"g{b}", c) for a, b, c in zip(src, dst, w) if a != b]
+    return edges, fne_plane(edges, 0.75)
+
+
+def test_nce_epoch_kernel_with_tied_weights_at_the_fne_plane(dev):
+    """fne's epoch at its CLI shape (10,000 genes, d = 32): K4's full form
+    with `e_axis = e_feat` and `b_axis = b_feat` against the plain version,
+    and the tied gradients against autograd of the fne loss."""
+    _, (_, plane, q) = _sbm_plane(10_000, 50, 3)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    c = torch.from_numpy(plane).to(dev)
+    qt = torch.from_numpy(q).to(dev)
+    e = (0.1 * torch.randn(len(plane), 32, generator=g)).to(dev)
+    b = torch.zeros(len(plane), device=dev)
+    m = c.sum(1)
+    got = kernels.nce_epoch(c, qt, e, b, e, b, m, 5.0)
+    want = kernels.nce_epoch_plain(c, qt, e, b, e, b, m, 5.0)
+    torch.cuda.synchronize()
+    _check_nce(got, want)
+    ev, bv = e.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    s = ev @ ev.T + bv[None, :] + bv[:, None]
+    ls = torch.nn.functional.logsigmoid
+    loss_sum = (c * ls(s)).sum() + (5.0 * m[:, None] * qt[None, :] * ls(-s)).sum()
+    loss_sum.backward()
+    ge, gb = got[1] + got[3], got[2] + got[4]
+    assert float((ge - ev.grad).abs().max()) <= 1e-4 * float(ev.grad.abs().max())
+    assert float((gb - bv.grad).abs().max()) <= 1e-4 * float(bv.grad.abs().max())
+
+
+@pytest.mark.parametrize("num_groups", [50, 200])
+def test_collapse_kernel_at_an_archetype_plane(dev, num_groups):
+    """deconvolve's per-community sums: a 2,048-cell block over 2,000 genes,
+    cells of dropped communities (-1, mapped past the groups) left out."""
+    blk, rng = _block(2000, 2048, 0.3, 5)
+    memb = rng.integers(-1, num_groups, blk.ncols)
+    seg = np.where(memb >= 0, memb, num_groups).astype(np.int32)
+    _check_collapse(dev, blk.row_ids, blk.col_ptr, blk.vals, seg, 2000, num_groups)
+
+
+def test_slice11_commands_on_the_card_match_the_cpu(dev, tmp_path):
+    """The Q-matrix equal, fne's embedding within 1e-4 after 50 epochs,
+    deconvolve's fractions within 0.03 (two generators' chains) and the
+    archetype reference's sums within 1e-5, card against CPU."""
+    from legume_tpu_torch.ops.enrichment import geneset_topic_qmatrix
+    from legume_tpu_torch.senna.deconvolve import (
+        DeconvConfig, build_archetype_reference, deconvolve)
+    from legume_tpu_torch.senna.fne import fit_fne
+
+    rng = np.random.default_rng(0)
+    genes = [f"g{i}" for i in range(400)]
+    log_beta = rng.normal(scale=0.3, size=(5, 400))
+    log_beta[0, :30] += 2.0
+    sets = {"A": genes[:30], "B": genes[100:140]}
+    qs = [geneset_topic_qmatrix(log_beta, genes, sets, n_perm=100, seed=2, device=d)
+          for d in (dev, "cpu")]
+    for key in ("es", "z", "pvalue", "q"):
+        np.testing.assert_array_equal(qs[0][key], qs[1][key])
+
+    edges, _ = _sbm_plane(400, 4, 9)
+    fs = [fit_fne(edges, epochs=50, seed=1, device=d) for d in (dev, "cpu")]
+    np.testing.assert_allclose(fs[0].embedding, fs[1].embedding, rtol=0, atol=1e-4)
+
+    mu = rng.gamma(0.3, 1.0, (300, 4)) * 5.0
+    for k in range(4):
+        mu[k * 60 : (k + 1) * 60, k] *= 10.0
+    lam = rng.dirichlet(np.ones(4), 4) @ mu.T
+    y = rng.poisson(lam / lam.sum(1, keepdims=True) * 50_000).astype(np.float32)
+    ds = [deconvolve(y, mu / mu.sum(0), config=DeconvConfig(n_sweeps=400, burn_in=150, seed=1),
+                     device=d) for d in (dev, "cpu")]
+    np.testing.assert_allclose(ds[0].fractions, ds[1].fractions, rtol=0, atol=0.03)
+
+    sim = simulate_topic(rows=200, cols=3000, factors=4, seed=4)
+    emb = (sim.theta + rng.normal(0, 0.02, sim.theta.shape)).astype(np.float32)
+    ann = np.asarray([f"t{k}" for k in sim.theta.argmax(1)], dtype=object)
+    refs = [build_archetype_reference(MemoryBackend(sim.counts, sim.row_names, sim.col_names),
+                                      emb, ann, n_archetypes=12, min_cells=5, device=d)
+            for d in (dev, "cpu")]
+    np.testing.assert_array_equal(refs[0].membership, refs[1].membership)
+    np.testing.assert_allclose(refs[0].mu_gm, refs[1].mu_gm, rtol=1e-5, atol=1e-5)
