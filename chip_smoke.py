@@ -101,10 +101,11 @@ Phases (any failure exits non-zero; nothing is caught):
    read just after): (a) `--multiome --skip-etm` on `simulate_multiome`
    (50,000 cells, 2,000 genes + 4,000 peaks, seed 13; K1, K3 and K4
    required, D = 6,000 checked; K4 held against its plain version at the
-   run's phase-1 plane and first phase-2 block); (b) `--posterior 45 --skip-etm` on
-   phase 5's cells (pip in [0, 1], pip and rhat finite); (c) `pb_gibbs`
-   at the NCE anchor from phase 6's f32 fit, 45 sweeps after 11 of
-   burn-in, with seconds a sweep and the ESS shrink iterations; (d)
+   run's phase-1 plane and first phase-2 block); (b) `--posterior 12 --skip-etm` on
+   phase 5's cells (12 sweeps after 3 of burn-in; pip in [0, 1], pip and
+   rhat finite); (c) `pb_gibbs` at the NCE anchor from phase 6's f32 fit,
+   12 sweeps after 3 of burn-in, with seconds a sweep and the ESS shrink
+   iterations; (d)
    `fit_bge` with `gene_chunk=512` on phase 5's plane, its ten phase-1
    losses within a relative 1e-4 of the dense run and no K4 launch;
 14. `senna rest --from` phase 2's topic run (100,000 x 2,000, 400
@@ -184,9 +185,44 @@ Phases (any failure exits non-zero; nothing is caught):
 27. on small inputs the card against the CPU: the Q-matrix and a
    permutation p-value equal, fne's embedding within 1e-4 after 50
    epochs, deconvolve's fractions within 0.03, a block read from x.zarr
-   equal to the matrix and its K1 projection within K1's bar;
-28. print the script's total seconds, one JSON line of all kernels, then
+   equal to the matrix and its K1 projection within K1's bar, QC on
+   4,000 cells (statistics within 1e-6, masks equal);
+28. `data-beans-sim topic` through the port's CLI with phase 2's
+   arguments and seed, in a process of its own started before phase 21
+   (its host-bound simulation overlaps phases 21-27): its store
+   byte-equal to phase 21's x.zarr, its batch and prop files written;
+   simulate and write seconds;
+29. `data-beans` on x.zarr: `info`, `stat`, `list-zarr`, `qc
+   --feature-min-cells 10 --report` on the card and with `--device cpu`
+   (keep masks equal, totals within 1e-6), `histogram`, `subsample
+   --cells 20000 --seed 7`, `subset` (5,000 cells, 500 genes),
+   `take-columns` / `take-rows` (100 names each), `sort-rows`,
+   `reorder`, `squeeze`, `convert` to `.zarr.zip` and back (byte-equal
+   to x.zarr), `merge-backend` of the two halves (equal to the whole) and
+   `align` of two stores on overlapping gene sets, each held against
+   scipy on phase 2's matrix, with each command's seconds;
+30. ingestion: `to-mtx` of phase 29's 20,000 cells, `from-mtx` and
+   `from-mtx --streaming` (byte-equal to the source; the native parser
+   required), `merge-mtx`, `from-triplets` (2,000 cells' transcripts),
+   `from-zarr` (a Xenium-layout zarr v2 zlib store of the 20,000 cells),
+   `from-fragments` (1M fragments over 2,000 cells, to tiles, against a
+   direct count), `data-beans-sim multimodal`, `multiome`, `faba`,
+   `bulk` (phase 2's top topic as labels) and `topic --reference` (phase
+   29's 5,000 x 500 subset); the h5py commands skipped where h5py does
+   not import, and said so;
+31. `cocoa diff --gff` on phase 15's cells with a GFF of `truth.tsv`'s
+   positions and phase 15's match cache: gene order and CNV states equal
+   to the `--cnv-ground-truth` run's, cn_score within 1e-3, K1 launched
+   as often; `senna
+   plot-strand` where matplotlib imports, else skipped and said;
+32. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
+
+The simulations of phases 8, 13a, 15 and 19 run in a pool of four
+processes started after phase 4, and phase 28 in a process started before
+phase 21, so the host makes their cells while the card runs the phases
+before them; each takes the same function, arguments and seed it would
+call itself.
 
 Every kernel check launches the kernel twice on the same inputs and
 fails unless the two results are bit-equal (`deterministic`). Times are
@@ -234,6 +270,9 @@ RTOL_K4_LOSS, RTOL_K4_GRAD = 2e-5, 1e-4
 F64_FACTOR_K4 = 2.0
 # bf16 against f32 final loss at the anchor (tests/test_nce_pallas.py)
 RTOL_BF16_LOSS = 1e-2
+# phases 13b and 13c: the posterior chains' depth (`--posterior N` burns
+# in N // 4 sweeps first); each reports its seconds a sweep
+POSTERIOR_SWEEPS, POSTERIOR_BURNIN = 12, 3
 
 # Run in a fresh process: splits `MixedTrainer`'s construction at the e2e
 # shapes into CUDA start-up, moving the modules to the card, the
@@ -259,6 +298,35 @@ for i in (1, 2):
     s[f"adamw_{i}_s"] = time.time() - t
 print(json.dumps({"phase": "train_setup_split", **s}))
 """
+
+# Phase 28 in a process of its own, started before phase 21 so that its
+# host-bound simulation overlaps the card's phases 21-27: `data-beans-sim`
+# through the port's CLI entry (`run_sim`), its write timed apart.
+SIM_CLI = r"""
+import json, sys, time
+from legume_tpu_torch.cli.main import run_sim
+from legume_tpu_torch.data import sim as S
+from legume_tpu_torch.ops import kernels as K
+w, write_topic_sim = {}, S.write_topic_sim
+def timed(sim, output):
+    t = time.time(); path = write_topic_sim(sim, output); w["s"] = time.time() - t
+    return path
+S.write_topic_sim = timed
+t = time.time(); run_sim(sys.argv[1:]); run_s = time.time() - t
+print(json.dumps({"run_s": run_s, "write_s": w["s"], "launches": dict(K.launch_counts)}))
+"""
+# A port CLI command in a process of its own (`_cli_chains`), as `python -m
+# legume_tpu_torch` runs it, then the launch counts of the kernels it ran
+# as the last line of its standard output.
+CLI_COUNTED = r"""
+import json, sys
+from legume_tpu_torch.cli.main import main
+from legume_tpu_torch.ops import kernels as K
+rc = main(sys.argv[1:])
+print(json.dumps(dict(K.launch_counts)))
+sys.exit(rc)
+"""
+CHILDREN: list = []  # processes the script starts; main() stops any still running
 
 
 def device_line() -> str:
@@ -496,11 +564,11 @@ def same_partition(a, b) -> bool:
     return len(pairs) == len(np.unique(a)) == len(np.unique(b))
 
 
-def held_out_vec(sim_rows, seed: int):
+def held_out_parts(sim_rows, seed: int):
     """100,000 cells of another simulation over 2,100 genes: the first
     2,000 take the training names (5% renamed `ENSG..._<NAME>`), 100 are
-    not in the model, and the gene order is permuted."""
-    from legume_tpu_torch.data import MemoryBackend, SparseIoVec
+    not in the model, and the gene order is permuted. Returns (counts,
+    gene names, cell names, batches)."""
     from legume_tpu_torch.data.sim import simulate_topic
 
     held = simulate_topic(rows=2100, cols=100_000, factors=8, batches=2, seed=seed)
@@ -509,10 +577,89 @@ def held_out_vec(sim_rows, seed: int):
     for i in rng.choice(2000, 100, replace=False):
         names[i] = f"ENSG{i:011d}_{names[i].upper()}"
     perm = rng.permutation(2100)
+    return (held.counts.tocsr()[perm].tocsc(), [names[i] for i in perm], held.col_names,
+            held.batch)
+
+
+def held_out_vec(sim_rows, seed: int):
+    from legume_tpu_torch.data import MemoryBackend, SparseIoVec
+
+    counts, rows, cols, batch = prefetched("held_out", held_out_parts, sim_rows, seed)
     vec = SparseIoVec()
-    vec.push(MemoryBackend(held.counts.tocsr()[perm].tocsc(), [names[i] for i in perm],
-                           held.col_names))
-    return vec, held.batch
+    vec.push(MemoryBackend(counts, rows, cols))
+    return vec, batch
+
+
+def collider_cohort():
+    """Phase 15's cohort: `simulate_collider` at 40 individuals x 2,500
+    cells, 2,000 genes, 3 types, with a 2.2x amplified block of 100
+    genes in 6 of the 40 individuals. Returns (sim, counts CSC)."""
+    import scipy.sparse as sp
+
+    from legume_tpu_torch.cocoa.sim import simulate_collider
+
+    sim = simulate_collider(n_genes=2000, n_types=3, n_indv=40, cells_per_indv=2500, seed=15)
+    y = sim.counts.toarray()
+    carriers = np.isin(sim.cell_indv, np.arange(6))
+    blk = y[600:700][:, carriers]
+    y[600:700, carriers] = blk + np.random.default_rng(15).poisson(1.2 * blk)
+    return sim, sp.csc_matrix(y)
+
+
+# ---- the simulations of later phases, made on the host beside phases 5-14 --
+# Each is the function a phase would call, run with the same arguments in
+# a process of its own (four at a time, two BLAS threads each) from the end
+# of phase 4 on; a phase takes its result with `prefetched`, or makes it
+# itself where nothing was started. Such a phase reports `simulate_wait_s`,
+# the time it waited. The card's phases 5-14 run beside these processes, so
+# their host-side seconds are taken under that contention; the overlap is
+# kept because without it the script took 1,166 s (H100 80GB HBM3, 700 W),
+# near its 1,200 s limit.
+
+PREFETCH: dict = {}  # name -> Future
+POOL: list = []
+
+
+def start_prefetch(sim_rows):
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import os
+
+    from legume_tpu_torch.data.sim import simulate_multiome, simulate_topic
+
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                            "MKL_NUM_THREADS")}
+    os.environ.update({k: "2" for k in saved})
+    try:
+        pool = cf.ProcessPoolExecutor(max_workers=4, mp_context=mp.get_context("spawn"))
+        POOL.append(pool)
+        PREFETCH["held_out"] = pool.submit(held_out_parts, list(sim_rows), 43)
+        PREFETCH["collider"] = pool.submit(collider_cohort)
+        PREFETCH["multiome"] = pool.submit(simulate_multiome, genes=2000, peaks=4000,
+                                           cols=50_000, seed=13)
+        PREFETCH["delta"] = pool.submit(simulate_topic, rows=2000, cols=50_000, factors=8,
+                                         batches=1, seed=19)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def prefetched(name: str, fn, *args, **kwargs):
+    """`fn(*args, **kwargs)`, from the prefetch pool where it was started."""
+    fut = PREFETCH.pop(name, None)
+    return fut.result() if fut is not None else fn(*args, **kwargs)
+
+
+def stop_children():
+    for pool in POOL:  # a simulation already started runs to its end
+        pool.shutdown(wait=True, cancel_futures=True)
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def layout_phase(work: str, zp: np.ndarray, topic_out: str, K, dev, card: str) -> dict:
@@ -884,7 +1031,7 @@ def bge_options_phase(work: str, bvec, bres, acounts, a32, K, dev, card: str, ch
     out = {}
     # ---- 13a: --multiome on 50,000 cells x (2,000 genes + 4,000 peaks)
     t0 = time.time()
-    ms = simulate_multiome(genes=2000, peaks=4000, cols=50_000, seed=13)
+    ms = prefetched("multiome", simulate_multiome, genes=2000, peaks=4000, cols=50_000, seed=13)
     (n_genes, n_cells), n_peaks = ms.rna.shape, ms.atac.shape[0]
     cells = [f"cell{j}" for j in range(n_cells)]
     rna = MemoryBackend(ms.rna, [f"g{i}" for i in range(n_genes)], cells)
@@ -901,7 +1048,7 @@ def bge_options_phase(work: str, bvec, bres, acounts, a32, K, dev, card: str, ch
     fe, lat = mres["feature_embedding"], mres["latent"]
     print(json.dumps({
         "phase": "bge_multiome", "cells": n_cells, "genes": n_genes, "peaks": n_peaks,
-        "d": int(fe.shape[0]), "nnz": int(ms.rna.nnz + ms.atac.nnz), "simulate_s": sim_s,
+        "d": int(fe.shape[0]), "nnz": int(ms.rna.nnz + ms.atac.nnz), "simulate_wait_s": sim_s,
         "run_s": run_s, **mres["timings"], "launches": out["multiome"],
         "groups": mres["num_groups"], "phase1_losses": mres["phase1_losses"],
         "peak_device_bytes": torch.cuda.max_memory_allocated(), "card": card,
@@ -939,8 +1086,8 @@ def bge_options_phase(work: str, bvec, bres, acounts, a32, K, dev, card: str, ch
     keep["multiome"] = (rna, atac)
     del ms, mres, mvec, x, pb_t
 
-    # ---- 13b: --posterior 45 on phase 5's cells
-    pargs = BgeArgs(posterior=45, skip_etm=True, out=f"{work}/bge_post")
+    # ---- 13b: --posterior 12 on phase 5's cells (12 sweeps after 3 burn-in)
+    pargs = BgeArgs(posterior=POSTERIOR_SWEEPS, skip_etm=True, out=f"{work}/bge_post")
     K.reset_launch_counts()
     t0 = time.time()
     pres = run_bge(pargs, vec=bvec, device=dev)
@@ -949,7 +1096,7 @@ def bge_options_phase(work: str, bvec, bres, acounts, a32, K, dev, card: str, ch
     post = pres["posterior"]
     print(json.dumps({
         "phase": "bge_posterior", "cells": bvec.num_columns, "pb": list(pres["pb"].shape),
-        "sweeps": 45, "burnin": 11, "run_s": time.time() - t0,
+        "sweeps": POSTERIOR_SWEEPS, "burnin": POSTERIOR_BURNIN, "run_s": time.time() - t0,
         "posterior_s": pres["timings"]["posterior_s"], "launches": out["posterior"],
         "pip_mean": float(post.pip.mean()), "rhat_max": float(post.rhat.max()), "card": card,
     }), flush=True)
@@ -961,12 +1108,14 @@ def bge_options_phase(work: str, bvec, bres, acounts, a32, K, dev, card: str, ch
     stats: dict = {}
     t0 = time.time()
     apost = pb_gibbs(acounts, a32.e_feat, a32.b_feat, a32.pb_embeddings[0],
-                     np.zeros(acounts.shape[0]), n_sweeps=45, burnin=11, device=dev, stats=stats)
+                     np.zeros(acounts.shape[0]), n_sweeps=POSTERIOR_SWEEPS, burnin=POSTERIOR_BURNIN,
+                     device=dev, stats=stats)
     torch.cuda.synchronize()
     gibbs_s = time.time() - t0
     print(json.dumps({
         "phase": "pb_gibbs_anchor", "rows": acounts.shape[0], "genes": acounts.shape[1], "h": 16,
-        "sweeps": 45, "burnin": 11, "seconds": gibbs_s, "seconds_per_sweep": gibbs_s / 56,
+        "sweeps": POSTERIOR_SWEEPS, "burnin": POSTERIOR_BURNIN, "seconds": gibbs_s,
+        "seconds_per_sweep": gibbs_s / (POSTERIOR_SWEEPS + POSTERIOR_BURNIN),
         "ess_steps": stats["ess_steps"], "ess_shrink_iters": stats["ess_iters"],
         "ess_iters_per_step": stats["ess_iters"] / stats["ess_steps"],
         "pip_mean": float(apost.pip.mean()), "rhat_median": float(np.median(apost.rhat)),
@@ -1039,30 +1188,23 @@ def _write_lines(path: str, lines) -> str:
     return path
 
 
-def cocoa_phase(work: str, K, dev, card: str, checks: dict) -> dict:
+def cocoa_phase(work: str, K, dev, card: str, checks: dict, keep: dict) -> dict:
     """Phase 15: `cocoa simulate-collider` data at 40 individuals x 2,500
     cells, 2,000 genes, 3 types, with a 2.2x amplified block of 100 genes
     in 6 of the 40 individuals; `cocoa diff` at the CLI defaults with the
     types as topics, 12 permutations and the CNV side-channel; `cocoa
     collapse`; K1 and K3 held against their plain versions at the first
     block each run gives them (rows added to `checks`); and on a
-    4,000-cell subset the card against the CPU."""
+    4,000-cell subset the card against the CPU. The cells, the first
+    diff's result and its launches stay in `keep["cocoa"]` for phase 31."""
     from legume_tpu_torch.cli.main import run_cocoa
     from legume_tpu_torch.cocoa.diff import CocoaDiffArgs
-    from legume_tpu_torch.cocoa.sim import simulate_collider
     from legume_tpu_torch.data import MemoryBackend, SparseIoVec
     from legume_tpu_torch.data.visitors import visit_columns_by_block
     from legume_tpu_torch.ops.random_projection import block_to_device, projection_basis
-    import scipy.sparse as sp
 
     t0 = time.time()
-    sim = simulate_collider(n_genes=2000, n_types=3, n_indv=40, cells_per_indv=2500, seed=15)
-    y = sim.counts.toarray()
-    carriers = np.isin(sim.cell_indv, np.arange(6))
-    blk = y[600:700][:, carriers]
-    y[600:700, carriers] = blk + np.random.default_rng(15).poisson(1.2 * blk)
-    counts = sp.csc_matrix(y)
-    del y, blk
+    sim, counts = prefetched("collider", collider_cohort)
     n = counts.shape[1]
     genes = [f"g{i}" for i in range(2000)]
     sim_s = time.time() - t0
@@ -1097,6 +1239,7 @@ def cocoa_phase(work: str, K, dev, card: str, checks: dict) -> dict:
     torch.cuda.synchronize()
     diff_s = time.time() - t0
     out = {"diff": _launched(K, ("project_normed",), "cocoa diff")}
+    keep["cocoa"] = {"vec": cvec, "res": res, "stem": f"{work}/collider", "launches": out["diff"]}
     cn = res["cnv"]
     car_cols = [i for i, nm in enumerate(cn.sample_names) if int(nm[1:5]) < 6]
     oth_cols = [i for i in range(len(cn.sample_names)) if i not in car_cols]
@@ -1106,7 +1249,7 @@ def cocoa_phase(work: str, K, dev, card: str, checks: dict) -> dict:
     causal = sim.causal_genes
     print(json.dumps({
         "phase": "cocoa_diff", "cells": n, "genes": 2000, "individuals": 40, "topics": 3,
-        "permutations": 12, "knn": 10, "pb_samples": 10, "proj_dim": 30, "simulate_s": sim_s,
+        "permutations": 12, "knn": 10, "pb_samples": 10, "proj_dim": 30, "simulate_wait_s": sim_s,
         "run_s": diff_s, "timings": res["timings"], "launches": out["diff"],
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "causal_abs_effect": float(np.abs(eff[causal]).mean()),
@@ -1495,7 +1638,8 @@ def joint_topic_phase(work: str, multiome, K, dev, card: str) -> dict:
     out, runs = {}, {}
     rna, _ = multiome
     t0 = time.time()
-    second = simulate_topic(rows=rna.num_rows, cols=rna.num_columns, factors=8, batches=1, seed=19)
+    second = prefetched("delta", simulate_topic, rows=rna.num_rows, cols=rna.num_columns,
+                        factors=8, batches=1, seed=19)
     sim_s = time.time() - t0
     pairs = {"joint_topic": list(multiome),
              "joint_topic_delta": [rna, MemoryBackend(second.counts)]}
@@ -1511,7 +1655,7 @@ def joint_topic_phase(work: str, multiome, K, dev, card: str) -> dict:
         llik = np.asarray(res["scores"].llik)
         _run_line(name, res["timings"], t0, out[name], card, cells=mods[0].num_columns,
                   features=[m.num_rows for m in mods], pseudobulks=int(res["pb_latent"].shape[0]),
-                  llik=llik.tolist(), **({"simulate_s": sim_s} if name.endswith("delta") else {}))
+                  llik=llik.tolist(), **({"simulate_wait_s": sim_s} if name.endswith("delta") else {}))
         if not (np.isfinite(llik).all() and llik[-1] > llik[0]
                 and np.isfinite(res["pb_latent"]).all()):
             raise AssertionError(f"{name}: llik not finite or not rising, or latent not finite")
@@ -1536,10 +1680,70 @@ def _masked_argv(name: str, out: str, dev, *extra) -> list:
             *extra]
 
 
-def masked_phase(work: str, vec, hvec, K, dev, card: str) -> dict:
+def masked_gather_checks(K, res, dev, card: str, gathers: int, checks: dict):
+    """K3 at the shapes of the masked-topic gathers' backward (phase 20's
+    largest K3 caller): one training step of a copy of the trained model
+    on its first minibatch, a pre-hook on each gather's backward node
+    keeping the gradient it receives; each gather's group sum (a column
+    for each window slot, the gradient's width as genes, the table's rows
+    as groups, as `_RowGather.backward` forms it) held against its plain
+    version and `index_add_`. `gathers` is the run's gather launches, one
+    a step for each of the two tables."""
+    from legume_tpu_torch.models import indexed as I
+
+    model = copy.deepcopy(res["model"]).train()
+    data, mb = res["data"], 256
+    cfg = I.MaskedTrainConfig(minibatch=mb, null_plane=res["null_plane"],
+                              null_membership=res["null_membership"])
+    batch = I._Batcher(data, cfg, dev)
+    ids_b = torch.from_numpy(data.ids[:mb]).to(dev)
+    vals_b = torch.from_numpy(data.vals[:mb]).to(dev)
+    rng = np.random.default_rng(20)
+    mask = torch.from_numpy(rng.random(ids_b.shape) < 0.15).to(dev) & (vals_b > 0)
+    eps = torch.from_numpy(rng.standard_normal((mb, model.n_topics)).astype(np.float32)).to(dev)
+    union, lq, valid, null_b = batch(ids_b, batch.memb[:mb])
+    loss, _ = model(ids_b, vals_b, union, lq, valid, mask, train=True, eps=eps, null_vals=null_b)
+    nodes, todo, seen = [], [loss.grad_fn], set()
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if fn.name().startswith("_RowGather"):
+            nodes.append(fn)
+        todo.extend(nxt for nxt, _ in fn.next_functions)
+    got = []
+    for node in nodes:
+        (ids,) = node.saved_tensors
+        node.register_prehook(lambda grads, node=node, ids=ids:
+                              got.append((node.rows, ids, grads[0].detach().clone())))
+    loss.mean().backward()
+    torch.cuda.synchronize()
+    if sorted(g.numel() // i.numel() for _, i, g in got) != [1, model.rho.shape[1]]:
+        raise AssertionError(f"masked step: gathers of widths "
+                             f"{[g.numel() // i.numel() for _, i, g in got]}, expected log phi's "
+                             f"and rho's")
+    for rows, ids, grad in got:
+        m = ids.numel()
+        h = grad.numel() // m
+        g = grad.reshape(m, h).to(torch.float32).contiguous().reshape(-1)
+        col_ptr = torch.arange(0, (m + 1) * h, h, dtype=torch.int32, device=dev)
+        row_ids = torch.arange(h, dtype=torch.int32, device=dev).repeat(m)
+        shape = "masked_gather_rho" if h > 1 else "masked_gather_log_phi"
+        row = check_collapse(K, row_ids, col_ptr, g, ids.reshape(-1).to(torch.int32),
+                             num_genes=h, num_groups=rows, shape=shape)
+        row["launches_in_e2e"] = gathers // 2
+        row["path"] = "masked_topic"
+        print(json.dumps({"kernel_check": "collapse", "card": card, **row}), flush=True)
+        checks["collapse"].append(row)
+
+
+def masked_phase(work: str, vec, hvec, K, dev, card: str, checks: dict) -> dict:
     """Phase 20: `masked-topic` at its defaults (5 epochs) on phase 2's
     cells with `--batch-files` (its null stream's collapse takes K1 and
-    K3) and `--eval-mask-fraction 0.1`; `masked-vae` and `masked-sbp
+    K3, its gathers' backward K3 twice a step, held at those shapes by
+    `masked_gather_checks`) and `--eval-mask-fraction 0.1`; `masked-vae`
+    and `masked-sbp
     --gene-modules 8` on 20,000 of them; `senna predict` with the
     masked-vae model on phase 8's held-out cells (and the batch-null
     model refused, as the JAX package's predict fails on it); on 4,000
@@ -1576,6 +1780,11 @@ def masked_phase(work: str, vec, hvec, K, dev, card: str) -> dict:
         runs[name] = res
     if runs["masked_topic"]["eval_loss"] is None or not np.isfinite(runs["masked_topic"]["eval_loss"]):
         raise AssertionError("masked-topic: no finite held-out eval loss")
+    steps = 5 * (vec.num_columns // 256)
+    gathers = out["masked_topic"]["collapse_gather"]
+    if gathers != 2 * steps:
+        raise AssertionError(f"masked-topic: {gathers} K3 gather launches, expected {2 * steps}")
+    masked_gather_checks(K, runs["masked_topic"], dev, card, gathers, checks)
 
     K.reset_launch_counts()
     t0 = time.time()
@@ -2028,8 +2237,9 @@ def slice11_card_vs_cpu(work: str, sim, topic_out: str, store: str, dev, card: s
     """Phase 27 on small inputs, the card against the CPU: the Q-matrix
     and a permutation p-value equal, fne's embedding within 1e-4 after 50
     epochs, deconvolve's fractions within 0.03 (chains of two generators),
-    and a block read from x.zarr equal to the matrix with its K1
-    projection within K1's bar of the CPU's."""
+    a block read from x.zarr equal to the matrix with its K1 projection
+    within K1's bar of the CPU's, and QC on 4,000 cells (statistics
+    within 1e-6, keep masks equal)."""
     from legume_tpu_torch.data.sparse_io import open_sparse_matrix
     from legume_tpu_torch.ops import kernels as K
     from legume_tpu_torch.ops.enrichment import geneset_topic_qmatrix, gsea_permutation_pvalue
@@ -2079,11 +2289,563 @@ def slice11_card_vs_cpu(work: str, sim, topic_out: str, store: str, dev, card: s
         proj[d] = K.project(torch.from_numpy(basis).to(d), rows, ptr, vals, normed=True).cpu()
     scale = float(proj["cpu"].abs().max())
     rep["store_block_k1_rel_err"] = float((proj[dev] - proj["cpu"]).abs().max()) / scale
+    rep.update(qc_card_vs_cpu(store, dev))
     print(json.dumps({"phase": "slice11_card_vs_cpu", **rep, "card": card}), flush=True)
     if not (rep["qmatrix_equal"] and rep["gsea_equal"] and rep["fne_embedding_max_abs_err"] <= 1e-4
             and rep["deconvolve_fraction_max_abs_err"] <= 0.03 and rep["store_block_equal"]
-            and rep["store_block_k1_rel_err"] <= RTOL_K1):
+            and rep["store_block_k1_rel_err"] <= RTOL_K1 and rep["qc_stat_rel_err"] <= 1e-6
+            and rep["qc_masks_equal"]):
         raise AssertionError(f"slice 11 on the card vs the CPU: {rep}")
+
+
+# ---- phases 28-31: data-beans, data-beans-sim, ingestion, GFF ---------------
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _cli(run, argv) -> tuple[str, float]:
+    """(standard output, seconds) of one CLI call."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        run(argv)
+    return buf.getvalue(), time.time() - t0
+
+
+def _same_files(a: str, b: str) -> bool:
+    """Two store directories hold the same files, byte for byte."""
+    fa = sorted(p.relative_to(a) for p in Path(a).rglob("*") if p.is_file())
+    fb = sorted(p.relative_to(b) for p in Path(b).rglob("*") if p.is_file())
+    return fa == fb and all((Path(a) / f).read_bytes() == (Path(b) / f).read_bytes() for f in fa)
+
+
+def _decodes_to(path: str, want, rows=None, cols=None) -> bool:
+    """The store at `path` holds `want` (scipy) with these row / column names."""
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+
+    b = open_sparse_matrix(path)
+    got = b.read_columns_csc(np.arange(b.num_columns))
+    ok = got.shape == want.shape and (got != want).nnz == 0
+    if rows is not None:
+        ok = ok and b.row_names() == list(rows)
+    if cols is not None:
+        ok = ok and b.column_names() == list(cols)
+    return bool(ok)
+
+
+def start_beans_sim(work: str, sim, *, factors: int = 8, batches: int = 2, seed: int = 42):
+    """Start phase 28's `data-beans-sim topic` with phase 2's arguments and
+    seed in a process of its own (`SIM_CLI`)."""
+    d, n = sim.counts.shape
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SIM_CLI, "topic", "--rows", str(d), "--cols", str(n), "--factors",
+         str(factors), "--batches", str(batches), "--seed", str(seed), "--output",
+         f"{work}/beans_sim"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent)
+    CHILDREN.append(proc)
+    return proc, time.time()
+
+
+def beans_sim_phase(work: str, sim, store: str, started, card: str, *, factors: int = 8) -> dict:
+    """Phase 28: `data-beans-sim topic` through the port's CLI with phase
+    2's arguments and seed (started by `start_beans_sim`): its store
+    byte-equal to phase 21's x.zarr (so it decodes equal), its batch and
+    prop files written."""
+    from legume_tpu_torch.utils.output import read_table, table_path
+
+    proc, t_start = started
+    out_text, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"data-beans-sim topic failed: {err[-2000:]}")
+    line = json.loads(out_text.strip().splitlines()[-1])
+    waited_s = time.time() - t_start
+    out = f"{work}/beans_sim"
+    same = _same_files(f"{out}.zarr", store)
+    batch = np.loadtxt(f"{out}.batch.gz", dtype=np.int64)
+    prop = read_table(table_path(f"{out}.prop"))
+    d, n = sim.counts.shape
+    print(json.dumps({
+        "phase": "data_beans_sim_topic", "cells": n, "genes": d, "run_s": line["run_s"],
+        "simulate_s": line["run_s"] - line["write_s"], "write_s": line["write_s"],
+        "since_start_s": waited_s, "store_bytes": _store_bytes(f"{out}.zarr"),
+        "store_equals_phase21_x_zarr": same, "batch_equal": bool(np.array_equal(batch, sim.batch)),
+        "prop_columns": len(prop), "launches": line["launches"], "card": card,
+    }), flush=True)
+    if not same or not np.array_equal(batch, sim.batch) or len(prop) != factors + 1:
+        raise AssertionError("data-beans-sim topic: store, batch or prop unlike phase 2's")
+    return {"data_beans_sim_topic": line["launches"]}
+
+
+def _add_counts(total: dict, counts: dict) -> dict:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def _cli_chains(chains: dict, workers: int = 4) -> tuple[dict, float, dict]:
+    """Chains of port CLI commands (`CLI_COUNTED`, each in a process of its
+    own): the chains side by side, at most `workers` at a time, each
+    chain's commands in order. Returns (each command's seconds, the wall
+    seconds of them all, the kernel launches the commands reported, summed);
+    a failed command raises with the end of its standard error."""
+    import concurrent.futures as cf
+    import threading
+
+    secs: dict = {}
+    launches: dict = {}
+    lock = threading.Lock()
+    root = Path(__file__).resolve().parent
+
+    def chain(steps):
+        for name, argv in steps:
+            t0 = time.time()
+            p = subprocess.run([sys.executable, "-c", CLI_COUNTED, *argv],
+                               capture_output=True, text=True, cwd=root)
+            secs[name] = time.time() - t0
+            if p.returncode != 0:
+                raise AssertionError(f"{' '.join(argv[:2])} failed: {p.stderr[-1500:]}")
+            with lock:
+                _add_counts(launches, json.loads(p.stdout.strip().splitlines()[-1]))
+
+    t0 = time.time()
+    with cf.ThreadPoolExecutor(workers) as ex:
+        for fut in [ex.submit(chain, steps) for steps in chains.values()]:
+            fut.result()
+    return secs, time.time() - t0, launches
+
+
+def beans_phase(work: str, sim, store: str, K, dev, card: str, *, sub_cells: int = 20_000,
+                subset_cells: int = 5000, subset_genes: int = 500, take: int = 100) -> dict:
+    """Phase 29: `data-beans` on x.zarr through the port's CLI, each output
+    held against scipy on phase 2's matrix in memory; `qc` on the card
+    against a `--device cpu` run (keep masks equal, totals within 1e-6
+    relative). The commands on the card (`qc`, `histogram`) and the
+    printing ones run in this process; the ones that write stores run as
+    port CLI processes (`CLI_COUNTED`), four at a time, phase 30's
+    `to-mtx` of the subsample among them. Returns the launches of every
+    command, those of the processes as each reported them."""
+    import pandas as pd
+
+    from legume_tpu_torch.cli.main import run_beans
+
+    X = sim.counts.tocsc()
+    d, n = X.shape
+    genes, cells = list(sim.row_names), list(sim.col_names)
+    secs, checks = {}, {}
+    rng = np.random.default_rng(29)
+    K.reset_launch_counts()
+
+    def cmd(name, argv):
+        text, secs[name] = _cli(run_beans, argv)
+        return text
+
+    text = cmd("info", ["info", store])
+    checks["info"] = text.split() == ["rows:", str(d), "cols:", str(n), "nnz:", str(X.nnz)]
+    st = json.loads(cmd("stat", ["stat", store]))
+    checks["stat"] = (st["nnz"] == X.nnz and abs(st["total"] - float(X.sum())) <= 1e-6 * st["total"]
+                      and st["zero_rows"] == int((np.asarray(X.sum(1)).ravel() == 0).sum()))
+    lz = cmd("list_zarr", ["list-zarr", store]).splitlines()
+    checks["list_zarr"] = f"/by_column/data  [array {X.nnz} float32]" in lz
+    qc = {}
+    for name, device in (("qc_card", str(dev)), ("qc_cpu", "cpu")):
+        cmd(name, ["qc", store, "--output", f"{work}/{name}", "--feature-min-cells", "10",
+                   "--report", "--device", device])
+        qc[name] = pd.read_parquet(f"{work}/{name}.qc.parquet")
+    g, c = qc["qc_card"], qc["qc_cpu"]
+    tot = np.asarray(X.sum(0)).ravel()
+    qc_rel = float(np.max(np.abs(g.total.to_numpy() - c.total.to_numpy()) / np.maximum(c.total, 1)))
+    checks["qc"] = (bool(np.array_equal(g.keep, c.keep)) and qc_rel <= 1e-6
+                    and bool(np.allclose(g.total, tot, rtol=1e-6, atol=0))
+                    and Path(f"{work}/qc_card.qc.features.parquet").exists()
+                    and Path(f"{work}/qc_card.qc.report.json").exists())
+    hist = cmd("histogram", ["histogram", store, "--device", str(dev)])
+    checks["histogram"] = f"median total: {np.median(tot):.0f}" in hist
+    launches = dict(K.launch_counts)
+
+    # the name files the store-writing commands take
+    sc = np.sort(rng.choice(n, subset_cells, replace=False))
+    sg = np.sort(rng.choice(d, subset_genes, replace=False))
+    tc = rng.choice(n, take, replace=False)
+    tg = rng.choice(d, take, replace=False)
+    half = n // 2
+    row_tot = np.asarray(X.sum(1)).ravel()
+    cut = float(np.median(row_tot))
+    ga, gb = np.arange(0, 3 * d // 4), np.arange(d // 4, d)
+    ca, cb = np.arange(0, subset_cells), np.arange(subset_cells, 2 * subset_cells)
+    w = lambda name, lines: _write_lines(f"{work}/{name}.txt", lines)  # noqa: E731
+    b = ["data-beans"]
+    chains = {
+        # phase 30's `to-mtx` of the subsample (gzip level 9, the longest
+        # command) starts here, beside the rest
+        "subsample": [("subsample", b + ["subsample", store, "--output", f"{work}/sub20k.zarr",
+                                         "--cells", str(sub_cells), "--seed", "7"]),
+                      ("to_mtx", b + ["to-mtx", f"{work}/sub20k.zarr", "--output",
+                                      f"{work}/m20k"])],
+        "subset": [("subset", b + ["subset", store, "--output", f"{work}/subset.zarr", "--columns",
+                                   w("subset.cols", [cells[j] for j in rng.permutation(sc)]),
+                                   "--rows", w("subset.rows", [genes[i] for i in
+                                                               rng.permutation(sg)])])],
+        "take": [("take_columns", b + ["take-columns", store, "--columns",
+                                       w("take.cols", [cells[j] for j in tc]), "--output",
+                                       f"{work}/take_cols.tsv"]),
+                 ("take_rows", b + ["take-rows", store, "--rows",
+                                    w("take.rows", [genes[i] for i in tg]), "--output",
+                                    f"{work}/take_rows.tsv"])],
+        "sort_rows": [("sort_rows", b + ["sort-rows", store, "--rows",
+                                         w("genes.rev", genes[::-1]), "--output",
+                                         f"{work}/sorted.zarr"])],
+        "reorder": [("reorder", b + ["reorder", store, "--columns", w("cells.rev", cells[::-1]),
+                                     "--output", f"{work}/reordered.zarr"])],
+        "squeeze": [("squeeze", b + ["squeeze", store, "--output", f"{work}/squeezed.zarr",
+                                     "--min-row-total", str(cut)])],
+        "convert": [("convert_zip", b + ["convert", store, "--output", f"{work}/conv.zarr.zip"]),
+                    ("convert_back", b + ["convert", f"{work}/conv.zarr.zip", "--output",
+                                          f"{work}/conv_back.zarr"])],
+        "merge": [*[(f"subset_half{i}", b + ["subset", store, "--output", f"{work}/half{i}.zarr",
+                                             "--columns", w(f"half{i}", part)])
+                    for i, part in enumerate((cells[:half], cells[half:]))],
+                  ("merge_backend", b + ["merge-backend", f"{work}/half0.zarr",
+                                         f"{work}/half1.zarr", "--output", f"{work}/merged.zarr"])],
+        "align": [*[(f"subset_align{t}", b + ["subset", store, "--output", f"{work}/al{t}.zarr",
+                                              "--columns", w(f"al{t}.c", [cells[j] for j in cj]),
+                                              "--rows", w(f"al{t}.r", [genes[i] for i in gi])])
+                    for t, gi, cj in (("A", ga, ca), ("B", gb, cb))],
+                  ("align", b + ["align", f"{work}/alA.zarr", f"{work}/alB.zarr"])],
+    }
+    run_secs, wall_s, sub_launches = _cli_chains(chains)
+    secs.update(run_secs)
+    _add_counts(launches, sub_launches)
+
+    pick = np.sort(np.random.default_rng(7).choice(n, sub_cells, replace=False))
+    checks["subsample"] = _decodes_to(f"{work}/sub20k.zarr", X[:, pick], genes,
+                                      [cells[j] for j in pick])
+    checks["subset"] = _decodes_to(f"{work}/subset.zarr", X[sg][:, sc], [genes[i] for i in sg],
+                                   [cells[j] for j in sc])
+    a = pd.read_csv(f"{work}/take_cols.tsv", sep="\t", index_col=0)
+    bt = pd.read_csv(f"{work}/take_rows.tsv", sep="\t", index_col=0)
+    checks["take"] = (list(a.columns) == [cells[j] for j in tc]
+                      and np.array_equal(a.to_numpy(), X[:, tc].toarray())
+                      and list(bt.columns) == [genes[i] for i in tg]
+                      and np.array_equal(bt.to_numpy(), X[tg].toarray().T))
+    checks["sort_rows"] = _decodes_to(f"{work}/sorted.zarr", X[::-1], genes[::-1], cells)
+    checks["reorder"] = _decodes_to(f"{work}/reordered.zarr", X[:, ::-1], genes, cells[::-1])
+    kept = np.flatnonzero(row_tot >= cut)
+    checks["squeeze"] = _decodes_to(f"{work}/squeezed.zarr", X[kept], [genes[i] for i in kept],
+                                    cells)
+    checks["convert"] = _decodes_to(f"{work}/conv.zarr.zip", X, genes, cells) and _same_files(
+        f"{work}/conv_back.zarr", store)
+    checks["merge_backend"] = _decodes_to(
+        f"{work}/merged.zarr", X, genes, [f"{c}@0" for c in cells[:half]]
+        + [f"{c}@1" for c in cells[half:]])
+    pos = np.argsort(np.asarray(genes), kind="stable")  # the aligned row order: sorted names
+    union = [genes[i] for i in pos]
+    ok = True
+    for t, gi, cj in (("A", ga, ca), ("B", gb, cb)):
+        keep = np.zeros(d, bool)
+        keep[gi] = True
+        want = X[:, cj][pos].multiply(keep[pos][:, None]).tocsc()
+        want.eliminate_zeros()
+        ok = ok and _decodes_to(f"{work}/al{t}.aligned", want, union, [cells[j] for j in cj])
+    checks["align"] = bool(ok)
+    print(json.dumps({"phase": "data_beans", "cells": n, "genes": d, "nnz": int(X.nnz),
+                      "seconds": secs, "store_commands_wall_s": wall_s, "checks": checks,
+                      "qc_total_rel_err_card_vs_cpu": qc_rel, "qc_kept": int(g.keep.sum()),
+                      "launches": launches, "card": card}), flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"data-beans outputs unlike scipy's: {failed}")
+    return {"data_beans": launches}
+
+
+def _xenium_store(root: str, csr, genes: list, chunk: int = 1 << 20) -> str:
+    """A raw CSR zarr v2 store in the Xenium cell_feature_matrix layout
+    (indptr over the features, indices the cells; zlib, C order), written
+    with numpy and zlib."""
+    import zlib
+
+    def put(field, arr):
+        adir = Path(root) / "cell_features" / field
+        adir.mkdir(parents=True, exist_ok=True)
+        arr = np.ascontiguousarray(arr)
+        c = min(chunk, max(arr.shape[0], 1))
+        meta = {"zarr_format": 2, "shape": list(arr.shape), "chunks": [c, *arr.shape[1:]],
+                "dtype": arr.dtype.str, "compressor": {"id": "zlib", "level": 1},
+                "fill_value": 0, "order": "C", "filters": None}
+        (adir / ".zarray").write_text(json.dumps(meta))
+        for i, c0 in enumerate(range(0, arr.shape[0], c)):
+            block = np.zeros((c, *arr.shape[1:]), arr.dtype)
+            part = arr[c0 : c0 + c]
+            block[: len(part)] = part
+            key = ".".join([str(i)] + ["0"] * (arr.ndim - 1))
+            (adir / key).write_bytes(zlib.compress(block.tobytes(), 1))
+
+    m = csr
+    put("data", m.data.astype(np.float32))
+    put("indices", m.indices.astype(np.uint32))
+    put("indptr", m.indptr.astype(np.uint32))
+    put("cell_id", np.stack([np.arange(m.shape[1], dtype=np.uint32),
+                             np.ones(m.shape[1], np.uint32)], 1))
+    (Path(root) / "cell_features" / ".zattrs").write_text(json.dumps(
+        {"feature_keys": genes, "feature_ids": genes,
+         "feature_types": ["Gene Expression"] * len(genes)}))
+    (Path(root) / ".zgroup").write_text('{"zarr_format": 2}')
+    return root
+
+
+def ingest_phase(work: str, sim, res, store: str, card: str, *, mtx_cells: int = 20_000,
+                 triplet_cells: int = 2000, fragments: int = 1_000_000,
+                 fragment_cells: int = 2000) -> dict:
+    """Phase 30: on phase 29's 20,000 subsampled cells and their `to-mtx`
+    files (written in phase 29's window, its seconds in that line),
+    `from-mtx` and `from-mtx --streaming` (both byte-equal to the source
+    store; the native parser required), `merge-mtx` of two such files,
+    `from-triplets` on a parquet of 2,000 cells' transcripts, `from-zarr`
+    on a Xenium-layout zarr v2 store of the 20,000 cells, `from-fragments`
+    on simulated fragments over 2,000 cells to tiles, and the other
+    `data-beans-sim` commands (`multimodal`, `multiome`, `faba` at their
+    defaults, `bulk` of x.zarr with phase 2's top topic as labels, `topic
+    --reference` phase 29's subset store at the default 1,000 cells), all
+    as port CLI processes (`CLI_COUNTED`), four at a time once their
+    inputs are written; the h5py commands skipped where h5py does not import, and said so.
+    Returns the launches the processes reported, summed."""
+    import gzip
+
+    import pandas as pd
+    import scipy.sparse as sp
+
+    from legume_tpu_torch.cli.main import run_beans
+    from legume_tpu_torch.data import ioaccel
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+
+    parser = ioaccel.parser()
+    print(json.dumps({"phase": "ioaccel", "parser": parser, "card": card}), flush=True)
+    if parser != "native":
+        raise AssertionError("the native MatrixMarket parser did not build")
+    checks = {}
+    t_inputs = time.time()
+    src = f"{work}/sub20k.zarr"
+    sb = open_sparse_matrix(src)
+    S = sb.read_columns_csc(np.arange(sb.num_columns))
+    genes, cells = sb.row_names(), sb.column_names()
+    d, n = S.shape
+    if n != mtx_cells:
+        raise AssertionError(f"phase 29's subsample holds {n} cells, not {mtx_cells}")
+    m = f"{work}/m20k"
+    # one row per transcript of the first 2,000 cells
+    T = S[:, :triplet_cells].tocoo()
+    reps = T.data.astype(np.int64)
+    g_names, c_names = np.asarray(genes, dtype=object), np.asarray(cells, dtype=object)
+    pd.DataFrame({"feature_name": np.repeat(g_names[T.row], reps),
+                  "cell_id": np.repeat(c_names[T.col], reps)}).to_parquet(f"{work}/tx.parquet")
+    _xenium_store(f"{work}/cfm.zarr", S.tocsr(), genes)
+    # fragments: chrom, start, end, barcode, count over 5 chromosomes
+    rng = np.random.default_rng(30)
+    chrom = rng.integers(1, 6, fragments)
+    start = rng.integers(0, 5_000_000, fragments)
+    length = rng.integers(50, 600, fragments)
+    bc = rng.integers(0, fragment_cells, fragments)
+    cnt = rng.integers(1, 4, fragments)
+    text = "\n".join(f"chr{a}\t{s}\t{s + ln}\tBC{b:05d}\t{c}"
+                     for a, s, ln, b, c in zip(chrom, start, length, bc, cnt)) + "\n"
+    Path(f"{work}/frags.tsv.gz").write_bytes(gzip.compress(text.encode(), 1))
+    del text
+    labels = np.asarray(res["latent"]).argmax(1)
+    pd.DataFrame({"cell": list(sim.col_names), "label": [f"t{k}" for k in labels]}).to_csv(
+        f"{work}/labels.tsv", sep="\t", index=False)
+    inputs_s = time.time() - t_inputs
+
+    names = ["--rows", f"{m}.features.tsv.gz", "--cols", f"{m}.barcodes.tsv.gz"]
+    b, s_ = ["data-beans"], ["data-beans-sim"]
+    # the commands that do not read the MatrixMarket files, then the three
+    # that do
+    jobs = {
+        "from_triplets": b + ["from-triplets", "--table", f"{work}/tx.parquet", "--output",
+                              f"{work}/tx.zarr"],
+        "from_zarr": b + ["from-zarr", f"{work}/cfm.zarr", "--output", f"{work}/fz.zarr"],
+        "from_fragments": b + ["from-fragments", "--fragments", f"{work}/frags.tsv.gz",
+                               "--output", f"{work}/frags.zarr", "--tile-size", "5000"],
+        **{f"sim_{x}": s_ + [x, "--output", f"{work}/sim_{x}"]
+           for x in ("multimodal", "multiome", "faba")},
+        "sim_bulk": s_ + ["bulk", "--backend", store, "--labels", f"{work}/labels.tsv",
+                          "--output", f"{work}/sim_bulk"],
+        # the copula's NB quantiles run gene by gene on the host (scipy), so
+        # its reference is phase 29's 5,000-cell x 500-gene subset
+        "sim_topic_reference": s_ + ["topic", "--reference", f"{work}/subset.zarr", "--output",
+                                     f"{work}/sim_copula"],
+    }
+    mtx_jobs = {
+        "from_mtx": b + ["from-mtx", "--mtx", f"{m}.matrix.mtx.gz", *names, "--output",
+                         f"{work}/fm.zarr"],
+        "from_mtx_streaming": b + ["from-mtx", "--mtx", f"{m}.matrix.mtx.gz", *names, "--output",
+                                   f"{work}/fms.zarr", "--streaming"],
+        "merge_mtx": b + ["merge-mtx", f"{m}.matrix.mtx.gz", f"{m}.matrix.mtx.gz", "--rows",
+                          f"{m}.features.tsv.gz", "--cols", f"{m}.barcodes.tsv.gz",
+                          f"{m}.barcodes.tsv.gz", "--output", f"{work}/mm.zarr"],
+    }
+    secs, wall_s, launches = _cli_chains({k: [(k, v)] for k, v in jobs.items()})
+    mtx_secs, mtx_wall_s, mtx_launches = _cli_chains({k: [(k, v)] for k, v in mtx_jobs.items()})
+    secs.update(mtx_secs)
+    wall_s += mtx_wall_s
+    _add_counts(launches, mtx_launches)
+
+    checks["from_mtx"] = _same_files(f"{work}/fm.zarr", src)
+    checks["from_mtx_streaming"] = _same_files(f"{work}/fms.zarr", src)
+    checks["merge_mtx"] = _decodes_to(f"{work}/mm.zarr", sp.hstack([S, S], format="csc"), genes,
+                                      cells + [f"{c}@1" for c in cells])
+    go, co = np.argsort(g_names[:d]), np.argsort(c_names[:triplet_cells])
+    Ts = S[:, :triplet_cells].tocsc()
+    used_g = np.asarray(Ts.sum(1)).ravel()[go] > 0
+    used_c = np.asarray(Ts.sum(0)).ravel()[co] > 0
+    want = Ts[go][:, co][used_g][:, used_c]
+    checks["from_triplets"] = _decodes_to(f"{work}/tx.zarr", want, list(g_names[go][used_g]),
+                                          list(c_names[:triplet_cells][co][used_c]))
+    fz = open_sparse_matrix(f"{work}/fz.zarr")
+    got = fz.read_columns_csc(np.arange(fz.num_columns))
+    checks["from_zarr"] = bool(got.shape == S.shape and (got != S).nnz == 0
+                               and fz.row_names() == genes)
+    fb = open_sparse_matrix(f"{work}/frags.zarr")
+    F = fb.read_columns_csc(np.arange(fb.num_columns)).tocoo()
+    tile = (start + start + length) // 2 // 5000
+    rname = np.asarray(fb.row_names(), dtype=object)[F.row]
+    cname = np.asarray(fb.column_names(), dtype=object)[F.col]
+    got = pd.DataFrame({"r": rname, "c": cname, "v": F.data}).groupby(["r", "c"]).v.sum()
+    exp = pd.DataFrame({"r": [f"chr{a}:{t * 5000}-{(t + 1) * 5000}" for a, t in zip(chrom, tile)],
+                        "c": [f"BC{b:05d}" for b in bc], "v": cnt}).groupby(["r", "c"]).v.sum()
+    checks["from_fragments"] = bool(fb.num_columns == len(np.unique(bc))
+                                    and got.sort_index().equals(exp.sort_index().astype(got.dtype)))
+    checks["sim_multimodal"] = all(Path(f"{work}/sim_multimodal.mod{i}.zarr").exists()
+                                   for i in (0, 1))
+    checks["sim_multiome"] = Path(f"{work}/sim_multiome.genes.gff").exists()
+    checks["sim_faba"] = open_sparse_matrix(f"{work}/sim_faba.zarr").num_rows == 100
+    fr = pd.read_parquet(f"{work}/sim_bulk.fractions.parquet").iloc[:, 1:].to_numpy()
+    bulk = pd.read_parquet(f"{work}/sim_bulk.bulk.parquet")
+    checks["sim_bulk"] = bool(np.allclose(fr.sum(1), 1.0)
+                              and bulk.shape == (20, sim.counts.shape[0] + 1))
+    ref = open_sparse_matrix(f"{work}/subset.zarr")
+    cb = open_sparse_matrix(f"{work}/sim_copula.zarr")
+    checks["sim_topic_reference"] = (cb.shape == (ref.num_rows, 1000)
+                                     and cb.row_names() == ref.row_names())
+    print(json.dumps({"phase": "ingest", "cells": n, "genes": d, "nnz": int(S.nnz),
+                      "mtx_gz_bytes": Path(f"{m}.matrix.mtx.gz").stat().st_size,
+                      "transcripts": int(reps.sum()), "fragments": fragments,
+                      "fragment_cells": fragment_cells, "inputs_s": inputs_s, "seconds": secs,
+                      "commands_wall_s": wall_s, "checks": checks, "launches": launches,
+                      "card": card}), flush=True)
+    h5_cmds = ["from-h5ad", "from-10x-matrix", "from-10x-molecule", "to-h5ad", "list-h5"]
+    if importlib.util.find_spec("h5py") is None:
+        print(json.dumps({"phase": "beans_h5", "h5py_importable": False, "skipped": h5_cmds,
+                          "card": card}), flush=True)
+    else:
+        _, t_h5 = _cli(run_beans, ["to-h5ad", src, "--output", f"{work}/s.h5ad"])
+        _, t_back = _cli(run_beans, ["from-h5ad", "--h5ad", f"{work}/s.h5ad", "--output",
+                                     f"{work}/h5back.zarr"])
+        checks["h5ad_round_trip"] = _same_files(f"{work}/h5back.zarr", src)
+        print(json.dumps({"phase": "beans_h5", "h5py_importable": True,
+                          "seconds": {"to_h5ad": t_h5, "from_h5ad": t_back},
+                          "round_trip_equal": checks["h5ad_round_trip"],
+                          "not_run": h5_cmds[1:3] + h5_cmds[4:], "card": card}), flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"ingestion outputs unlike their sources: {failed}")
+    return {"ingest": launches}
+
+
+def gff_phase(work: str, kept: dict, K, dev, card: str) -> dict:
+    """Phase 31: `cocoa diff --gff` on phase 15's cells with a GFF written
+    from the gene positions of phase 15's `truth.tsv` (TSS on the +
+    strand at each position), reusing phase 15's match cache: its gene
+    order and CNV states (and states table) equal the `--cnv-ground-truth`
+    run's, its cn_score within 1e-3, and K1 launches as often;
+    `senna plot-strand` where matplotlib imports, else skipped and said."""
+    import pandas as pd
+
+    from legume_tpu_torch.cli.main import run_cocoa, run_senna
+    from legume_tpu_torch.utils.output import read_table, table_path
+
+    c = kept["cocoa"]
+    stem, ref = c["stem"], c["res"]
+    gff = f"{work}/genes.gff3"
+    with open(f"{work}/truth.tsv") as f, open(gff, "w") as g:
+        next(f)
+        g.write("##gff-version 3\n")
+        for line in f:
+            i, chrom, pos = line.split()
+            g.write(f"{chrom}\tsim\tgene\t{int(pos) + 1}\t{int(pos) + 800}\t.\t+\t.\t"
+                    f"ID=gene:g{i};Name=g{i}\n")
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = run_cocoa(["diff", "--data-files", stem, "--out", f"{stem}.gff.de", "--indv",
+                     f"{stem}.indv.txt", "--exposure", f"{work}/exposure.tsv",
+                     "--topic-assignment", f"{stem}.types.txt", "--permutations", "12",
+                     "--gff", gff, "--device", str(dev)], vec=c["vec"])
+    _sync(dev)
+    run_s = time.time() - t0
+    launches = _launched(K, ("project_normed",), "cocoa diff --gff")
+    a, b = res["cnv"], ref["cnv"]
+    same_order = bool(np.array_equal(a.order.ordered, b.order.ordered))
+    states_equal = bool(np.array_equal(a.states, b.states))
+    score_err = float(np.abs(a.cn_score - b.cn_score).max())
+    tabs = [read_table(table_path(f"{p}.cnv.states")) for p in (f"{stem}.gff.de", f"{stem}.de")]
+    tables_equal = tabs[0].keys() == tabs[1].keys() and all(
+        np.array_equal(tabs[0][k], tabs[1][k]) for k in tabs[1])
+    same_k1 = launches["project_normed"] == c["launches"]["project_normed"]
+    print(json.dumps({
+        "phase": "cocoa_diff_gff", "cells": c["vec"].num_columns, "run_s": run_s,
+        "timings": res["timings"], "launches": launches,
+        "k1_launches_truth_run": c["launches"]["project_normed"],
+        "match_cache_reused": bool(res["timings"].get("match_cache_reused", False)),
+        "gene_order_equal": same_order, "cnv_states_equal": states_equal,
+        "cn_score_max_abs_diff": score_err, "cnv_states_tables_equal": tables_equal,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(), "card": card,
+    }), flush=True)
+    # cn_score is not bit-reproducible between two card runs of the diff
+    # (2.1e-4 to 2.4e-4 apart on an H100, the states equal): the calls
+    # are held equal, the scores within 1e-3
+    if not (same_order and states_equal and score_err <= 1e-3 and tables_equal and same_k1
+            and res["timings"].get("match_cache_reused")):
+        raise AssertionError("cocoa diff --gff unlike the --cnv-ground-truth run")
+    if importlib.util.find_spec("matplotlib") is None:
+        print(json.dumps({"phase": "plot_strand", "matplotlib_importable": False,
+                          "skipped": ["senna plot-strand"], "card": card}), flush=True)
+    else:
+        eff = np.abs(res["effect"])
+        pd.DataFrame({"gene": [f"g{i}" for i in range(len(eff))], "effect": eff}).to_parquet(
+            f"{work}/activity.parquet")
+        t0 = time.time()
+        outs = run_senna(["plot-strand", "--activity", f"{work}/activity.parquet", "--gff", gff,
+                          "--out", f"{work}/strand"])
+        print(json.dumps({"phase": "plot_strand", "matplotlib_importable": True,
+                          "seconds": time.time() - t0, "images": len(outs), "card": card}),
+              flush=True)
+    return {"diff_gff": launches}
+
+
+def qc_card_vs_cpu(store: str, dev, cells: int = 4000) -> dict:
+    """Phase 27's QC check: `compute_cell_qc` on the first 4,000 cells of
+    x.zarr (13 genes named `MT-`) on the card and on the CPU."""
+    from legume_tpu_torch.data import MemoryBackend
+    from legume_tpu_torch.data.qc import compute_cell_qc
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+
+    b = open_sparse_matrix(store)
+    names = [f"MT-{g}" if i < 13 else g for i, g in enumerate(b.row_names())]
+    mb = MemoryBackend(b.read_columns_csc(np.arange(cells)), names, b.column_names()[:cells])
+    q = {d: compute_cell_qc(mb, ribo_pattern="^g1", device=d) for d in (str(dev), "cpu")}
+    g, c = q[str(dev)], q["cpu"]
+    err = max(float(np.max(np.abs(getattr(g, f) - getattr(c, f))
+                           / np.maximum(np.abs(getattr(c, f)), 1e-12)))
+              for f in ("total", "n_genes", "mito_frac", "ribo_frac"))
+    kw = dict(min_genes=5, max_mito_frac=float(np.quantile(c.mito_frac, 0.9)))
+    return {"qc_cells": cells, "qc_stat_rel_err": err,
+            "qc_masks_equal": bool(np.array_equal(g.keep_mask(**kw), c.keep_mask(**kw)))}
 
 
 def main() -> int:
@@ -2095,6 +2857,7 @@ def main() -> int:
     try:
         return run(work.name, t_script)
     finally:
+        stop_children()
         work.cleanup()
 
 
@@ -2241,6 +3004,9 @@ def run(work: str, t_script: float) -> int:
         cwd=Path(__file__).resolve().parent,
     )
     print(probe.stdout.strip().splitlines()[-1], flush=True)
+    # the later phases' simulations, on the host from here on (after the
+    # first kernel timings and the set-up split, which they would disturb)
+    start_prefetch(sim.row_names)
 
     # ---- phase 5: senna bge end to end -----------------------------------
     # The same simulated cells without their batches: with batches bge
@@ -2453,7 +3219,7 @@ def run(work: str, t_script: float) -> int:
                "parquet (pandas, pyarrow)": have_parquet()}
     print(json.dumps({
         "phase": "senna_predict", "cells": n_held, "genes": hvec.num_rows,
-        "mapped_genes": pman.params["n_mapped"], "simulate_s": held_sim_s, "run_s": predict_s,
+        "mapped_genes": pman.params["n_mapped"], "simulate_wait_s": held_sim_s, "run_s": predict_s,
         **pman.timings, "launches": plaunches, "delta_min": float(delta.min()),
         "delta_max": float(delta.max()), "latent_shape": list(zp.shape),
         "latent_finite": bool(np.isfinite(zp).all()), "simplex_max_err": p_err,
@@ -2563,16 +3329,17 @@ def run(work: str, t_script: float) -> int:
     slice9 = bge_options_phase(work, bvec, bres, acounts, anchor["float32"], K, dev, card, checks,
                                kept)
     slice9["rest"] = rest_phase(work, vec, K, dev, card)
-    slice9.update(cocoa_phase(work, K, dev, card, checks))
+    slice9.update(cocoa_phase(work, K, dev, card, checks, kept))
     slice9["topic_cnv"] = topic_cnv_phase(work, vec, K, dev, card)
 
     # ---- phases 17-20: vae, svd / joint-svd, joint-topic, masked models ----
     slice10 = vae_phase(work, vec, hvec, bfile, K, dev, card)
     slice10.update(svd_phase(work, vec, kept["multiome"], K, dev, card, checks))
     slice10.update(joint_topic_phase(work, kept["multiome"], K, dev, card))
-    slice10.update(masked_phase(work, vec, hvec, K, dev, card))
+    slice10.update(masked_phase(work, vec, hvec, K, dev, card, checks))
 
     # ---- phases 21-27: stores, annotation, deconvolve, impute, probe, fne --
+    beans_sim = start_beans_sim(work, sim)  # phase 28, on the host meanwhile
     slice11, store = store_phase(work, sim, res, K, dev, card)
     slice11.update(annotation_phase(work, sim, res, args.out, store, K, dev, card))
     slice11.update(deconvolve_phase(work, sim, vec, res, K, dev, card, checks))
@@ -2580,7 +3347,13 @@ def run(work: str, t_script: float) -> int:
     slice11.update(fne_phase(work, K, dev, card, checks))
     slice11_card_vs_cpu(work, sim, args.out, store, dev, card)
 
-    # ---- phase 28: the kernels line, then the device line -----------------
+    # ---- phases 28-31: data-beans-sim, data-beans, ingestion, GFF -----------
+    slice12 = beans_sim_phase(work, sim, store, beans_sim, card)
+    slice12.update(beans_phase(work, sim, store, K, dev, card))
+    slice12.update(ingest_phase(work, sim, res, store, card))
+    slice12.update(gff_phase(work, kept, K, dev, card))
+
+    # ---- phase 32: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
     # and `shapes` holds every checked shape, each with the run (`path`)
@@ -2597,7 +3370,8 @@ def run(work: str, t_script: float) -> int:
     # qmatrix, annotate_by_enrichment, annotate_ontology,
     # annotate_by_projection_from, annotate_by_projection_train,
     # deconvolve, deconvolve_reference, impute, impute_reference, probe,
-    # probe_latent, fne).
+    # probe_latent, fne; data_beans_sim_topic, data_beans, ingest,
+    # diff_gff).
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
@@ -2615,7 +3389,7 @@ def run(work: str, t_script: float) -> int:
             "launches_layout_pseudotime_plot": sum(layout_launches.values()),
             "launches_topic_options": option_launches.get(name, 0),
             **{f"launches_{path}": counts[name]
-               for path, counts in {**slice9, **slice10, **slice11}.items()},
+               for path, counts in {**slice9, **slice10, **slice11, **slice12}.items()},
             **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),

@@ -1,17 +1,20 @@
 """Command line of the port: `python -m legume_tpu_torch senna
 {topic,vae,svd,joint-svd,joint-topic,masked-topic,masked-vae,masked-sbp,
 bge,fne,resolve-embedding-space (rest),predict,eval-topic,clustering,
-layout,pseudotime,plot,plot-topic,qmatrix,annotate-ontology,
+layout,pseudotime,plot,plot-topic,plot-strand,qmatrix,annotate-ontology,
 annotate-by-enrichment,annotate-by-projection,deconvolve,probe,impute}
-...` and `python -m legume_tpu_torch cocoa {diff,collapse,simulate-one,
-simulate-collider} ...` (or `python -m legume_tpu_torch.cli.main`, or the
+...`, `python -m legume_tpu_torch cocoa {diff,collapse,simulate-one,
+simulate-collider} ...`, `python -m legume_tpu_torch data-beans ...`
+(`cli/beans_cli.py`) and `python -m legume_tpu_torch data-beans-sim ...`
+(`cli/sim_cli.py`) (or `python -m legume_tpu_torch.cli.main`, or the
 `legume-torch` script).
 
 The flags are those of the JAX package's commands; the ones the port
 does not carry yet are accepted and raise `NotImplementedError` when set.
 `--device` picks the torch device (default `cuda`); the commands that
-run on the host alone (`plot`, `plot-topic`, `annotate-ontology`,
-`annotate-by-enrichment`) have none. `--from <run>`
+run on the host alone (`plot`, `plot-topic`, `plot-strand`,
+`annotate-ontology`, `annotate-by-enrichment`, and every `data-beans`
+subcommand but `qc` and `histogram`) have none. `--from <run>`
 resolves the latent (and `plot-topic`'s dictionary) from that run's
 `{run}.senna.json`; `clustering` and `layout` record their outputs back
 into it. `senna topic --from <run>` inherits the run's data files and
@@ -233,9 +236,9 @@ def _layout_parsers(sub):
     p.add_argument("--no-dict", action="store_true")
 
     p = sub.add_parser("plot-strand", help="Watson/Crick mirrored genomic-activity ideograms")
-    p.add_argument("--activity", required=True)
-    p.add_argument("--gff", required=True)
-    p.add_argument("--out", required=True)
+    p.add_argument("--activity", required=True, help="parquet: gene x group activity")
+    p.add_argument("--gff", required=True, help="gene coordinates + strand")
+    p.add_argument("--out", required=True, help="output prefix (one image per group)")
     p.add_argument("--bins", type=int, default=200)
 
 
@@ -337,17 +340,13 @@ def run_senna(argv, *, vec=None, vecs=None):
     }
     if a.cmd in annotators:
         return annotators[a.cmd]()
-    if a.cmd in ("layout", "pseudotime", "plot", "plot-topic"):
+    if a.cmd in ("layout", "pseudotime", "plot", "plot-topic", "plot-strand"):
         from .senna_cmds import layout_cmds as L
 
         if a.cmd == "layout" and a.method == "tree":
             return L.cmd_layout_tree(a)
         return {"layout": L.cmd_layout, "pseudotime": L.cmd_pseudotime, "plot": L.cmd_plot,
-                "plot-topic": L.cmd_plot_topic}[a.cmd](a)
-    if a.cmd == "plot-strand":
-        raise NotImplementedError(
-            "senna plot-strand needs faba's GFF gene reader (faba/genes.py), not ported yet"
-        )
+                "plot-topic": L.cmd_plot_topic, "plot-strand": L.cmd_plot_strand}[a.cmd](a)
     if not a.data_files and not a.from_run and vec is None:
         raise SystemExit("topic: provide --data-files or --from <run prefix>")
     args = TopicArgs(
@@ -468,17 +467,36 @@ def main(argv=None) -> int:
     from ..utils.stop import install_sigint_handler
 
     install_sigint_handler()  # a first Ctrl-C ends training with partial outputs
-    if not argv or argv[0] not in ("senna", "cocoa"):
+    binaries = {"senna": run_senna, "cocoa": run_cocoa, "data-beans": run_beans,
+                "data-beans-sim": run_sim}
+    if not argv or argv[0] not in binaries:
         print("usage: python -m legume_tpu_torch senna {topic,vae,svd,joint-svd,"
               "joint-topic,masked-topic,masked-vae,masked-sbp,bge,fne,resolve-embedding-space,"
               "rest,predict,eval-topic,clustering,layout,pseudotime,plot,plot-topic,plot-strand,"
               "qmatrix,annotate-ontology,annotate-by-enrichment,annotate-by-projection,"
               "deconvolve,probe,impute} ...\n"
               "       python -m legume_tpu_torch cocoa {diff,collapse,simulate-one,"
-              "simulate-collider} ...")
+              "simulate-collider} ...\n"
+              "       python -m legume_tpu_torch data-beans <subcommand> ...\n"
+              "       python -m legume_tpu_torch data-beans-sim {topic,faba,multimodal,multiome,"
+              "bulk} ...")
         return 1
-    (run_senna if argv[0] == "senna" else run_cocoa)(argv[1:])
+    binaries[argv[0]](argv[1:])
     return 0
+
+
+def run_beans(argv):
+    """`data-beans`: build, convert, subset, inspect and QC sparse backends."""
+    from .beans_cli import run_beans as _run
+
+    return _run(argv)
+
+
+def run_sim(argv):
+    """`data-beans-sim`: synthetic count generators."""
+    from .sim_cli import run_sim as _run
+
+    return _run(argv)
 
 
 if __name__ == "__main__":

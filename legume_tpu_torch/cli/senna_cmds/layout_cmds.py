@@ -1,6 +1,6 @@
 """`senna layout` (umap, tumap, tsne, phate, tree), `senna pseudotime`,
-`senna plot` and `senna plot-topic` (the port of the JAX package's
-`cli/senna_cmds/layout_cmds.py`).
+`senna plot`, `senna plot-topic` and `senna plot-strand` (the port of the
+JAX package's `cli/senna_cmds/layout_cmds.py`).
 
 Tables are read and written through `utils/output.py`, so a handler takes
 the port's parquet or `.npz` and the JAX package's parquet, and writes
@@ -330,3 +330,34 @@ def cmd_plot(args) -> list[str]:
     )
     print(f"wrote {' '.join(formats)}")
     return formats
+
+
+def cmd_plot_strand(args) -> list[str]:
+    """One Watson/Crick ideogram per activity column: each gene of the
+    `--activity` table (gene, then one column per group) placed at its
+    TSS from the `--gff`, on the host."""
+    from ...faba.genes import parse_gff_genes
+    from ...utils.plot import strand_ideogram
+
+    names, cols = _columns(args.activity)
+    genes = np.asarray(cols[0]).astype(str)
+    model = parse_gff_genes(args.gff)
+    pos_of = {}
+    for i, nm in enumerate(model.names):
+        tss = model.start[i] if model.strand[i] > 0 else model.end[i]
+        pos_of[nm] = (model.chrom[i], int(tss), int(model.strand[i]))
+    rows = [r for r, g in enumerate(genes) if g in pos_of]
+    if not rows:
+        raise SystemExit("no activity rows match GFF gene names")
+    hit = genes[rows]
+    chrom = np.asarray([pos_of[g][0] for g in hit])
+    pos = np.asarray([pos_of[g][1] for g in hit])
+    strand = np.asarray([pos_of[g][2] for g in hit])
+    outs = []
+    for name, col in zip(names[1:], cols[1:]):
+        f = f"{args.out}.{name}.png"
+        strand_ideogram(np.asarray(col, np.float64)[rows], chrom, pos, strand,
+                        model.chrom_names, f, bins=args.bins, title=str(name))
+        outs.append(f)
+    print(f"wrote {len(outs)} ideograms: {outs[0]} ...")
+    return outs

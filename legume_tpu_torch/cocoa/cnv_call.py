@@ -5,8 +5,9 @@ Per individual: genome-ordered per-gene residual log-ratios (observed
 individual-level expression vs the shared component) smoothed into
 segments and run through the CNV Gaussian HMM (`ops/cnv_hmm.py`) —
 copy-number states per (individual, genomic bin). The HMM runs on the
-device (`ops/cnv_hmm.py`); the rest is numpy. `genome_order_from_gff`
-needs faba's GFF gene reader, which the port does not carry yet.
+device (`ops/cnv_hmm.py`); the rest is numpy. Genes are put in genome
+order from a GFF (`faba/genes.py::parse_gff_genes`) or from a simulation's
+ground-truth table.
 """
 
 from __future__ import annotations
@@ -94,9 +95,28 @@ class GenomeOrder:
 
 
 def genome_order_from_gff(gene_names: list, gff_path: str) -> GenomeOrder:
-    """Genes matched to a GFF by name, at their TSS: needs faba's GFF gene
-    reader (`faba/genes.py::parse_gff_genes`), not ported yet."""
-    raise NotImplementedError("cocoa diff --gff needs faba's GFF gene reader, not ported yet")
+    """Match backend gene names to GFF genes by name; TSS position."""
+    from ..faba.genes import parse_gff_genes
+
+    model = parse_gff_genes(gff_path)
+    where = {n: i for i, n in enumerate(model.names)}
+    idx, chrom, pos = [], [], []
+    for g, name in enumerate(gene_names):
+        j = where.get(name)
+        if j is None:
+            continue
+        tss = model.start[j] if model.strand[j] > 0 else model.end[j]
+        idx.append(g)
+        chrom.append(model.chrom[j])
+        pos.append(int(tss))
+    if not idx:
+        raise ValueError("CNV: no gene names matched the GFF")
+    log.info("CNV: matched %d / %d genes to GFF entries", len(idx), len(gene_names))
+    idx = np.asarray(idx)
+    chrom = np.asarray(chrom)
+    pos = np.asarray(pos, np.int64)
+    order = np.lexsort((pos, chrom))
+    return GenomeOrder(idx[order], chrom[order], pos[order], model.chrom_names)
 
 
 def genome_order_from_truth_tsv(n_genes: int, path: str) -> GenomeOrder:

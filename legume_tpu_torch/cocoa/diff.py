@@ -10,8 +10,9 @@ exposures, every column read once for all of them) -> optional CNV
 side-channel on the exposure posteriors -> tables (effect, shared,
 residual, pvalue, cnv.*) and a `{out}.cocoa.json` manifest.
 
-`--gff` (faba's GFF reader) and `--data-parallel` (the multi-GPU layer)
-are not ported and raise `NotImplementedError`.
+`--data-parallel` (the multi-GPU layer) is not ported and raises
+`NotImplementedError`. The CNV side-channel orders genes by `--gff`
+(faba's GFF reader), which takes precedence over `--cnv-ground-truth`.
 """
 
 from __future__ import annotations
@@ -84,8 +85,6 @@ class CocoaDiffArgs:
 def check_supported(args: CocoaDiffArgs):
     if args.data_parallel:
         raise NotImplementedError("cocoa diff port does not support --data-parallel yet")
-    if args.gff:
-        raise NotImplementedError("cocoa diff --gff needs faba's GFF gene reader, not ported yet")
 
 
 def assign_pseudobulk(cell_indv: np.ndarray, proj_nk: np.ndarray, n_samples: int, seed: int,
@@ -217,11 +216,13 @@ def run_cocoa_diff(args: CocoaDiffArgs, *, vec=None, device="cuda") -> dict:
     genes = np.asarray(vec.row_names())
     outputs: dict = {}
     cnv_run = None
-    if args.cnv_ground_truth:
-        from .cnv_call import call_per_sample_cnv, genome_order_from_truth_tsv, segments_bed_rows
+    if args.gff or args.cnv_ground_truth:
+        from .cnv_call import (call_per_sample_cnv, genome_order_from_gff,
+                               genome_order_from_truth_tsv, segments_bed_rows)
 
         t0 = time.time()
-        order = genome_order_from_truth_tsv(d, args.cnv_ground_truth)
+        order = (genome_order_from_gff(list(genes), args.gff) if args.gff
+                 else genome_order_from_truth_tsv(d, args.cnv_ground_truth))
         log_tau = exposure_log_means(params)  # [K, D, I]
         topic_names = [f"topic{k}" for k in range(log_tau.shape[0])]
         cnv_run = call_per_sample_cnv(

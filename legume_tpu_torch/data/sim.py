@@ -1,6 +1,7 @@
 """Synthetic counts (the port's copies of `simulate_topic`,
-`simulate_multimodal` and `simulate_multiome` from the JAX package's
-`data/sim.py`, same generators, same seeds, same draws).
+`simulate_multimodal`, `simulate_multiome`, `simulate_bulk`,
+`simulate_faba` and `simulate_from_reference` from the JAX package's
+`data/sim.py`: same generators, same seeds, same numpy draws).
 
     log beta(g,k)  = s_b * [ sqrt(pi_t) u(g,k) + sqrt(1-pi_t) v(g) ] - s_b^2/2
     log delta(g,b) =        sqrt(pi_b) z(g,b) + sqrt(1-pi_b) w(g)
@@ -214,6 +215,153 @@ def simulate_multiome(
     lam = (depth / genes) * (beta_g @ theta.T)
     rna = sp.csc_matrix(rng.poisson(lam).astype(np.float32))
     return MultiomeSim(rna=rna, atac=atac, theta=theta, peak_to_gene=p2g, linked=linked)
+
+
+def simulate_bulk(
+    sc_counts: sp.spmatrix,  # [G, N] real/simulated single cells
+    cell_labels: np.ndarray,  # [N] type of each cell
+    n_samples: int = 20,
+    reads_per_sample: float = 100_000,
+    alpha: float = 1.0,
+    seed: int = 17,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Bulk pseudo-samples by Dirichlet-mixing single cells
+    (`data-beans-sim bulk`); returns (bulk [S, G], fractions [S, C])."""
+    rng = np.random.default_rng(seed)
+    labels = np.asarray(cell_labels)
+    types = np.unique(labels)
+    g = sc_counts.shape[0]
+    csc = sp.csc_matrix(sc_counts)
+    profiles = np.stack(
+        [np.asarray(csc[:, labels == t].sum(1)).ravel() for t in types]
+    )  # [C, G]
+    profiles = profiles / np.maximum(profiles.sum(1, keepdims=True), 1)
+    fracs = rng.dirichlet(np.full(len(types), alpha), size=n_samples)
+    lam = fracs @ profiles * reads_per_sample
+    return rng.poisson(lam).astype(np.float32), fracs
+
+
+@dataclass
+class FabaSim:
+    counts: sp.csc_matrix  # [S, N] site x cell modality counts
+    site_names: list  # gene/modality/channel convention (feature_name.rs)
+    col_names: list
+    modality: np.ndarray  # [S] modality of each site
+    true_rates: np.ndarray  # [S, K] per-state rates
+    state: np.ndarray  # [N] latent cell state
+
+
+def simulate_faba(
+    n_genes: int = 50,
+    n_cells: int = 500,
+    n_states: int = 3,
+    sites_per_gene: int = 2,
+    depth: float = 30.0,
+    seed: int = 0,
+) -> FabaSim:
+    """`data-beans-sim faba`: m6A / A-to-I / APA tracks in faba's
+    `gene/modality/channel` row-name convention (feature_name.rs), with
+    state-dependent modification rates as ground truth for dyn-assoc /
+    masked-topic style benchmarks."""
+    rng = np.random.default_rng(seed)
+    modalities = [("m6a", "CT"), ("atoi", "AG"), ("apa", "distal")]
+    state = rng.integers(0, n_states, n_cells)
+
+    names, mods, rate_rows = [], [], []
+    for g in range(n_genes):
+        for s in range(sites_per_gene):
+            mod, channel = modalities[(g * sites_per_gene + s) % len(modalities)]
+            names.append(f"g{g}:{100 * (s + 1)}/{mod}/{channel}")
+            mods.append(mod)
+            base = rng.uniform(0.02, 0.1)
+            rates = np.full(n_states, base)
+            if rng.random() < 0.3:  # 30% of sites are state-specific
+                rates[rng.integers(0, n_states)] = rng.uniform(0.2, 0.5)
+            rate_rows.append(rates)
+    true_rates = np.stack(rate_rows)  # [S, K]
+
+    lam = true_rates[:, state] * depth  # [S, N]
+    counts = sp.csc_matrix(rng.poisson(lam).astype(np.float32))
+    return FabaSim(
+        counts=counts,
+        site_names=names,
+        col_names=[f"cell{i}" for i in range(n_cells)],
+        modality=np.asarray(mods),
+        true_rates=true_rates,
+        state=state,
+    )
+
+
+def simulate_from_reference(
+    ref_counts: sp.spmatrix,  # [G, N] real cells
+    n_cells: int = 1000,
+    *,
+    rank: int = 10,
+    seed: int = 0,
+    max_ref_cells: int = 5000,
+) -> tuple[sp.csc_matrix, dict]:
+    """Reference-conditioned NB + Gaussian-copula generator
+    (`data-beans-sim topic --reference`, `data-beans-sim/src/copula/`):
+
+    1. per-gene NB marginals from the reference (method-of-moments
+       mean/dispersion on library-size-normalized counts),
+    2. a rank-``rank`` Gaussian copula capturing gene-gene dependence
+       (factor loadings from the SVD of the z-scored log1p matrix),
+    3. sample latent z = L f + sqrt(1 - ||L||^2) eps, push through the
+       NB quantile at each gene.
+
+    Returns ([G, n_cells] counts, params dict with nb_mean/nb_phi/
+    loadings)."""
+    rng = np.random.default_rng(seed)
+    csc = sp.csc_matrix(ref_counts)
+    g, n = csc.shape
+    if n > max_ref_cells:
+        pick = rng.choice(n, max_ref_cells, replace=False)
+        csc = csc[:, pick]
+        n = max_ref_cells
+    x = np.asarray(csc.todense(), np.float64)  # [G, N]
+    lib = np.maximum(x.sum(0), 1.0)
+    depth = lib.mean()
+    xn = x / lib[None, :] * depth  # depth-normalized
+
+    mu = xn.mean(1)
+    var = xn.var(1)
+    # NB: var = mu + phi mu^2  ->  phi = max((var - mu) / mu^2, 0)
+    phi = np.maximum((var - mu) / np.maximum(mu**2, 1e-12), 1e-6)
+
+    # copula loadings from z-scored log1p
+    z = np.log1p(xn)
+    z = (z - z.mean(1, keepdims=True)) / np.maximum(z.std(1, keepdims=True), 1e-8)
+    rank = min(rank, min(g, n) - 1)
+    u_svd, s_svd, _ = np.linalg.svd(z / np.sqrt(n), full_matrices=False)
+    load = u_svd[:, :rank] * s_svd[:rank][None, :]  # [G, R]
+    # cap so the residual variance stays positive
+    norms = np.linalg.norm(load, axis=1)
+    scale = np.minimum(0.99 / np.maximum(norms, 1e-9), 1.0)
+    load = load * scale[:, None]
+    resid_sd = np.sqrt(np.maximum(1.0 - (load**2).sum(1), 1e-4))
+
+    from scipy.stats import nbinom, norm, poisson
+
+    f = rng.standard_normal((rank, n_cells))
+    eps = rng.standard_normal((g, n_cells))
+    z_new = load @ f + resid_sd[:, None] * eps
+    u = norm.cdf(z_new)  # [G, n_cells] uniforms with gene dependence
+
+    counts = np.zeros((g, n_cells), np.float32)
+    for j in range(g):
+        if mu[j] <= 0:
+            continue
+        if phi[j] < 1e-5:
+            counts[j] = poisson.ppf(u[j], mu[j])
+        else:
+            r = 1.0 / phi[j]
+            p = r / (r + mu[j])
+            counts[j] = nbinom.ppf(u[j], r, p)
+    return (
+        sp.csc_matrix(counts),
+        {"nb_mean": mu, "nb_phi": phi, "loadings": load},
+    )
 
 
 def write_topic_sim(sim: TopicSim, output: str) -> str:

@@ -1,5 +1,5 @@
 """Sparse count-matrix backends (the port's own copy of the JAX package's
-storage engine, `data/sparse_io.py`, without the streaming writer).
+storage engine, `data/sparse_io.py`).
 
 On-disk layout, the same in both packages and both formats:
 
@@ -11,7 +11,10 @@ On-disk layout, the same in both packages and both formats:
 
 Matrix orientation: rows = features/genes (D), columns = cells (N).
 `read_columns_csc(cols)` returns a scipy `csc_matrix` of shape
-[D, len(cols)].
+[D, len(cols)], `read_rows_csr(rows)` a `csr_matrix` [len(rows), N].
+`StreamingCscWriter` builds a `.zarr` store from column slabs without
+holding the matrix: slabs spill to disk, and `finalize()` writes each
+array chunk by chunk as it fills.
 
 - ``MemoryBackend``: scipy CSC in RAM (simulations, tests, small runs).
 - ``ZarrBackend``: zarr v3 directory (zstd level 5), read and written by
@@ -35,6 +38,8 @@ import json
 import logging
 import os
 import shutil
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Sequence
 
@@ -57,7 +62,19 @@ _ZSTD_LEVEL = 5
 # chunks at `c/{i}`. Every chunk is stored at the full chunk shape (the edge
 # chunk padded with the fill value), and a chunk whose bytes all equal the
 # fill value is not written, as tensorstore's zarr3 driver does: a missing
-# chunk reads as the fill value. zstd is pyarrow's codec.
+# chunk reads as the fill value. zstd is pyarrow's codec, which releases the
+# GIL, so chunks are compressed and decoded on a pool of threads; the bytes
+# of each chunk do not depend on which thread made them.
+
+_THREADS = min(8, os.cpu_count() or 1)
+_pool: ThreadPoolExecutor | None = None
+
+
+def _chunk_pool() -> ThreadPoolExecutor:
+    global _pool
+    if _pool is None:
+        _pool = ThreadPoolExecutor(_THREADS, thread_name_prefix="zarr-chunk")
+    return _pool
 
 
 def _zstd():
@@ -99,6 +116,29 @@ def _chunk_path(adir: Path, meta: dict, i: int) -> Path:
     return adir / "c" / str(i) if sep == "/" else adir / f"c{sep}{i}"
 
 
+def _store_chunk(adir: Path, meta: dict, i: int, raw: bytes):
+    """Compress and write chunk `i` (full chunk shape), unless every byte
+    is the fill value."""
+    if raw.count(0) == len(raw):
+        return
+    target = _chunk_path(adir, meta, i)
+    target.parent.mkdir(parents=True, exist_ok=True)
+    target.write_bytes(_zstd().compress(raw, asbytes=True))
+
+
+def _bounded_submit(pending: deque, fn, *args):
+    """Queue `fn(*args)` on the chunk pool, holding at most two chunks a
+    thread in flight (each holds one chunk's bytes)."""
+    pending.append(_chunk_pool().submit(fn, *args))
+    while len(pending) > 2 * _THREADS:
+        pending.popleft().result()
+
+
+def _drain(pending: deque):
+    while pending:
+        pending.popleft().result()
+
+
 def write_zarr_array(path: str, key: str, arr: np.ndarray, dtype: str):
     """Write a 1-d array at `path/key`, replacing whatever was there."""
     arr = np.ascontiguousarray(np.asarray(arr, dtype=np.dtype(dtype).newbyteorder("<")))
@@ -111,17 +151,69 @@ def write_zarr_array(path: str, key: str, arr: np.ndarray, dtype: str):
     chunk = meta["chunk_grid"]["configuration"]["chunk_shape"][0]
     if len(arr) == 0:
         return
-    codec = _zstd()
+    _zstd()  # fail before any chunk if there is no codec
+    pending: deque[Future] = deque()
     for i, c0 in enumerate(range(0, len(arr), chunk)):
         block = arr[c0 : c0 + chunk]
         if len(block) < chunk:  # the edge chunk is stored at full shape
             block = np.concatenate([block, np.zeros(chunk - len(block), arr.dtype)])
-        raw = block.tobytes()
-        if raw.count(0) == len(raw):  # all fill value: not stored
-            continue
-        target = _chunk_path(adir, meta, i)
-        target.parent.mkdir(parents=True, exist_ok=True)
-        target.write_bytes(codec.compress(raw, asbytes=True))
+        _bounded_submit(pending, _store_chunk, adir, meta, i, block.tobytes())
+    _drain(pending)
+
+
+class _ZarrChunkWriter:
+    """A 1-d zarr v3 array of `n` elements written front to back: `write`
+    takes the next elements, each chunk is compressed and stored as it
+    fills (an all-fill chunk is not stored, the edge chunk is padded), so
+    at most one chunk is held. The result is byte-equal to
+    `write_zarr_array` of the whole array."""
+
+    def __init__(self, path: str, key: str, n: int, dtype: str):
+        self.dtype = np.dtype(dtype).newbyteorder("<")
+        self.adir = Path(path) / key.lstrip("/")
+        if self.adir.exists():
+            shutil.rmtree(self.adir)
+        self.adir.mkdir(parents=True)
+        self.meta = _zarr_array_meta(n, self.dtype)
+        (self.adir / "zarr.json").write_text(
+            json.dumps(self.meta, sort_keys=True, separators=(",", ":")))
+        self.n = int(n)
+        self.chunk = self.meta["chunk_grid"]["configuration"]["chunk_shape"][0]
+        self.buf = np.zeros(self.chunk, self.dtype)
+        self.fill = 0  # elements of the current chunk written
+        self.index = 0  # current chunk
+        self.written = 0
+        self.pending: deque[Future] = deque()
+        if self.n:
+            _zstd()  # fail before any chunk if there is no codec
+
+    def write(self, arr: np.ndarray):
+        arr = np.asarray(arr).astype(self.dtype, copy=False)
+        if self.written + len(arr) > self.n:
+            raise ValueError(f"{self.adir}: {self.written + len(arr)} elements for {self.n}")
+        o = 0
+        while o < len(arr):
+            take = min(self.chunk - self.fill, len(arr) - o)
+            self.buf[self.fill : self.fill + take] = arr[o : o + take]
+            self.fill += take
+            o += take
+            if self.fill == self.chunk:
+                self._flush()
+        self.written += len(arr)
+
+    def _flush(self):
+        self.buf[self.fill :] = 0  # the edge chunk is stored at full shape
+        _bounded_submit(self.pending, _store_chunk, self.adir, self.meta, self.index,
+                        self.buf.tobytes())
+        self.index += 1
+        self.fill = 0
+
+    def close(self):
+        if self.written != self.n:
+            raise ValueError(f"{self.adir}: {self.written} of {self.n} elements written")
+        if self.fill:
+            self._flush()
+        _drain(self.pending)
 
 
 class _ZarrArray:
@@ -165,14 +257,22 @@ class _ZarrArray:
 
 
     def read(self, lb: int = 0, ub: int | None = None) -> np.ndarray:
-        """Elements [lb, ub), decoding only the chunks that cover them, one
-        at a time into the output."""
+        """Elements [lb, ub), decoding only the chunks that cover them, each
+        into its place in the output (several at a time on the chunk pool)."""
         lo, hi = int(lb), self.n if ub is None else min(int(ub), self.n)
         out = np.empty(max(hi - lo, 0), self.dtype.newbyteorder("="))
-        for i in range(lo // self.chunk, -(-hi // self.chunk) if hi > lo else 0):
+
+        def put(i):
             c0 = i * self.chunk
             s0, s1 = max(lo, c0), min(hi, c0 + self.chunk)
             out[s0 - lo : s1 - lo] = self.decode(i)[s0 - c0 : s1 - c0]
+
+        chunks = range(lo // self.chunk, -(-hi // self.chunk) if hi > lo else 0)
+        if len(chunks) > 1:
+            list(_chunk_pool().map(put, chunks))
+        else:
+            for i in chunks:
+                put(i)
         return out
 
 
@@ -234,9 +334,28 @@ class SparseBackend(abc.ABC):
     @abc.abstractmethod
     def column_names(self) -> list[str]: ...
 
+    def read_rows_csr(self, rows: Sequence[int] | np.ndarray) -> sp.csr_matrix:
+        """[len(rows), N] CSR slab."""
+        raise NotImplementedError(f"{type(self).__name__} has no row reads")
+
     @property
     def shape(self) -> tuple[int, int]:
         return (self.num_rows, self.num_columns)
+
+    def read_columns_dense(self, columns) -> np.ndarray:
+        return np.asarray(self.read_columns_csc(columns).todense())
+
+    def read_column_range_csc(self, lb: int, ub: int) -> sp.csc_matrix:
+        return self.read_columns_csc(np.arange(lb, ub))
+
+    def column_block_sizes(self, block_size: int) -> list[tuple[int, int]]:
+        """Half-open [lb, ub) column blocks of `block_size`."""
+        n = self.num_columns
+        return [(lb, min(lb + block_size, n)) for lb in range(0, n, block_size)]
+
+    def column_nnz(self) -> np.ndarray | None:
+        """Per-column nonzero counts where they are cheap, else None."""
+        return None
 
 
 def _take_columns(csc: sp.csc_matrix, columns) -> sp.csc_matrix:
@@ -252,6 +371,7 @@ class MemoryBackend(SparseBackend):
 
     def __init__(self, csc: sp.csc_matrix, row_names=None, column_names=None):
         self._csc = sp.csc_matrix(csc)
+        self._csr: sp.csr_matrix | None = None
         d, n = self._csc.shape
         self._row_names = list(row_names) if row_names else [f"r{i}" for i in range(d)]
         self._col_names = list(column_names) if column_names else [f"c{j}" for j in range(n)]
@@ -271,11 +391,27 @@ class MemoryBackend(SparseBackend):
     def read_columns_csc(self, columns):
         return _take_columns(self._csc, columns)
 
+    def read_rows_csr(self, rows):
+        if self._csr is None:
+            self._csr = self._csc.tocsr()
+        return self._csr[np.asarray(rows, dtype=np.int64), :]
+
+    def column_nnz(self):
+        return np.diff(self._csc.indptr).astype(np.int64)
+
     def row_names(self):
         return self._row_names
 
     def column_names(self):
         return self._col_names
+
+    def register_row_names(self, names):
+        assert len(names) == self.num_rows
+        self._row_names = list(names)
+
+    def register_column_names(self, names):
+        assert len(names) == self.num_columns
+        self._col_names = list(names)
 
 
 class _CompressedFileBackend(SparseBackend):
@@ -285,6 +421,7 @@ class _CompressedFileBackend(SparseBackend):
     def __init__(self, path: str):
         self.path = str(path)
         self._col_indptr: np.ndarray | None = None
+        self._row_indptr: np.ndarray | None = None
         self._shape: tuple[int, int, int] | None = None
 
     @abc.abstractmethod
@@ -323,6 +460,7 @@ class _CompressedFileBackend(SparseBackend):
         self._write_shape_metadata(d, n, int(csc.nnz))
         self._shape = (d, n, int(csc.nnz))
         self._col_indptr = csc.indptr.astype(np.int64)
+        self._row_indptr = csr.indptr.astype(np.int64)
 
     def register_row_names(self, names):
         assert len(names) == self.num_rows, "row name length mismatch"
@@ -361,26 +499,44 @@ class _CompressedFileBackend(SparseBackend):
             self._col_indptr = self._read_array("by_column/indptr").astype(np.int64)
         return self._col_indptr
 
-    def read_columns_csc(self, columns):
-        idx = np.asarray(columns, dtype=np.int64)
-        indptr = self._column_indptr()
+    def _row_indptr_vec(self) -> np.ndarray:
+        if self._row_indptr is None:
+            self._row_indptr = self._read_array("by_row/indptr").astype(np.int64)
+        return self._row_indptr
+
+    def column_nnz(self):
+        return np.diff(self._column_indptr()).astype(np.int64)
+
+    def _read_slabs(self, axis: str, indptr: np.ndarray, idx: np.ndarray):
+        """(data, indices, out_indptr) of the slots `idx` of one
+        orientation, one ranged read per contiguous run of slots."""
         starts, ends = indptr[idx], indptr[idx + 1]
         out_ptr = np.zeros(len(idx) + 1, np.int64)
         np.cumsum(ends - starts, out=out_ptr[1:])
         data = np.empty(int(out_ptr[-1]), np.float32)
         indices = np.empty(int(out_ptr[-1]), np.int64)
         i = 0
-        while i < len(idx):  # one ranged read per contiguous run of columns
+        while i < len(idx):
             j = i
             while j + 1 < len(idx) and starts[j + 1] == ends[j]:
                 j += 1
             lb, ub = int(starts[i]), int(ends[j])
             if ub > lb:
                 o = int(out_ptr[i])
-                data[o : o + ub - lb] = self._read_array("by_column/data", lb, ub)
-                indices[o : o + ub - lb] = self._read_array("by_column/indices", lb, ub)
+                data[o : o + ub - lb] = self._read_array(f"{axis}/data", lb, ub)
+                indices[o : o + ub - lb] = self._read_array(f"{axis}/indices", lb, ub)
             i = j + 1
-        return sp.csc_matrix((data, indices, out_ptr), shape=(self.num_rows, len(idx)))
+        return data, indices, out_ptr
+
+    def read_columns_csc(self, columns):
+        idx = np.asarray(columns, dtype=np.int64)
+        data, indices, ptr = self._read_slabs("by_column", self._column_indptr(), idx)
+        return sp.csc_matrix((data, indices, ptr), shape=(self.num_rows, len(idx)))
+
+    def read_rows_csr(self, rows):
+        idx = np.asarray(rows, dtype=np.int64)
+        data, indices, ptr = self._read_slabs("by_row", self._row_indptr_vec(), idx)
+        return sp.csr_matrix((data, indices, ptr), shape=(len(idx), self.num_columns))
 
     def _names(self, key: str, n: int, prefix: str) -> list[str]:
         names = self._read_name_list(key)
@@ -409,7 +565,7 @@ class ZarrBackend(_CompressedFileBackend):
 
         super().__init__(path)
         self._arrays: dict[str, _ZarrArray] = {}
-        self._csc: sp.csc_matrix | None = None
+        self._mats: dict[str, sp.spmatrix] = {}  # "by_column" CSC / "by_row" CSR
         self._csc_lock = threading.Lock()
 
     def _array(self, key: str) -> _ZarrArray:
@@ -421,38 +577,48 @@ class ZarrBackend(_CompressedFileBackend):
     def _read_array(self, key, lb=0, ub=None):
         return self._array(key).read(lb, ub)
 
-    def _whole_csc(self) -> sp.csc_matrix | None:
-        """The column arrays decoded whole (once), where each fits in
-        WHOLE_BYTES: column reads are then slices and gathers in memory."""
-        if self._csc is None:
-            arrays = [self._array(k) for k in ("by_column/data", "by_column/indices")]
+    def _whole(self, axis: str):
+        """One orientation's arrays decoded whole (once), where each fits in
+        WHOLE_BYTES: reads are then slices and gathers in memory."""
+        if axis not in self._mats:
+            arrays = [self._array(f"{axis}/{k}") for k in ("data", "indices")]
             if max(a.n * a.dtype.itemsize for a in arrays) > self.WHOLE_BYTES:
                 return None
             with self._csc_lock:
-                if self._csc is None:
+                if axis not in self._mats:
                     data, indices = (a.read() for a in arrays)
-                    # uint64 row indices below 2^63: reinterpreted, not copied
-                    self._csc = sp.csc_matrix(
-                        (data.astype(np.float32, copy=False),
-                         indices.view(np.int64) if indices.dtype == np.uint64
-                         else indices.astype(np.int64, copy=False),
-                         self._column_indptr()), shape=(self.num_rows, self.num_columns))
-        return self._csc
+                    # uint64 indices below 2^63: reinterpreted, not copied
+                    args = (data.astype(np.float32, copy=False),
+                            indices.view(np.int64) if indices.dtype == np.uint64
+                            else indices.astype(np.int64, copy=False))
+                    self._mats[axis] = (
+                        sp.csc_matrix((*args, self._column_indptr()), shape=self.shape)
+                        if axis == "by_column" else
+                        sp.csr_matrix((*args, self._row_indptr_vec()), shape=self.shape))
+        return self._mats[axis]
 
     def read_columns_csc(self, columns):
         """Columns from the arrays decoded whole where they fit in
         WHOLE_BYTES (scattered reads, such as the matched-neighbour
         statistics', are then in-memory gathers); else one ranged read per
         run of columns."""
-        whole = self._whole_csc()
+        whole = self._whole("by_column")
         if whole is not None:
             return _take_columns(whole, columns)
         return super().read_columns_csc(columns)
 
+    def read_rows_csr(self, rows):
+        """Rows from the row arrays decoded whole where they fit in
+        WHOLE_BYTES, else one ranged read per run of rows."""
+        whole = self._whole("by_row")
+        if whole is not None:
+            return whole[np.asarray(rows, dtype=np.int64), :]
+        return super().read_rows_csr(rows)
+
     def _write_array(self, key, arr, dtype):
         write_zarr_array(self.path, key, arr, dtype)
         self._arrays.pop(key, None)
-        self._csc = None
+        self._mats.clear()
 
     def _read_name_list(self, key):
         from .zarr_strings import read_string_array
@@ -652,6 +818,139 @@ def create_sparse_from_csc(
     if column_names is not None:
         backend.register_column_names(column_names)
     return backend
+
+
+class StreamingCscWriter:
+    """Bounded-memory `.zarr` construction from column slabs (the JAX
+    package's `StreamingCscWriter`, writing through this module's chunk
+    encoder instead of tensorstore).
+
+    `append(csc_slab)` spills each slab's COO arrays to disk; nothing is
+    held across slabs. `finalize()` writes `by_column/*` in one sequential
+    pass over the spilled slabs, then `by_row/*` in gene-chunk passes over
+    them, each holding one gene chunk's entries (at most `MAX_CHUNK_NNZ`
+    where a single gene allows). Every array goes out chunk by chunk as it
+    fills (`_ZarrChunkWriter`), so the store equals what
+    `create_sparse_from_csc` writes for the same matrix.
+
+    Usage:
+        w = StreamingCscWriter(path, n_rows, row_names=...)
+        for slab in blocks: w.append(slab)
+        backend = w.finalize(column_names=...)
+    """
+
+    MAX_CHUNK_NNZ = 1 << 22  # entries one by_row pass may hold
+
+    def __init__(self, path: str | os.PathLike, n_rows: int, *,
+                 row_names: Sequence[str] | None = None, gene_chunk: int = 8192):
+        self.path = str(path)
+        self.n_rows = int(n_rows)
+        self.row_names = row_names
+        self.gene_chunk = int(gene_chunk)
+        self._spill = Path(self.path + ".spill")
+        self._spill.mkdir(parents=True, exist_ok=True)
+        self._n_slabs = 0
+        self._n_cols = 0
+        self._nnz = 0
+        self._row_counts = np.zeros(self.n_rows, np.int64)
+        self._col_indptr_parts: list[np.ndarray] = [np.zeros(1, np.int64)]
+        self._slab_starts: list[int] = []  # nonzeros before each slab
+
+    def append(self, csc_slab: sp.spmatrix):
+        slab = sp.csc_matrix(csc_slab)
+        if slab.shape[0] != self.n_rows:
+            raise ValueError(f"slab rows {slab.shape[0]} != {self.n_rows}")
+        i = self._n_slabs
+        np.save(self._spill / f"data{i}.npy", slab.data.astype(np.float32))
+        np.save(self._spill / f"indices{i}.npy", slab.indices.astype(np.int64))
+        self._col_indptr_parts.append(slab.indptr[1:].astype(np.int64) + self._nnz)
+        self._slab_starts.append(self._nnz)
+        self._row_counts += np.bincount(slab.indices, minlength=self.n_rows).astype(np.int64)
+        self._n_slabs += 1
+        self._n_cols += slab.shape[1]
+        self._nnz += slab.nnz
+
+    def _gene_bounds(self, row_indptr: np.ndarray) -> list[int]:
+        """Gene-chunk boundaries, each chunk's nonzeros within MAX_CHUNK_NNZ
+        where a single gene allows (a short, wide matrix must not become
+        one chunk of every nonzero)."""
+        bounds = [0]
+        while bounds[-1] < self.n_rows:
+            glb = bounds[-1]
+            gub = min(glb + self.gene_chunk, self.n_rows)
+            while gub > glb + 1 and row_indptr[gub] - row_indptr[glb] > self.MAX_CHUNK_NNZ:
+                gub = glb + max(1, (gub - glb) // 2)
+            bounds.append(gub)
+        return bounds
+
+    def finalize(self, column_names: Sequence[str] | None = None) -> SparseBackend:
+        Path(self.path).mkdir(parents=True, exist_ok=True)
+        for key, v in (("nrow", self.n_rows), ("ncol", self._n_cols), ("nnz", self._nnz)):
+            write_zarr_array(self.path, key, np.asarray([v], np.uint64), "uint64")
+        write_zarr_group_metadata(self.path, {"nrow": self.n_rows, "ncol": self._n_cols,
+                                              "nnz": self._nnz})
+        write_zarr_group_metadata(self.path, key="by_column")
+        write_zarr_group_metadata(self.path, key="by_row")
+
+        # by_column: one sequential pass over the slabs
+        data_w = _ZarrChunkWriter(self.path, "by_column/data", self._nnz, "float32")
+        idx_w = _ZarrChunkWriter(self.path, "by_column/indices", self._nnz, "uint64")
+        for i in range(self._n_slabs):
+            data_w.write(np.load(self._spill / f"data{i}.npy"))
+            idx_w.write(np.load(self._spill / f"indices{i}.npy").astype(np.uint64))
+        data_w.close()
+        idx_w.close()
+        write_zarr_array(self.path, "by_column/indptr",
+                         np.concatenate(self._col_indptr_parts).astype(np.uint64), "uint64")
+
+        # by_row: gene-chunk passes over the slabs; each pass keeps one gene
+        # chunk's entries
+        row_indptr = np.zeros(self.n_rows + 1, np.int64)
+        np.cumsum(self._row_counts, out=row_indptr[1:])
+        rdata_w = _ZarrChunkWriter(self.path, "by_row/data", self._nnz, "float32")
+        ridx_w = _ZarrChunkWriter(self.path, "by_row/indices", self._nnz, "uint64")
+        bounds = self._gene_bounds(row_indptr)
+        for glb, gub in zip(bounds[:-1], bounds[1:]):
+            base = row_indptr[glb]
+            chunk_nnz = int(row_indptr[gub] - base)
+            if chunk_nnz == 0:
+                continue
+            cd = np.empty(chunk_nnz, np.float32)
+            cc = np.empty(chunk_nnz, np.int64)
+            fill = row_indptr[glb:gub] - base  # next free slot of each row
+            col_off = 0
+            for i in range(self._n_slabs):
+                d = np.load(self._spill / f"data{i}.npy")
+                r = np.load(self._spill / f"indices{i}.npy")
+                ptr = self._col_indptr_parts[i + 1] - self._slab_starts[i]  # column ends
+                sel = np.flatnonzero((r >= glb) & (r < gub))
+                if len(sel):
+                    # slabs arrive in column order, so a stable sort by row
+                    # keeps each row's columns sorted
+                    cols = np.searchsorted(ptr, sel, side="right")
+                    rs = r[sel] - glb
+                    order = np.argsort(rs, kind="stable")
+                    rs = rs[order]
+                    counts = np.bincount(rs, minlength=gub - glb)
+                    starts = np.cumsum(counts) - counts
+                    pos = fill[rs] + np.arange(len(rs)) - np.repeat(starts, counts)
+                    cd[pos] = d[sel][order]
+                    cc[pos] = cols[order] + col_off
+                    fill = fill + counts
+                col_off += len(ptr)
+            rdata_w.write(cd)
+            ridx_w.write(cc.astype(np.uint64))
+        rdata_w.close()
+        ridx_w.close()
+        write_zarr_array(self.path, "by_row/indptr", row_indptr.astype(np.uint64), "uint64")
+
+        shutil.rmtree(self._spill, ignore_errors=True)
+        backend = ZarrBackend(self.path)
+        if self.row_names is not None:
+            backend.register_row_names(self.row_names)
+        if column_names is not None:
+            backend.register_column_names(column_names)
+        return backend
 
 
 def open_sparse_matrix(path: str | os.PathLike) -> SparseBackend:

@@ -20,6 +20,11 @@ What must equal the JAX package's exactly, on any device:
   `split(kb, 3)` -> mask, rate, noise) drawn with the port's threefry.
   The JAX package folds epochs into one dispatch (`utils/scan_train.py`);
   the port loops over them with the same keys.
+
+On the card the gathers of rho and log phi by the windows' gene ids take
+their backward through K3 (`gather_rows`), so two runs from the same
+seed give the same bits: autograd's own scatter adds a gene's gradients
+from many cells with float atomics, in another order each run.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from torch import nn
 
 from ..data.visitors import visit_columns_by_block
+from ..ops import kernels
 from ..ops import sparse as sparse_ops
 from ..ops.random_projection import block_to_device
 from ..ops.transforms import anscombe_lite
@@ -38,6 +44,45 @@ from ..utils import prng
 from . import losses
 from .encoders import FlaxBatchNorm, dense, soft_clamp
 from .train import clip_grads_nonfinite_
+
+
+# ---- gathers by gene id with a fixed-order backward --------------------------
+
+
+class _RowGather(torch.autograd.Function):
+    """`table[ids]`; the backward sums each table row's gradients as K3's
+    group sum (`out[h, seg[c]] += v`, a flat position c being a cell with
+    the gradient row as its column and its id as its group), which adds in
+    an order fixed by the inputs."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids.long()]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        m = ids.numel()
+        h = grad.numel() // max(m, 1)
+        dev = grad.device
+        g = grad.reshape(m, h).to(torch.float32).contiguous()
+        col_ptr = torch.arange(0, (m + 1) * h, h, dtype=torch.int32, device=dev)
+        row_ids = torch.arange(h, dtype=torch.int32, device=dev).repeat(m)
+        plane = kernels.collapse(row_ids, col_ptr, g.reshape(-1),
+                                 ids.reshape(-1).to(torch.int32), num_genes=h,
+                                 num_groups=ctx.rows, also_count="collapse_gather")  # [h, rows]
+        return plane.T.reshape((ctx.rows,) + tuple(grad.shape[ids.dim():])).to(grad.dtype), None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`table[ids]`. A card tensor's backward goes through K3 (the same
+    bits in every run); a CPU tensor keeps plain indexing, whose backward
+    already adds in index order."""
+    if table.device.type == "cpu" or not torch.is_grad_enabled() or not table.requires_grad:
+        return table[ids.long()]
+    return _RowGather.apply(table, ids)
 
 
 # ---- packed top-K windows -----------------------------------------------------
@@ -141,7 +186,7 @@ class IndexedEmbeddingEncoder(nn.Module):
                              % (self.with_null, "a" if null_vals is not None else "no"))
         a_raw = anscombe_lite(vals)
         a = a_raw / torch.clamp(a_raw.sum(-1, keepdim=True), min=1e-6)
-        emb = rho_dh[ids.long()]  # [B, K, H]
+        emb = gather_rows(rho_dh, ids)  # [B, K, H]
         pooled = torch.einsum("bk,bkh->bh", a, emb)
         if null_vals is not None:
             a0 = anscombe_lite(null_vals)
@@ -203,6 +248,9 @@ class MaskedTopicModel(nn.Module):
 
     def union_log_softmax(self, union, log_q_u, valid_u):
         """log_softmax(alpha rho_u^T - log q_u) over the union's valid ids."""
+        # the union's ids are distinct but for the pad id D, whose columns
+        # are masked out (zero gradient): plain indexing adds in any order
+        # to the same bits
         w_ku = self.alpha @ self.rho[union].T - log_q_u[None, :]
         return torch.log_softmax(torch.where(valid_u[None, :], w_ku, -1e30), dim=-1)
 
@@ -229,7 +277,7 @@ class MaskedTopicModel(nn.Module):
             n_scored = torch.clamp(torch.where(scored, vals, zero).sum(-1), min=1.0)
         else:
             mu = torch.exp(log_p) * vals.sum(-1, keepdim=True)
-            elem = losses.nb_log_likelihood_elem(vals, mu, self.log_phi[ids_l])
+            elem = losses.nb_log_likelihood_elem(vals, mu, gather_rows(self.log_phi, ids_l))
             llik = torch.where(scored, elem, zero).sum(-1)
             n_scored = torch.clamp(scored.sum(-1), min=1).to(vals.dtype)
         loss = -(llik / n_scored)

@@ -70,8 +70,10 @@ NCE_PARTIAL_US = 8 / 3.35e6
 NCE_PARTIAL_CAP = 10_000_000  # partial floats a plan stays under where it can (40 MB)
 
 # launches per kernel; `chip_smoke.py` zeroes them before the main path
+# `nce_epoch_axis`: K4's launches without the feature side (also in nce_epoch);
+# `collapse_gather`: K3's launches for a gather's backward (also in collapse)
 launch_counts = {"project_normed": 0, "project_raw": 0, "collapse": 0, "nce_epoch": 0,
-                 "nce_epoch_axis": 0}  # K4's launches without the feature side (also in nce_epoch)
+                 "nce_epoch_axis": 0, "collapse_gather": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -440,9 +442,12 @@ def collapse(
     num_genes: int,
     num_groups: int,
     out: torch.Tensor | None = None,
+    also_count: str | None = None,
 ) -> torch.Tensor:
     """[num_genes, num_groups] group sums of a column-sorted block (K3).
-    With `out`, the sums are added into that plane in place."""
+    With `out`, the sums are added into that plane in place. A launch
+    adds one to `launch_counts["collapse"]` and, with `also_count`, to
+    that key as well."""
     if vals.device.type == "cpu":
         plane = collapse_plain(
             row_ids, col_ptr, vals, seg_of_col, num_genes=num_genes, num_groups=num_groups
@@ -478,6 +483,8 @@ def collapse(
     )
     _raise_on(err, "collapse")
     launch_counts["collapse"] += 1
+    if also_count is not None:
+        launch_counts[also_count] += 1
     return out
 
 

@@ -1,9 +1,10 @@
-"""Figures of `senna plot` and `senna plot-topic` (the port's copy of the
-functions of the JAX package's `utils/plot.py` that these commands use).
+"""Figures of `senna plot`, `senna plot-topic` and `senna plot-strand`
+(the port's copy of the functions of the JAX package's `utils/plot.py`
+that these commands use).
 
 matplotlib's Agg/SVG/PDF backends draw the reference's artifact kinds:
 embedding scatters coloured by cluster, topic, pseudotime or annotation,
-admixture structure bars and Hinton diagrams. matplotlib is imported
+admixture structure bars, Hinton diagrams and strand ideograms. matplotlib is imported
 only when a figure is drawn.
 """
 
@@ -60,6 +61,53 @@ def structure_bars(
     fig.tight_layout()
     fig.savefig(out)
     plt.close(fig)
+
+
+def strand_ideogram(
+    activity: np.ndarray,  # [G] per-gene activity for one group
+    chrom: np.ndarray,  # [G] chromosome index per gene
+    pos: np.ndarray,  # [G] genomic position (TSS)
+    strand: np.ndarray,  # [G] +1 / -1
+    chrom_names: list,
+    out: str,
+    *,
+    bins: int = 200,
+    title: str = "",
+):
+    """Watson/Crick mirrored genomic-activity ideogram (`senna
+    plot-strand`; postprocess/plot/strand/mod.rs): per chromosome,
+    forward-strand gene activity binned and filled upward, reverse
+    mirrored downward around a shared axis; chromosomes stacked."""
+    plt = _mpl()
+    n_chrom = len(chrom_names)
+    fig, axes = plt.subplots(
+        n_chrom, 1, figsize=(10, 1.1 * n_chrom), squeeze=False, sharex=False
+    )
+    for c in range(n_chrom):
+        ax = axes[c, 0]
+        m = chrom == c
+        if m.any():
+            p = pos[m].astype(float)
+            a = activity[m]
+            s = strand[m]
+            lo, hi = p.min(), max(p.max(), p.min() + 1)
+            edges = np.linspace(lo, hi, bins + 1)
+            up, _ = np.histogram(p[s > 0], bins=edges, weights=a[s > 0])
+            dn, _ = np.histogram(p[s < 0], bins=edges, weights=a[s < 0])
+            centers = (edges[:-1] + edges[1:]) / 2
+            ax.fill_between(centers, 0, up, step="mid", color=PALETTE[0], lw=0)
+            ax.fill_between(centers, 0, -dn, step="mid", color=PALETTE[2], lw=0)
+        ax.axhline(0, color="k", lw=0.5)
+        ax.set_ylabel(chrom_names[c], rotation=0, ha="right", va="center", fontsize=7)
+        ax.set_yticks([])
+        for side in ("top", "right", "left"):
+            ax.spines[side].set_visible(False)
+    if title:
+        axes[0, 0].set_title(title, fontsize=9)
+    fig.tight_layout()
+    fig.savefig(out, dpi=150)
+    plt.close(fig)
+    return out
 
 
 def hinton(

@@ -193,3 +193,12 @@ def test_port_imports_no_jax():
     }
     assert len(files) > 30
     assert {k: v for k, v in bad.items() if v} == {}
+    # the native MatrixMarket / fragments parser is the port's own copy,
+    # built into the port's build directory, never the repo's `native/`
+    from legume_tpu_torch.data import ioaccel
+
+    port = REPO / "legume_tpu_torch"
+    assert ioaccel._SRC == port / "native" / "ioaccel.cpp" and ioaccel._SRC.exists()
+    assert ioaccel.BUILD_DIR == port / "_build"
+    src = (port / "data" / "ioaccel.py").read_text()
+    assert "parents[2]" not in src and '"native" / "lib' not in src

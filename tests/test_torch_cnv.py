@@ -136,7 +136,7 @@ def test_cocoa_cnv_side_channel_matches_jax(tmp_path):
     assert score.loc[blk, carriers].to_numpy().mean() > score.loc[blk, others].to_numpy().mean()
 
 
-def test_call_cnv_on_residuals_matches_jax():
+def test_call_cnv_on_residuals_matches_jax(tmp_path):
     rng = np.random.default_rng(3)
     mu = rng.gamma(3.0, 1.0, (120, 9)).astype(np.float32)
     mu[40:70, :3] *= 2.0
@@ -145,8 +145,15 @@ def test_call_cnv_on_residuals_matches_jax():
     np.testing.assert_array_equal(got.states, want.states)
     np.testing.assert_allclose(got.log_ratio, want.log_ratio, rtol=0, atol=1e-6)
     np.testing.assert_allclose(got.posteriors, want.posteriors, rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="GFF"):
-        tcnv.genome_order_from_gff(["g0"], "x.gff")
+    # the GFF gene order (ported with faba's GFF reader) equals JAX's
+    gff = tmp_path / "g.gff3"
+    gff.write_text("".join(f"chr{1 + i % 2}\tsim\tgene\t{1000 - 7 * i}\t{1100 - 7 * i}\t.\t"
+                           f"{'+-'[i % 3 == 0]}\t.\tID=gene:g{i};Name=g{i}\n" for i in range(12)))
+    names = [f"g{i}" for i in range(0, 14, 2)]
+    got, want = tcnv.genome_order_from_gff(names, str(gff)), jcnv.genome_order_from_gff(names,
+                                                                                         str(gff))
+    for f in ("ordered", "chrom", "pos"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
 
 
 def test_topic_cnv_writes_jax_columns(tmp_path):

@@ -214,9 +214,13 @@ def test_cli_simulators_and_unported_options(e2e, tmp_path):
             pd.read_parquet(out + "_j.truth.parquet"))
     assert (tmp_path / "simulate-collider.celltype.parquet").exists()
     base = ["cocoa", "diff", *e2e["flags"], "--out", str(tmp_path / "x"), "--device", "cpu"]
-    for extra, name in ((["--data-parallel"], "--data-parallel"), (["--gff", "x.gff"], "--gff")):
-        with pytest.raises(NotImplementedError, match=name):
-            port_cli(base + extra)
+    with pytest.raises(NotImplementedError, match="--data-parallel"):
+        port_cli(base + ["--data-parallel"])
+    # --gff is ported (faba's GFF reader): no longer refused up front
+    from legume_tpu_torch.cocoa.diff import CocoaDiffArgs, check_supported
+
+    assert check_supported(CocoaDiffArgs(data_files=["x"], out="x", indv_file="i",
+                                         exposure_file="e", gff="x.gff")) is None
 
 
 def test_match_cache_reused_across_packages(e2e, tmp_path):

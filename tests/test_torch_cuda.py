@@ -882,12 +882,36 @@ def _vec(counts, batch=None):
     return vec
 
 
+def _masked_eval_loss_f64(a, data) -> float:
+    """The held-out eval loss of `run_masked(a)`'s training (the same init,
+    keys and windows) in float64 on the CPU."""
+    from legume_tpu_torch.models.indexed import (IndexedData, MaskedTopicModel,
+                                                 MaskedTrainConfig, masked_keys, train_masked)
+    from legume_tpu_torch.utils import prng
+
+    model = MaskedTopicModel(
+        data.n_genes, a.n_latent_topics, embed_dim=a.embed_dim, latent=a.latent,
+        kl_weight=a.kl_weight, masked_likelihood=a.masked_likelihood,
+        n_gene_modules=a.gene_modules,
+        generator=prng.generator_from_key(masked_keys(a.seed)[0])).double()
+    d64 = IndexedData(ids=data.ids, vals=data.vals.astype(np.float64),
+                      log_q=data.log_q.astype(np.float64), n_genes=data.n_genes)
+    cfg = MaskedTrainConfig(
+        epochs=a.epochs, minibatch=a.minibatch_size, learning_rate=a.learning_rate,
+        mask_frac=a.mask_frac, mask_schedule=a.mask_schedule, mask_rate_lo=a.mask_rate_lo,
+        mask_rate_hi=a.mask_rate_hi, weight_decay=a.weight_decay, grad_clip=a.grad_clip,
+        feature_embedding_l2=a.feature_embedding_l2, eval_mask_frac=a.eval_mask_fraction,
+        eval_seed=a.eval_seed, seed=a.seed)
+    return float(train_masked(model, d64, cfg, device="cpu")[2])
+
+
 def test_vae_svd_and_masked_runs_on_the_card_match_the_cpu(dev, tmp_path):
     """vae at 0 epochs (the same CPU-drawn init on both) within 1e-4;
     svd's partition equal, its pseudobulk plane within 1e-5, the rSVD of
     one plane and the per-cell projection with one basis within 1e-4; a
     masked run (JAX's key schedule, drawn alike on both) with its trace
-    and eval loss within 1e-4."""
+    within 1e-4 and its eval loss within twice the CPU's distance from
+    the same training in float64 (1e-4 at the least)."""
     import types
 
     from legume_tpu_torch.cli.senna_cmds.masked_cmds import run_masked
@@ -937,7 +961,18 @@ def test_vae_svd_and_masked_runs_on_the_card_match_the_cpu(dev, tmp_path):
             feature_network=None, seed=0, latent="simplex", device=str(d))
         masked[str(d)] = run_masked(a, vec=_vec(sim.counts))
     np.testing.assert_allclose(masked["cuda"]["trace"], masked["cpu"]["trace"], rtol=1e-4)
-    assert abs(masked["cuda"]["eval_loss"] - masked["cpu"]["eval_loss"]) <= 1e-4
+    # The eval loss: the card's run is the same in every process (its
+    # gathers' backward goes through K3), the CPU's float32 run is not
+    # (threaded sums: 29.67752 to 29.67783 over six processes on an H100
+    # host's CPU, where the card gave 29.677649 in each), so a 1e-4 bar
+    # against the CPU failed at random. Held as the models' gradients are
+    # held above: the card within twice the CPU float32 loss's own
+    # distance from the same training in float64.
+    l64 = _masked_eval_loss_f64(a, masked["cpu"]["data"])
+    err_card = abs(masked["cuda"]["eval_loss"] - l64)
+    err_cpu = abs(masked["cpu"]["eval_loss"] - l64)
+    print(f"masked eval loss: card {err_card:.3g}, cpu {err_cpu:.3g} from float64 {l64:.8f}")
+    assert err_card <= max(1e-4, 2.0 * err_cpu), (err_card, err_cpu)
 
 
 # ---- slice 11: fne's tied K4, deconvolve's archetype K3, the new commands ----
@@ -1032,3 +1067,139 @@ def test_slice11_commands_on_the_card_match_the_cpu(dev, tmp_path):
             for d in (dev, "cpu")]
     np.testing.assert_array_equal(refs[0].membership, refs[1].membership)
     np.testing.assert_allclose(refs[0].mu_gm, refs[1].mu_gm, rtol=1e-5, atol=1e-5)
+
+
+# ---- slice 12: deterministic masked gradients, data-beans on the card ----------
+
+
+def _masked_args(out, device, **kw):
+    import types
+
+    a = dict(cmd="masked-topic", data_files=[], out=out, n_latent_topics=6, window=32,
+             embed_dim=16, gene_modules=2, epochs=3, minibatch_size=128, mask_frac=0.15,
+             mask_schedule="fixed", mask_rate_lo=0.05, mask_rate_hi=0.5, masked_likelihood="nb",
+             learning_rate=1e-3, weight_decay=0.01, grad_clip=0.0, feature_embedding_l2=0.0,
+             kl_weight=1e-3, eval_mask_fraction=0.1, eval_seed=0, data_parallel=False,
+             frozen_features=None, init_feature_embedding=None, batch_files=None,
+             adj_method="residual", sort_dim=6, iter_opt=10, feature_network=None, seed=0,
+             latent="simplex", device=str(device))
+    a.update(kw)
+    return types.SimpleNamespace(**a)
+
+
+@pytest.mark.parametrize("latent", ["simplex", "gaussian"])
+def test_masked_training_on_the_card_is_bit_equal_across_runs(dev, tmp_path, latent):
+    """Two masked runs from one seed on the card: the loss trace, the eval
+    loss, the latent and every parameter bit-equal. The gathers by gene id
+    take their backward through K3 (launched on every step)."""
+    from legume_tpu_torch.cli.senna_cmds.masked_cmds import run_masked
+
+    sim = simulate_topic(rows=400, cols=3000, factors=6, seed=21)
+    runs = []
+    for i in range(2):
+        before = dict(kernels.launch_counts)
+        runs.append(run_masked(_masked_args(str(tmp_path / f"m{i}"), dev, latent=latent),
+                               vec=_vec(sim.counts)))
+        torch.cuda.synchronize()
+        # two gathers a step (the encoder's rho, the likelihood's log phi)
+        for key in ("collapse", "collapse_gather"):
+            assert kernels.launch_counts[key] - before[key] == 2 * 3 * (3000 // 128)
+    a, b = runs
+    assert a["trace"] == b["trace"] and a["eval_loss"] == b["eval_loss"]
+    np.testing.assert_array_equal(a["latent"], b["latent"])
+    sa, sb = a["model"].state_dict(), b["model"].state_dict()
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+
+
+@pytest.mark.parametrize("width", [64, 0])
+def test_masked_gather_backward_on_the_card_matches_indexing(dev, width):
+    """`gather_rows` on card tensors, for a rho-like [rows, H] and a
+    log-phi-like [rows] table at the masked trainer's minibatch (256 cells
+    x a 128-gene window, ids with repeats): the forward equal to
+    `table[ids]`, the backward (K3's group sum, one launch) within K3's
+    tolerance of plain indexing's (atomic adds) and bit-equal across two
+    runs."""
+    from legume_tpu_torch.models import indexed as tidx
+
+    g = torch.Generator().manual_seed(5)
+    rows = 2001
+    table = torch.randn(rows, *((width,) if width else ()), generator=g).to(dev)
+    ids = torch.randint(0, rows, (256, 128), generator=g, dtype=torch.int32)
+    ids[:, 0] = 7  # one id in every cell
+    ids = ids.to(dev)
+    w = torch.randn(*ids.shape, *((width,) if width else ()), generator=g).to(dev)
+    grads = []
+    for _ in range(2):
+        a = table.clone().requires_grad_(True)
+        before = dict(kernels.launch_counts)
+        out = tidx.gather_rows(a, ids)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        assert torch.equal(out.detach(), table[ids.long()])
+        for key in ("collapse", "collapse_gather"):
+            assert kernels.launch_counts[key] - before[key] == 1
+        grads.append(a.grad)
+    b = table.clone().requires_grad_(True)
+    (b[ids.long()] * w).sum().backward()
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], b.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_data_beans_qc_on_the_card_matches_the_cpu(dev, tmp_path):
+    """`data-beans qc` and `histogram` through the port's CLI on the card
+    and on the CPU: statistics within 1e-6, masks equal, the same
+    histogram."""
+    import contextlib
+    import io
+
+    import pandas as pd
+
+    from legume_tpu_torch.cli.beans_cli import run_beans
+    from legume_tpu_torch.data.sparse_io import create_sparse_from_csc
+
+    sim = simulate_topic(rows=300, cols=2500, factors=5, seed=12)
+    names = [f"MT-{g}" if i < 9 else g for i, g in enumerate(sim.row_names)]
+    store = str(tmp_path / "x.zarr")
+    create_sparse_from_csc(sim.counts, store, names, sim.col_names)
+    tabs, hists = {}, {}
+    for d in ("cuda", "cpu"):
+        run_beans(["qc", store, "--output", str(tmp_path / d), "--device", d, "--mads", "2.5",
+                   "--ribo-pattern", "^g1", "--feature-min-cells", "50", "--report"])
+        tabs[d] = (pd.read_parquet(tmp_path / f"{d}.qc.parquet"),
+                   pd.read_parquet(tmp_path / f"{d}.qc.features.parquet"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_beans(["histogram", store, "--device", d])
+        hists[d] = buf.getvalue()
+    (g, gf), (c, cf) = tabs["cuda"], tabs["cpu"]
+    for col in ("total", "n_genes", "mito_frac", "ribo_frac"):
+        np.testing.assert_allclose(g[col], c[col], rtol=1e-6, atol=0, err_msg=col)
+    np.testing.assert_array_equal(g.keep, c.keep)
+    assert 0 < g.keep.sum() < len(g)
+    assert gf.equals(cf) and hists["cuda"] == hists["cpu"]
+
+
+def test_streaming_writer_on_the_card_machine_equals_the_in_memory_writer(dev, tmp_path,
+                                                                         monkeypatch):
+    """The streaming writer's store byte-equal to `create_sparse_from_csc`'s
+    on this machine's codec (many small chunks, several slabs)."""
+    from legume_tpu_torch.data import sparse_io as S
+
+    sim = simulate_topic(rows=150, cols=900, factors=4, seed=3)
+    monkeypatch.setattr(S, "_CHUNK", 4096)
+    monkeypatch.setattr(S.StreamingCscWriter, "MAX_CHUNK_NNZ", 5000)
+    S.create_sparse_from_csc(sim.counts, str(tmp_path / "mem.zarr"), sim.row_names, sim.col_names)
+    w = S.StreamingCscWriter(str(tmp_path / "st.zarr"), 150, row_names=sim.row_names,
+                             gene_chunk=17)
+    for lb in range(0, 900, 211):
+        w.append(sim.counts[:, lb : lb + 211])
+    w.finalize(column_names=sim.col_names)
+    mem = sorted(p.relative_to(tmp_path / "mem.zarr") for p in (tmp_path / "mem.zarr").rglob("*")
+                 if p.is_file())
+    st = sorted(p.relative_to(tmp_path / "st.zarr") for p in (tmp_path / "st.zarr").rglob("*")
+                if p.is_file())
+    assert mem == st and len(mem) > 40
+    for f in mem:
+        assert (tmp_path / "mem.zarr" / f).read_bytes() == (tmp_path / "st.zarr" / f).read_bytes()

@@ -335,6 +335,12 @@ def test_plot_topic_with_the_dictionary(topic_run, group_by):
 
 
 def test_plot_strand_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="GFF"):
-        port_cli(["senna", "plot-strand", "--activity", "a.parquet", "--gff", "g.gff",
-                  "--out", str(tmp_path / "s")])
+    # ported with faba's GFF reader: one ideogram per activity column
+    # (`tests/test_torch_gff.py` holds it to the JAX package's images)
+    pytest.importorskip("matplotlib")
+    (tmp_path / "g.gff").write_text("chr1\tx\tgene\t101\t900\t.\t+\t.\tName=A\n"
+                                    "chr2\tx\tgene\t50\t80\t.\t-\t.\tName=B\n")
+    pd.DataFrame({"gene": ["A", "B"], "t0": [1.0, 2.0]}).to_parquet(tmp_path / "a.parquet")
+    assert port_cli(["senna", "plot-strand", "--activity", str(tmp_path / "a.parquet"), "--gff",
+                     str(tmp_path / "g.gff"), "--out", str(tmp_path / "s")]) == 0
+    assert os.path.getsize(tmp_path / "s.t0.png") > 0
