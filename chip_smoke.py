@@ -101,10 +101,10 @@ Phases (any failure exits non-zero; nothing is caught):
    read just after): (a) `--multiome --skip-etm` on `simulate_multiome`
    (50,000 cells, 2,000 genes + 4,000 peaks, seed 13; K1, K3 and K4
    required, D = 6,000 checked; K4 held against its plain version at the
-   run's phase-1 plane and first phase-2 block); (b) `--posterior 12 --skip-etm` on
-   phase 5's cells (12 sweeps after 3 of burn-in; pip in [0, 1], pip and
+   run's phase-1 plane and first phase-2 block); (b) `--posterior 8 --skip-etm` on
+   phase 5's cells (8 sweeps after 2 of burn-in; pip in [0, 1], pip and
    rhat finite); (c) `pb_gibbs` at the NCE anchor from phase 6's f32 fit,
-   12 sweeps after 3 of burn-in, with seconds a sweep and the ESS shrink
+   8 sweeps after 2 of burn-in (12 after 3 before PR 13), with seconds a sweep and the ESS shrink
    iterations; (d)
    `fit_bge` with `gene_chunk=512` on phase 5's plane, its ten phase-1
    losses within a relative 1e-4 of the dense run and no K4 launch;
@@ -120,8 +120,8 @@ Phases (any failure exits non-zero; nothing is caught):
    plain versions at the first block each run gives them; on 100 cells
    of each individual the card against the CPU: the projections within
    K1's bar, caches from one projection equal up to distance ties of 1e-5,
-   stats within 1e-5, z within 1e-4, CNV states equal, and the match
-   cache reused by a second run;
+   stats within 1e-5, z within 1e-4, CNV states equal (the match cache's
+   reuse is held in phase 31; a second run here held it before PR 13);
 16. `senna topic --cnv --from` phase 2's run (its cnv table: 80 bins,
    states in {0, 1, 2});
 17. `senna vae` at the CLI defaults (`-k 16`, encoder (128, 64), 2
@@ -195,16 +195,16 @@ Phases (any failure exits non-zero; nothing is caught):
 29. `data-beans` on x.zarr: `info`, `stat`, `list-zarr`, `qc
    --feature-min-cells 10 --report` on the card and with `--device cpu`
    (keep masks equal, totals within 1e-6), `histogram`, `subsample
-   --cells 20000 --seed 7`, `subset` (5,000 cells, 500 genes),
+   --cells 10000 --seed 7` (20,000 before PR 13), `subset` (5,000 cells, 500 genes),
    `take-columns` / `take-rows` (100 names each), `sort-rows`,
    `reorder`, `squeeze`, `convert` to `.zarr.zip` and back (byte-equal
    to x.zarr), `merge-backend` of the two halves (equal to the whole) and
    `align` of two stores on overlapping gene sets, each held against
    scipy on phase 2's matrix, with each command's seconds;
-30. ingestion: `to-mtx` of phase 29's 20,000 cells, `from-mtx` and
+30. ingestion: `to-mtx` of phase 29's 10,000 cells, `from-mtx` and
    `from-mtx --streaming` (byte-equal to the source; the native parser
    required), `merge-mtx`, `from-triplets` (2,000 cells' transcripts),
-   `from-zarr` (a Xenium-layout zarr v2 zlib store of the 20,000 cells),
+   `from-zarr` (a Xenium-layout zarr v2 zlib store of the 10,000 cells),
    `from-fragments` (1M fragments over 2,000 cells, to tiles, against a
    direct count), `data-beans-sim multimodal`, `multiome`, `faba`,
    `bulk` (phase 2's top topic as labels) and `topic --reference` (phase
@@ -215,14 +215,34 @@ Phases (any failure exits non-zero; nothing is caught):
    to the `--cnv-ground-truth` run's, cn_score within 1e-3, K1 launched
    as often; `senna
    plot-strand` where matplotlib imports, else skipped and said;
-32. print the script's total seconds, one JSON line of all kernels, then
+32. faba's BAM path: a coordinate-sorted 10x-style BAM (2,000 cells x
+   2,000 genes, ~5M reads, CB / UB / GX tags, ~20% of the UMIs spliced
+   through CIGAR `N`, PCR duplicates) written by the port's `write_bam`
+   with its GFF, `faba index` (a rebuild gives the same bytes), `faba
+   genes`, `faba genes --splice` and `faba genes --gene-qc`: every store
+   equal to the planted counts after UMI dedup, exactly; reads/s and each
+   command's seconds; a BAM rewritten after its index gets a fresh one
+   (fault fix 1);
+33. `faba gem`: (a) `--raw` at the CLI defaults on phase 2's cells with a
+   seeded binomial thinning of them as the unspliced store (K1 launched
+   ceil(100,000 / 2,048) = 49 times and held at gem's 2,048-cell block;
+   outputs finite, the loss falling; read, projection, pseudobulk, fit
+   and write seconds); (b) `--posterior 8`, (c) `--lineage-dag` and (d)
+   `gem-encoder` at its defaults on (a)'s pseudobulk stores; (e) `--raw`
+   on phase 32's spliced / unspliced stores;
+34. `faba dyn-assoc` on a `data-beans-sim faba` sites store (1,000 sites
+   x 20,000 cells) with `--from` 33c's pseudotime lifted to (a)'s cells,
+   with `--trend-method bayes` and with the GAM (`quasi`): finite, p in
+   [0, 1];
+35. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
 
 The simulations of phases 8, 13a, 15 and 19 run in a pool of four
-processes started after phase 4, and phase 28 in a process started before
-phase 21, so the host makes their cells while the card runs the phases
-before them; each takes the same function, arguments and seed it would
-call itself.
+processes started after phase 4, phase 28 in a process started before
+phase 21 and phase 32's BAM, index and counts in a process started before
+phase 17, so the host makes them while the card runs the phases before
+them; each takes the same function, arguments and seed it would call
+itself.
 
 Every kernel check launches the kernel twice on the same inputs and
 fails unless the two results are bit-equal (`deterministic`). Times are
@@ -272,7 +292,7 @@ F64_FACTOR_K4 = 2.0
 RTOL_BF16_LOSS = 1e-2
 # phases 13b and 13c: the posterior chains' depth (`--posterior N` burns
 # in N // 4 sweeps first); each reports its seconds a sweep
-POSTERIOR_SWEEPS, POSTERIOR_BURNIN = 12, 3
+POSTERIOR_SWEEPS, POSTERIOR_BURNIN = 8, 2  # 12, 3 before PR 13; 45 before PR 12
 
 # Run in a fresh process: splits `MixedTrainer`'s construction at the e2e
 # shapes into CUDA start-up, moving the modules to the card, the
@@ -325,6 +345,41 @@ from legume_tpu_torch.ops import kernels as K
 rc = main(sys.argv[1:])
 print(json.dumps(dict(K.launch_counts)))
 sys.exit(rc)
+"""
+# Phase 32's host half in a process of its own, started before phase 17 so
+# that it overlaps the card's phases 17-31: the simulated 10x BAM written
+# with the port's `write_bam` (`faba/bam_sim.py`), its planted counts
+# saved, then `faba index` (twice: the rebuild must give the same bytes),
+# `faba genes`, `faba genes --splice` and `faba genes --gene-qc` through
+# the port's CLI, each timed; the launch counts last (`faba genes` runs on
+# the host, as in the JAX package).
+BAM_CLI = r"""
+import json, sys, time
+import scipy.sparse as sp
+from legume_tpu_torch.cli.main import run_faba
+from legume_tpu_torch.faba.bam_sim import simulate_10x_bam
+from legume_tpu_torch.ops import kernels as K
+work, cells, genes, umis = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+out = {}
+t = time.time()
+sim = simulate_10x_bam(f"{work}/run.bam", f"{work}/run.gff", n_cells=cells, n_genes=genes,
+                       umis_per_cell=umis, n_mito=13, seed=13)
+out["write_s"] = time.time() - t
+sp.save_npz(f"{work}/planted_spliced.npz", sim["spliced"])
+sp.save_npz(f"{work}/planted_unspliced.npz", sim["unspliced"])
+json.dump({"genes": sim["genes"], "barcodes": sim["barcodes"]}, open(f"{work}/planted.json", "w"))
+out.update(n_reads=sim["n_reads"], n_umis=sim["n_umis"])
+t = time.time(); run_faba(["index", f"{work}/run.bam"]); out["index_s"] = time.time() - t
+first = open(f"{work}/run.bam.bai", "rb").read()
+t = time.time(); run_faba(["index", "--force", f"{work}/run.bam"]); out["reindex_s"] = time.time() - t
+out["reindex_equal"] = open(f"{work}/run.bam.bai", "rb").read() == first
+for name, extra in (("genes", []), ("genes_splice", ["--splice"]), ("genes_qc", ["--gene-qc"])):
+    t = time.time()
+    run_faba(["genes", "--bam", f"{work}/run.bam", "--gff", f"{work}/run.gff", "--output",
+              f"{work}/{name}"] + extra)
+    out[f"{name}_s"] = time.time() - t
+out["launches"] = dict(K.launch_counts)
+print(json.dumps(out))
 """
 CHILDREN: list = []  # processes the script starts; main() stops any still running
 
@@ -1086,7 +1141,7 @@ def bge_options_phase(work: str, bvec, bres, acounts, a32, K, dev, card: str, ch
     keep["multiome"] = (rna, atac)
     del ms, mres, mvec, x, pb_t
 
-    # ---- 13b: --posterior 12 on phase 5's cells (12 sweeps after 3 burn-in)
+    # ---- 13b: --posterior 8 on phase 5's cells (8 sweeps after 2 burn-in)
     pargs = BgeArgs(posterior=POSTERIOR_SWEEPS, skip_etm=True, out=f"{work}/bge_post")
     K.reset_launch_counts()
     t0 = time.time()
@@ -1311,10 +1366,9 @@ def cocoa_phase(work: str, K, dev, card: str, checks: dict, keep: dict) -> dict:
     sub = np.concatenate([np.flatnonzero(sim.cell_indv == i)[:100] for i in range(40)])
     t0 = time.time()
     g = diff(f"{work}/sub", sub, str(dev))
-    again = diff(f"{work}/sub", sub, str(dev))
     c = diff(f"{work}/subcpu", sub, "cpu", "--no-match-cache")
     cmp_s = time.time() - t0
-    proj = again["proj_nk"]
+    proj = g["proj_nk"]
     proj_err = float(np.abs(g["proj_nk"] - c["proj_nk"]).max())
     proj_bar = RTOL_K1 * float(np.abs(c["proj_nk"]).max())
     caches = [build_match_cache(proj, sim.cell_indv[sub], 40, 10, device=d) for d in (dev, "cpu")]
@@ -1333,13 +1387,11 @@ def cocoa_phase(work: str, K, dev, card: str, checks: dict, keep: dict) -> dict:
         "cache_entries_differ_e2e": int((g["cache"].idx != c["cache"].idx).sum()),
         "projection_max_abs_diff": proj_err, "projection_bar": proj_bar,
         "stat_rel_err": stat_err, "z_abs_err": z_err, "cnv_states_equal": states_equal,
-        "cache_reused": bool(again["timings"].get("match_cache_reused", False)), "card": card,
+        "card": card,
     }), flush=True)
     if (gap > 1e-5).any() or stat_err > 1e-5 or z_err > 1e-4 or not states_equal \
             or proj_err > proj_bar:
         raise AssertionError("cocoa on the card differs from the CPU")
-    if not again["timings"].get("match_cache_reused"):
-        raise AssertionError("the second cocoa diff did not reuse the match cache")
     return out
 
 
@@ -2602,12 +2654,12 @@ def _xenium_store(root: str, csr, genes: list, chunk: int = 1 << 20) -> str:
 def ingest_phase(work: str, sim, res, store: str, card: str, *, mtx_cells: int = 20_000,
                  triplet_cells: int = 2000, fragments: int = 1_000_000,
                  fragment_cells: int = 2000) -> dict:
-    """Phase 30: on phase 29's 20,000 subsampled cells and their `to-mtx`
+    """Phase 30: on phase 29's subsampled cells (`mtx_cells`) and their `to-mtx`
     files (written in phase 29's window, its seconds in that line),
     `from-mtx` and `from-mtx --streaming` (both byte-equal to the source
     store; the native parser required), `merge-mtx` of two such files,
     `from-triplets` on a parquet of 2,000 cells' transcripts, `from-zarr`
-    on a Xenium-layout zarr v2 store of the 20,000 cells, `from-fragments`
+    on a Xenium-layout zarr v2 store of those cells, `from-fragments`
     on simulated fragments over 2,000 cells to tiles, and the other
     `data-beans-sim` commands (`multimodal`, `multiome`, `faba` at their
     defaults, `bulk` of x.zarr with phase 2's top topic as labels, `topic
@@ -2826,6 +2878,251 @@ def gff_phase(work: str, kept: dict, K, dev, card: str) -> dict:
                           "seconds": time.time() - t0, "images": len(outs), "card": card}),
               flush=True)
     return {"diff_gff": launches}
+
+
+# ---- phases 32-34: faba's BAM path, faba gem, faba dyn-assoc ----------------
+
+BAM_CELLS, BAM_GENES, BAM_UMIS = 2000, 2000, 1250  # ~2.5M UMIs, ~5.0M reads
+
+
+def start_bam(work: str, *, cells: int = BAM_CELLS, genes: int = BAM_GENES,
+              umis: int = BAM_UMIS):
+    """Start phase 32's host half (`BAM_CLI`) in a process of its own."""
+    Path(f"{work}/bam").mkdir(exist_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", BAM_CLI, f"{work}/bam", str(cells), str(genes), str(umis)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent)
+    CHILDREN.append(proc)
+    return proc, time.time(), cells, genes
+
+
+def bam_phase(work: str, started, card: str) -> dict:
+    """Phase 32: the BAM's `faba index` (a rebuild gives the same bytes)
+    and `faba genes` with and without `--splice` and with `--gene-qc`, from
+    `start_bam`'s process: each store equal to the planted counts after
+    UMI dedup, exactly (the QC run's on the genes and cells it kept). Then
+    fault fix 1 on a small BAM: rewritten after its index, a ranged read
+    rebuilds the index and equals the full scan."""
+    import os
+
+    import pandas as pd
+    import scipy.sparse as sp
+
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+    from legume_tpu_torch.faba import bam as tbam
+    from legume_tpu_torch.faba.bam_sim import simulate_10x_bam
+
+    proc, t_start, cells, genes = started
+    t0 = time.time()
+    out, err = proc.communicate(timeout=900)
+    wait_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the BAM process failed: {err[-2000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    d = f"{work}/bam"
+    names = json.load(open(f"{d}/planted.json"))
+    ps = sp.load_npz(f"{d}/planted_spliced.npz").tocsc()
+    pu = sp.load_npz(f"{d}/planted_unspliced.npz").tocsc()
+    checks = {
+        "genes": _decodes_to(f"{d}/genes", ps + pu, names["genes"], names["barcodes"]),
+        "spliced": _decodes_to(f"{d}/genes_splice.spliced", ps, names["genes"], names["barcodes"]),
+        "unspliced": _decodes_to(f"{d}/genes_splice.unspliced", pu, names["genes"],
+                                 names["barcodes"]),
+    }
+    qc = pd.read_parquet(f"{d}/genes_qc.cell_qc.parquet")
+    kept_genes = open_sparse_matrix(f"{d}/genes_qc").row_names()
+    gk = np.isin(names["genes"], kept_genes)
+    ck = qc["keep"].to_numpy()
+    checks["gene_qc"] = _decodes_to(f"{d}/genes_qc", (ps + pu)[gk][:, ck],
+                                    np.asarray(names["genes"])[gk],
+                                    np.asarray(names["barcodes"])[ck])
+    mito_dropped = sum(g not in kept_genes for g in names["genes"][-13:])
+    # fault fix 1: a small BAM rewritten after its index
+    small = f"{work}/bam/small.bam"
+    simulate_10x_bam(small, f"{work}/bam/small.gff", n_cells=60, n_genes=40, seed=1)
+    tbam.build_bam_index(small)
+    simulate_10x_bam(small, f"{work}/bam/small.gff", n_cells=120, n_genes=40, seed=2)
+    t_bam = os.path.getmtime(small)
+    os.utime(small + ".bai", (t_bam - 10, t_bam - 10))
+    full = tbam.read_bam(small)
+    got = tbam.read_bam(small, region=("chr1", 0, 1 << 30))
+    m = full.ref_id == 0
+    checks["stale_index_rebuilt"] = bool(np.array_equal(got.pos, full.pos[m])
+                                         and os.path.getmtime(small + ".bai") >= t_bam)
+    checks["reindex_equal"] = bool(res["reindex_equal"])
+    line = {
+        "phase": "faba_bam", "cells": cells, "genes": genes, "reads": res["n_reads"],
+        "umis": res["n_umis"], "bam_bytes": os.path.getsize(f"{d}/run.bam"),
+        "process_s": time.time() - t_start, "wait_s": wait_s,
+        "seconds": {k: v for k, v in res.items() if k.endswith("_s")},
+        "reads_per_s": {k: res["n_reads"] / res[f"{k}_s"]
+                        for k in ("genes", "genes_splice", "genes_qc")},
+        "gene_qc_kept": [int(gk.sum()), int(ck.sum())], "mito_genes_dropped": mito_dropped,
+        "checks": checks, "launches": res["launches"], "card": card,
+    }
+    print(json.dumps(line), flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"faba genes / index unlike the planted counts: {checks}")
+    return {"faba_genes": res["launches"]}
+
+
+def _frame(path: str) -> np.ndarray:
+    import pandas as pd
+
+    return pd.read_parquet(path).iloc[:, 1:].to_numpy(np.float64)
+
+
+def _gem_outputs_ok(prefix: str) -> bool:
+    names = ("gene_embedding", "velocity", "gene_velocity", "latent", "cell_embedding",
+             "feature_embedding")
+    return all(np.isfinite(_frame(f"{prefix}.{n}.parquet")).all() for n in names)
+
+
+def gem_phase(work: str, sim, store: str, K, dev, card: str, checks: dict, *,
+              thin: float = 0.3) -> dict:
+    """Phase 33: (a) `faba gem --raw` at the CLI defaults on phase 2's
+    cells (x.zarr) and a seeded binomial thinning of them as the unspliced
+    store: K1 launched ceil(N / 2,048) times, outputs finite, the loss
+    falling, K1 held at gem's block; (b) `--posterior 8`, (c)
+    `--lineage-dag` and (d) `gem-encoder` at its defaults on (a)'s
+    pseudobulk stores (the sums of (a)'s partition, so (b) and (c) refit
+    (a)'s fit from the same inputs); (e) `faba gem --raw` on phase 32's
+    spliced / unspliced stores. Returns each run's launches and what
+    phase 34 reads."""
+    import math
+
+    import pandas as pd
+    import scipy.sparse as sp
+
+    from legume_tpu_torch.cli.main import run_faba
+    from legume_tpu_torch.data.sparse_io import create_sparse_from_csc, open_sparse_matrix
+    from legume_tpu_torch.data.visitors import visit_columns_by_block
+    from legume_tpu_torch.ops.random_projection import block_to_device, projection_basis
+
+    t0 = time.time()
+    c = sim.counts.tocsc()
+    u = c.copy()
+    u.data = np.random.default_rng(33).binomial(c.data.astype(np.int64), thin).astype(np.float32)
+    u.eliminate_zeros()
+    ustore = f"{work}/unspliced.zarr"
+    create_sparse_from_csc(u, ustore, sim.row_names, sim.col_names)
+    thin_s = time.time() - t0
+    n = c.shape[1]
+    runs: dict = {}
+    launches: dict = {}
+
+    def gem(name, argv, need=()):
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        timings = run_faba(argv + ["--output", f"{work}/{name}", "--device", str(dev)])
+        _sync(dev)
+        launches[name] = _launched(K, need, f"faba {name}")
+        runs[name] = {"run_s": time.time() - t0, "timings": timings,
+                      "peak_device_bytes": torch.cuda.max_memory_allocated()}
+        losses = timings["losses"]
+        ok = _gem_outputs_ok(f"{work}/{name}") and losses[-1] < losses[0]
+        print(json.dumps({"phase": f"faba_{name}", **runs[name], "launches": launches[name],
+                          "outputs_finite_loss_falls": ok, "card": card}), flush=True)
+        if not ok:
+            raise AssertionError(f"faba {name}: outputs not finite or the loss did not fall")
+        return timings
+
+    # (a) --raw at the defaults
+    gem("gem_raw", ["gem", "--spliced", store, "--unspliced", ustore, "--raw"],
+        need=("project_normed",))
+    want = math.ceil(n / 2048)
+    if launches["gem_raw"]["project_normed"] != want:
+        raise AssertionError(f"faba gem --raw: K1 {launches['gem_raw']['project_normed']} "
+                             f"launches, want {want}")
+    be = open_sparse_matrix(store)
+    blk = next(iter(visit_columns_by_block(be, block_size=2048)))
+    basis = torch.from_numpy(projection_basis(be.num_rows, 16, 0)).to(dev)
+    r = check_projection(K, basis, *block_to_device(blk, dev), normed=True,
+                         shape="faba gem --raw block (2,048 cells, K = 16)")
+    checks["project_normed"].append({**r, "path": "gem_raw", "launches_in_e2e": want})
+    print(json.dumps({"phase": "kernel_check", "kernel": "project_normed", **r, "card": card}),
+          flush=True)
+
+    # (a)'s pseudobulk stores
+    groups = np.load(f"{work}/gem_raw.partition.npz")["fine_groups"]
+    onehot = sp.csr_matrix((np.ones(n, np.float32), (np.arange(n), groups)))
+    pbn = [f"pb{j}" for j in range(onehot.shape[1])]
+    for nm, m in (("pb_s.zarr", c), ("pb_u.zarr", u)):
+        create_sparse_from_csc(sp.csc_matrix(m @ onehot), f"{work}/{nm}", sim.row_names, pbn)
+    pb_in = ["--spliced", f"{work}/pb_s.zarr", "--unspliced", f"{work}/pb_u.zarr"]
+    # (b) --posterior 8 on (a)'s fit
+    t = gem("gem_posterior", ["gem", "--posterior", "8"] + pb_in)
+    post = pd.read_parquet(f"{work}/gem_posterior.delta_posterior.parquet")
+    pips = post[["delta_pip", "beta_pip"]].to_numpy()
+    fit_gap = float(np.abs(_frame(f"{work}/gem_posterior.gene_embedding.parquet")
+                           - _frame(f"{work}/gem_raw.gene_embedding.parquet")).max())
+    sweeps = 8 + max(8 // 4, 2)
+    post_line = {"phase": "faba_gem_posterior_check", "sweeps": sweeps,
+                 "s_per_sweep": t["posterior_s"] / sweeps, "rhat_max": t["posterior_rhat_max"],
+                 "pip_range": [float(pips.min()), float(pips.max())],
+                 "fit_gap_to_a": fit_gap, "card": card}
+    print(json.dumps(post_line), flush=True)
+    if not (pips.min() >= 0 and pips.max() <= 1 and np.isfinite(t["posterior_rhat_max"])
+            and fit_gap <= 1e-5):
+        raise AssertionError(f"faba gem --posterior: {post_line}")
+    # (c) --lineage-dag
+    gem("gem_lineage", ["gem", "--lineage-dag"] + pb_in)
+    pt = pd.read_parquet(f"{work}/gem_lineage.dag_pseudotime.parquet")
+    fate = _frame(f"{work}/gem_lineage.dag_fate.parquet")
+    if not (pt.pseudotime.between(0, 1).all() and np.isfinite(fate).all()):
+        raise AssertionError("faba gem --lineage-dag: pseudotime outside [0, 1] or fate not finite")
+    # (d) gem-encoder at its defaults
+    gem("gem_encoder", ["gem-encoder"] + pb_in)
+    # (e) from the user's BAM: phase 32's stores
+    d = f"{work}/bam"
+    gem("gem_bam", ["gem", "--raw", "--spliced", f"{d}/genes_splice.spliced", "--unspliced",
+                    f"{d}/genes_splice.unspliced"], need=("project_normed",))
+    print(json.dumps({"phase": "faba_gem", "cells": n, "genes": c.shape[0],
+                      "unspliced_thinning": thin, "thin_and_write_s": thin_s,
+                      "pseudobulks": len(pbn), "k1_launches": launches["gem_raw"]["project_normed"],
+                      "card": card}), flush=True)
+    # phase 34's pseudotime: (c)'s dag pseudotime lifted to (a)'s cells
+    cell_pt = pt.set_index("cell").loc[pbn, "pseudotime"].to_numpy()[groups]
+    return {"launches": launches, "cell_pseudotime": cell_pt}
+
+
+def assoc_phase(work: str, cell_pt: np.ndarray, K, dev, card: str, *, genes: int = 500,
+                cells: int = 20_000) -> dict:
+    """Phase 34: `faba dyn-assoc` on a `data-beans-sim faba` sites store
+    (`genes` x 2 sites, `cells` cells) with `--from` a pseudotime the port
+    wrote (phase 33c's dag pseudotime over (a)'s first `cells` cells),
+    once with `--trend-method bayes` and once with the quasi-binomial GAM
+    (its IRLS on the card): finite outputs, p-values in [0, 1]."""
+    import pandas as pd
+
+    from legume_tpu_torch.cli.main import run_faba, run_sim
+
+    t0 = time.time()
+    run_sim(["faba", "--genes", str(genes), "--cols", str(cells), "--seed", "34", "--output",
+             f"{work}/sites"])
+    sim_s = time.time() - t0
+    pd.DataFrame({"cell": [f"cell{i}" for i in range(cells)],
+                  "pseudotime": cell_pt[:cells]}).to_parquet(f"{work}/lift.pseudotime.parquet")
+    launches = {}
+    for name, extra in (("assoc_bayes", ["--trend-method", "bayes"]),
+                        ("assoc_gam", ["--trend-method", "quasi"])):
+        K.reset_launch_counts()
+        t0 = time.time()
+        run_faba(["dyn-assoc", "--backend", f"{work}/sites.zarr", "--from", f"{work}/lift",
+                  "--output", f"{work}/{name}", "--device", str(dev)] + extra)
+        _sync(dev)
+        launches[name] = dict(K.launch_counts)
+        df = pd.read_parquet(f"{work}/{name}.assoc.parquet")
+        num = df.select_dtypes("number").to_numpy(np.float64)
+        ok = bool(np.isfinite(num).all() and df.pvalue.between(0, 1).all() and len(df) > 0)
+        print(json.dumps({"phase": f"faba_dyn_{name}", "sites": len(df), "cells": cells,
+                          "simulate_s": sim_s, "run_s": time.time() - t0, "launches": launches[name],
+                          "finite_p_in_unit": ok, "card": card}), flush=True)
+        if not ok:
+            raise AssertionError(f"faba dyn-assoc ({name}): non-finite output or p outside [0, 1]")
+    return launches
 
 
 def qc_card_vs_cpu(store: str, dev, cells: int = 4000) -> dict:
@@ -3333,6 +3630,7 @@ def run(work: str, t_script: float) -> int:
     slice9["topic_cnv"] = topic_cnv_phase(work, vec, K, dev, card)
 
     # ---- phases 17-20: vae, svd / joint-svd, joint-topic, masked models ----
+    bam_started = start_bam(work)  # phase 32's host half, meanwhile
     slice10 = vae_phase(work, vec, hvec, bfile, K, dev, card)
     slice10.update(svd_phase(work, vec, kept["multiome"], K, dev, card, checks))
     slice10.update(joint_topic_phase(work, kept["multiome"], K, dev, card))
@@ -3349,11 +3647,19 @@ def run(work: str, t_script: float) -> int:
 
     # ---- phases 28-31: data-beans-sim, data-beans, ingestion, GFF -----------
     slice12 = beans_sim_phase(work, sim, store, beans_sim, card)
-    slice12.update(beans_phase(work, sim, store, K, dev, card))
-    slice12.update(ingest_phase(work, sim, res, store, card))
+    # 10,000 cells for to-mtx and the ingestion (20,000 before PR 13): the
+    # depth cut that keeps the script inside 1,000 s with phases 32-34
+    slice12.update(beans_phase(work, sim, store, K, dev, card, sub_cells=10_000))
+    slice12.update(ingest_phase(work, sim, res, store, card, mtx_cells=10_000))
     slice12.update(gff_phase(work, kept, K, dev, card))
 
-    # ---- phase 32: the kernels line, then the device line -----------------
+    # ---- phases 32-34: faba index / genes, faba gem, faba dyn-assoc -------------
+    slice13 = bam_phase(work, bam_started, card)
+    gem_res = gem_phase(work, sim, store, K, dev, card, checks)
+    slice13.update(gem_res["launches"])
+    slice13.update(assoc_phase(work, gem_res["cell_pseudotime"], K, dev, card))
+
+    # ---- phase 35: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
     # and `shapes` holds every checked shape, each with the run (`path`)
@@ -3371,7 +3677,8 @@ def run(work: str, t_script: float) -> int:
     # annotate_by_projection_from, annotate_by_projection_train,
     # deconvolve, deconvolve_reference, impute, impute_reference, probe,
     # probe_latent, fne; data_beans_sim_topic, data_beans, ingest,
-    # diff_gff).
+    # diff_gff; faba_genes, gem_raw, gem_posterior, gem_lineage,
+    # gem_encoder, gem_bam, assoc_bayes, assoc_gam).
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
@@ -3389,7 +3696,8 @@ def run(work: str, t_script: float) -> int:
             "launches_layout_pseudotime_plot": sum(layout_launches.values()),
             "launches_topic_options": option_launches.get(name, 0),
             **{f"launches_{path}": counts[name]
-               for path, counts in {**slice9, **slice10, **slice11, **slice12}.items()},
+               for path, counts in {**slice9, **slice10, **slice11, **slice12,
+                                    **slice13}.items()},
             **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),

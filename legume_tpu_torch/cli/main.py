@@ -5,9 +5,11 @@ layout,pseudotime,plot,plot-topic,plot-strand,qmatrix,annotate-ontology,
 annotate-by-enrichment,annotate-by-projection,deconvolve,probe,impute}
 ...`, `python -m legume_tpu_torch cocoa {diff,collapse,simulate-one,
 simulate-collider} ...`, `python -m legume_tpu_torch data-beans ...`
-(`cli/beans_cli.py`) and `python -m legume_tpu_torch data-beans-sim ...`
-(`cli/sim_cli.py`) (or `python -m legume_tpu_torch.cli.main`, or the
-`legume-torch` script).
+(`cli/beans_cli.py`), `python -m legume_tpu_torch data-beans-sim ...`
+(`cli/sim_cli.py`) and `python -m legume_tpu_torch faba {index,genes,gem,
+gem-encoder,dyn-assoc} ...` (`cli/faba_cli.py`, whose other subcommands
+raise `NotImplementedError`) (or `python -m legume_tpu_torch.cli.main`,
+or the `legume-torch` script).
 
 The flags are those of the JAX package's commands; the ones the port
 does not carry yet are accepted and raise `NotImplementedError` when set.
@@ -468,7 +470,7 @@ def main(argv=None) -> int:
 
     install_sigint_handler()  # a first Ctrl-C ends training with partial outputs
     binaries = {"senna": run_senna, "cocoa": run_cocoa, "data-beans": run_beans,
-                "data-beans-sim": run_sim}
+                "data-beans-sim": run_sim, "faba": run_faba}
     if not argv or argv[0] not in binaries:
         print("usage: python -m legume_tpu_torch senna {topic,vae,svd,joint-svd,"
               "joint-topic,masked-topic,masked-vae,masked-sbp,bge,fne,resolve-embedding-space,"
@@ -479,7 +481,8 @@ def main(argv=None) -> int:
               "simulate-collider} ...\n"
               "       python -m legume_tpu_torch data-beans <subcommand> ...\n"
               "       python -m legume_tpu_torch data-beans-sim {topic,faba,multimodal,multiome,"
-              "bulk} ...")
+              "bulk} ...\n"
+              "       python -m legume_tpu_torch faba {index,genes,gem,gem-encoder,dyn-assoc} ...")
         return 1
     binaries[argv[0]](argv[1:])
     return 0
@@ -495,6 +498,13 @@ def run_beans(argv):
 def run_sim(argv):
     """`data-beans-sim`: synthetic count generators."""
     from .sim_cli import run_sim as _run
+
+    return _run(argv)
+
+
+def run_faba(argv):
+    """`faba`: BAM feature extraction and gem (RNA velocity)."""
+    from .faba_cli import run_faba as _run
 
     return _run(argv)
 

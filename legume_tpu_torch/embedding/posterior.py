@@ -7,6 +7,8 @@ spike-slab feature-selection pass (the port of the JAX package's
   lockstep through the batched ESS (`ops/mcmc.py`).
 - `selection_pass`: blocked Gibbs over per-(feature, dim) binary gates on
   the expected-NCE objective, one dim at a time.
+- `gem_gibbs`: gem's three-block sweep (beta, the nested velocity gate
+  delta, the pb side) over both tracks (`faba gem --posterior`).
 - `pb_gibbs`: the alternating two-sided Gibbs sampler: per-dim
   spike-and-slab on the gene side (the slab by lockstep ESS over all
   genes), a lockstep ESS over the anchors on the pb side, and per-dim
@@ -380,3 +382,198 @@ def _split_rhat_all(x_sp: np.ndarray) -> np.ndarray:
     b = n * halves.mean(axis=1).var(axis=0, ddof=1)
     out = np.sqrt((w * (n - 1) / n + b / n) / np.maximum(w, 1e-30))
     return np.where(w <= 0, 1.0, out)
+
+
+@dataclass
+class GemGibbsResult:
+    """Two-gate splice posterior (`faba gem --posterior`;
+    posterior/pb_gibbs/splice.rs SpliceGibbsResult)."""
+
+    beta_mean: np.ndarray  # [D, H]
+    beta_pip: np.ndarray  # [D, H]
+    delta_mean: np.ndarray  # [D, H]
+    delta_pip: np.ndarray  # [D, H]
+    e_pb_mean: np.ndarray  # [P, H]
+    b_pb_mean: np.ndarray  # [P]
+    delta_identified: np.ndarray  # [D] bool: gene has spliced counts
+    beta_sigma2_trace: np.ndarray  # [S, H]
+    delta_sigma2_trace: np.ndarray  # [S, H]
+    rhat: np.ndarray  # [P] pb-anchor split-Rhat
+    ess: np.ndarray  # [P]
+
+
+def gem_gibbs(
+    s_pd: np.ndarray,  # [P, D] SPLICED pseudobulk counts
+    u_pd: np.ndarray,  # [P, D] UNSPLICED pseudobulk counts
+    beta: np.ndarray,  # [D, H] warm start (gem point estimate)
+    delta: np.ndarray,  # [D, H]
+    b_s: np.ndarray,  # [D] spliced gene bias
+    b_u: np.ndarray,  # [D] unspliced gene bias
+    e_pb: np.ndarray,  # [P, H]
+    b_pb: np.ndarray,  # [P]
+    *,
+    n_sweeps: int = 20,
+    burnin: int = 5,
+    transitions_per_dim: int = 2,
+    stick_alpha: float | None = 2.0,
+    half_cauchy_scale: float = 1.0,
+    seed: int = 0,
+    mesh=None,
+    mesh_axis: str = "dp",
+    device="cuda",
+    stats: dict | None = None,
+) -> GemGibbsResult:
+    """gem's three-block sweep (splice.rs): one beta_g per gene shared by
+    both tracks, a velocity deviation delta_g carried only by the
+    unspliced rows, and the pb side:
+
+        beta  | delta, pb   2 likelihood terms (spliced + unspliced)
+        delta | beta, pb    1 term (unspliced)
+        pb    | beta, delta joint over both tracks
+
+    delta's gate is nested in beta's (z_delta = 1 only where z_beta = 1),
+    and delta is identified only for genes with spliced counts. Both eta
+    planes are carried through the dim loops and rank-1 updated, as
+    `pb_gibbs` carries its one. The keys split as the JAX package's
+    scan splits them; the Gamma draws of the hyperpriors are the port's
+    own (`_gamma`)."""
+    _no_mesh(mesh)
+    device = torch.device(device)
+    p, d = s_pd.shape
+    h = beta.shape[1]
+    ys, yu = _t(s_pd, device), _t(u_pd, device)
+    bs, bu = _t(b_s, device), _t(b_u, device)
+    beta_t, delta_t = _t(beta, device).clone(), _t(delta, device).clone()
+    ep, bp = _t(e_pb, device), _t(b_pb, device)
+    gb = torch.ones(d, h, device=device)
+    gd = torch.ones(d, h, device=device)
+    lo_s2 = float(np.exp(-2.0 * HalfCauchyVar.LOG_SD_CLAMP))
+    hi_s2 = float(np.exp(2.0 * HalfCauchyVar.LOG_SD_CLAMP))
+    hc_rate0 = 1.0 / float(half_cauchy_scale**2)
+    pi0 = ibp_pi0(stick_alpha, h) if stick_alpha is not None else np.full(h, 0.5)
+    log_odds = np.log((1 - pi0) / np.maximum(pi0, 1e-12)).astype(np.float32)
+    identified = np.asarray(s_pd).sum(0) > 0
+    sig_b = torch.full((h,), half_cauchy_scale**2, device=device)
+    aux_b = sig_b.clone()
+    sig_d = sig_b.clone()
+    aux_d = sig_b.clone()
+    bm, bpip, dm, dpip = (torch.zeros(d, h, device=device) for _ in range(4))
+    ea = torch.zeros(p, h, device=device)
+    ba = torch.zeros(p, device=device)
+    sb_tr, sd_tr, chain = [], [], []
+
+    def gate_dim(k, cur, contrib, lnpdf, sd, lop):
+        """ESS on one dim's coordinates of all genes, then the gate draw."""
+        k_e, k_g = k
+        new = _ess_run(k_e, cur[:, None], sd, lnpdf, transitions_per_dim, stats)[:, 0]
+        ll_on = lnpdf(new[:, None], None)
+        ll_off = lnpdf(torch.zeros_like(new)[:, None], None)
+        u = prng.uniform_keys(k_g[None], d, device)[0]
+        return new, (u < torch.sigmoid(ll_on - ll_off + float(lop))).float()
+
+    def resample_hyper(key, coef, gates, aux):
+        k_s, k_a = prng.split(key)
+        n_act = gates.sum(0)
+        ssq = ((coef * gates) ** 2).sum(0)
+        g1 = torch.clamp_min(_gamma(k_s, (n_act + 1.0) / 2.0), 1e-30)
+        sig = torch.clamp((0.5 * ssq + 1.0 / aux) / g1, lo_s2, hi_s2)
+        g2 = torch.clamp_min(_gamma(k_a, torch.ones(h, device=device)), 1e-30)
+        return sig, (hc_rate0 + 1.0 / sig) / g2
+
+    key = prng.key(seed & 0x7FFFFFFF)
+    for sweep in range(burnin + n_sweeps):
+        eta_s = ep @ (beta_t * gb).T + bs[None, :] + bp[:, None]
+        eta_u = ep @ (beta_t * gb + delta_t * gd).T + bu[None, :] + bp[:, None]
+
+        # ---- beta block: 2 terms (spliced + unspliced)
+        key, k_b = prng.split(key)
+        sd = torch.sqrt(sig_b).cpu().numpy()
+        for dim in range(h):
+            contrib = ep[:, dim]
+            cur = beta_t[:, dim] * gb[:, dim]
+            eta_s_off = eta_s - torch.outer(contrib, cur)
+            eta_u_off = eta_u - torch.outer(contrib, cur)
+
+            def lnpdf(state, idx, es=eta_s_off, eu=eta_u_off, contrib=contrib):
+                if idx is None:
+                    return (_poisson_ll_cols(ys, torch.addr(es, contrib, state[:, 0]))
+                            + _poisson_ll_cols(yu, torch.addr(eu, contrib, state[:, 0])))
+                return (_poisson_ll_cols(ys[:, idx], torch.addr(es[:, idx], contrib, state[:, 0]))
+                        + _poisson_ll_cols(yu[:, idx], torch.addr(eu[:, idx], contrib, state[:, 0])))
+
+            k_b, k_e, k_g = prng.split(k_b, 3)
+            new, on = gate_dim((k_e, k_g), cur, contrib, lnpdf, float(sd[dim]), log_odds[dim])
+            gb[:, dim] = on
+            beta_t[:, dim] = new
+            eta_s = eta_s_off + torch.outer(contrib, new * on)
+            eta_u = eta_u_off + torch.outer(contrib, new * on)
+
+        # ---- delta block: 1 term (unspliced), gate nested in beta's
+        key, k_d = prng.split(key)
+        sd = torch.sqrt(sig_d).cpu().numpy()
+        for dim in range(h):
+            contrib = ep[:, dim]
+            cur = delta_t[:, dim] * gd[:, dim]
+            eta_u_off = eta_u - torch.outer(contrib, cur)
+
+            def lnpdf_d(state, idx, eu=eta_u_off, contrib=contrib):
+                if idx is None:
+                    return _poisson_ll_cols(yu, torch.addr(eu, contrib, state[:, 0]))
+                return _poisson_ll_cols(yu[:, idx], torch.addr(eu[:, idx], contrib, state[:, 0]))
+
+            k_d, k_e, k_g = prng.split(k_d, 3)
+            new, on = gate_dim((k_e, k_g), cur, contrib, lnpdf_d, float(sd[dim]), log_odds[dim])
+            on = on * gb[:, dim]
+            gd[:, dim] = on
+            delta_t[:, dim] = new
+            eta_u = eta_u_off + torch.outer(contrib, new * on)
+
+        # ---- hypers: separate half-Cauchy ladders per gate
+        key, k_hb, k_hd = prng.split(key, 3)
+        sig_b, aux_b = resample_hyper(k_hb, beta_t, gb, aux_b)
+        sig_d, aux_d = resample_hyper(k_hd, delta_t, gd, aux_d)
+
+        # ---- pb block: joint over both tracks, anchors in lockstep
+        gated_b = beta_t * gb
+        gated_u = gated_b + delta_t * gd
+
+        def lnpdf_pb(state, idx):
+            e, b = state[:, :h], state[:, h][:, None]
+            y_s, y_u = (ys, yu) if idx is None else (ys[idx], yu[idx])
+            eta_s_ = torch.clamp(e @ gated_b.T + bs[None, :] + b, -20.0, 20.0)
+            eta_u_ = torch.clamp(e @ gated_u.T + bu[None, :] + b, -20.0, 20.0)
+            return ((y_s * eta_s_ - torch.exp(eta_s_)).sum(dim=1)
+                    + (y_u * eta_u_ - torch.exp(eta_u_)).sum(dim=1))
+
+        key, k_p = prng.split(key)
+        last = _ess_run(k_p, torch.cat([ep, bp[:, None]], dim=1), 1.0, lnpdf_pb,
+                        transitions_per_dim, stats)
+        ep, bp = last[:, :h].contiguous(), last[:, h].contiguous()
+        if sweep >= burnin:
+            bm += beta_t * gb
+            bpip += gb
+            dm += delta_t * gd
+            dpip += gd
+            ea += ep
+            ba += bp
+        sb_tr.append(sig_b)
+        sd_tr.append(sig_d)
+        chain.append(ep[:, 0])
+
+    kept = max(n_sweeps, 1)
+    chain_np = torch.stack(chain).cpu().numpy()[burnin:]
+    if len(chain_np) == 0:
+        chain_np = np.zeros((1, p))
+    return GemGibbsResult(
+        beta_mean=bm.cpu().numpy() / kept,
+        beta_pip=bpip.cpu().numpy() / kept,
+        delta_mean=dm.cpu().numpy() / kept,
+        delta_pip=dpip.cpu().numpy() / kept,
+        e_pb_mean=ea.cpu().numpy() / kept,
+        b_pb_mean=ba.cpu().numpy() / kept,
+        delta_identified=identified,
+        beta_sigma2_trace=torch.stack(sb_tr).cpu().numpy()[burnin:],
+        delta_sigma2_trace=torch.stack(sd_tr).cpu().numpy()[burnin:],
+        rhat=_split_rhat_all(chain_np),
+        ess=np.asarray([ess(chain_np[:, i]) for i in range(chain_np.shape[1])]),
+    )

@@ -9,9 +9,14 @@ import torch
 
 
 def _topk_chunk(q, r, r_sq, mask_n, k: int, self_ids=None):
-    """(sq_distances [C, k], indices [C, k]) by ||q||^2 - 2 q.r + ||r||^2,
-    in float64: the expansion cancels to the distance of near neighbours,
-    and the matched-stat weights exp(-d) carry its absolute error."""
+    """(sq_distances [C, k] float64, indices [C, k]). The neighbours are
+    ranked by 2 q.r - ||r||^2 in float64; the squared distance of each one
+    chosen is then formed from the coordinates, sum_j (q_j - r_j)^2 with
+    elementwise float64 operations in coordinate order. So the distances
+    depend on neither the matmul's nor a reduction's order nor on the
+    ranked values: they are the same on every device and in every run
+    (the expansion ||q||^2 - 2 q.r + ||r||^2 cancels to the distance of
+    near neighbours, and the weights exp(-d) carry its error)."""
     q = q.double()
     neg_d = 2.0 * (q @ r.T) - r_sq[None, :]
     neg_d = neg_d.masked_fill(~mask_n[None, :], -torch.inf)
@@ -20,8 +25,11 @@ def _topk_chunk(q, r, r_sq, mask_n, k: int, self_ids=None):
         ok = self_ids < r.shape[0]
         neg_d[rows[ok], self_ids[ok]] = -torch.inf
     val, idx = torch.topk(neg_d, k, dim=1)
-    q_sq = (q * q).sum(dim=-1, keepdim=True)
-    return torch.clamp(q_sq - val, min=0.0).float(), idx
+    diff = q[:, None, :] - r[idx]  # [C, k, K]
+    d2 = diff[..., 0] * diff[..., 0]
+    for j in range(1, diff.shape[-1]):
+        d2 = d2 + diff[..., j] * diff[..., j]
+    return d2.masked_fill(val == -torch.inf, torch.inf), idx  # no candidate left
 
 
 def knn_search(
@@ -56,7 +64,7 @@ def knn_search(
         if exclude_self_offset is not None:
             self_ids = torch.arange(lb, ub, device=device) + exclude_self_offset
         d2, idx = _topk_chunk(q_all[lb:ub], r, r_sq, mask_n, k, self_ids)
-        dists[lb:ub] = torch.sqrt(d2).cpu().numpy()
+        dists[lb:ub] = torch.sqrt(d2).float().cpu().numpy()
         idxs[lb:ub] = idx.cpu().numpy()
     return dists, idxs
 

@@ -127,6 +127,72 @@ _ERFINV_GE5 = (
 )
 
 
+def _fma_f32(a, b, c) -> np.ndarray:
+    """float32 fused multiply-add: the product is exact in float64 and the
+    sum rounds to float32 (XLA's CPU backend contracts these pairs)."""
+    a, b, c = (np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c))
+    return (a * b + c).astype(np.float32)
+
+
+_LOG_P = tuple(np.float32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1, 1.4249322787e-1,
+    -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1,
+))
+_LOG1P_NUM = tuple(np.float32(v) for v in (
+    4.5270000862445199635e-5, 4.9854102823193375972e-1, 6.5787325942061044846e0,
+    2.9911919328553073277e1, 6.0949667980987787057e1, 5.7112963590585538103e1,
+    2.0039553499201281259e1,
+))
+_LOG1P_DEN = tuple(np.float32(v) for v in (
+    1.0, 1.5062909083469192198e1, 8.3047565967967209469e1, 2.2176239823732856465e2,
+    3.0909872225312059774e2, 2.1642788614495947685e2, 6.0118660497603843919e1,
+))
+
+
+def log_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's CPU float32 `log` of positive `x`: Cephes' polynomial on the
+    mantissa in [sqrt(1/2), sqrt(2)), its multiply-adds fused."""
+    f = np.float32
+    x = np.maximum(np.asarray(x, f), np.uint32(0x00800000).view(f))
+    bits = x.view(np.uint32)
+    e = (f(1.0) + ((bits >> np.uint32(23)).astype(np.int32) - 0x7F).astype(f)).astype(f)
+    t = ((bits & np.uint32(0x807FFFFF)) | np.uint32(0x3F000000)).view(f)
+    low = t < f(0.707106781186547524)
+    t1 = np.where(low, t, f(0.0)).astype(f)
+    t = (t - f(1.0)).astype(f)
+    e = (e - np.where(low, f(1.0), f(0.0))).astype(f)
+    t = (t + t1).astype(f)
+    x2 = (t * t).astype(f)
+    x3 = (x2 * t).astype(f)
+    p = _LOG_P
+    y, y1, y2 = _fma_f32(t, p[0], p[1]), _fma_f32(t, p[3], p[4]), _fma_f32(t, p[6], p[7])
+    y, y1, y2 = _fma_f32(y, t, p[2]), _fma_f32(y1, t, p[5]), _fma_f32(y2, t, p[8])
+    y = _fma_f32(_fma_f32(y, x3, y1), x3, y2)
+    y = _fma_f32(y, x3, (f(-2.12194440e-4) * e).astype(f))
+    t = _fma_f32(f(-0.5), x2, t)
+    return _fma_f32(f(0.693359375), e, (t + y).astype(f))
+
+
+def log1p_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 `log1p`: Cephes' rational form below |x| = sqrt(2) - 1,
+    `log(x + 1)` above."""
+    f = np.float32
+    x = np.asarray(x, f)
+
+    def horner(cs):
+        r = np.zeros_like(x)
+        for c in cs:
+            r = _fma_f32(r, x, c)
+        return r
+
+    x2 = (x * x).astype(f)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        small = (horner(_LOG1P_NUM) / horner(_LOG1P_DEN)).astype(f)
+    small = _fma_f32(f(-0.5), x2, ((x * x2).astype(f) * small).astype(f))
+    small = (x + small).astype(f)
+    return np.where(np.abs(x) < f(0.41421356237309504880), small, log_f32((x + f(1.0)).astype(f)))
+
+
 def erfinv_f32(x: np.ndarray) -> np.ndarray:
     """XLA's float32 erfinv (Giles' polynomial), evaluated in float32."""
     x = np.asarray(x, np.float32)
@@ -144,11 +210,40 @@ def erfinv_f32(x: np.ndarray) -> np.ndarray:
     return np.where(np.abs(x) == np.float32(1.0), x * big, out).astype(np.float32)
 
 
+def erfinv_xla_f32(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 erfinv as its CPU backend evaluates it: `log1p_f32`,
+    and fused multiply-adds in the Horner steps."""
+    x = np.asarray(x, np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = -log1p_f32(-x * x)
+        lt = w < np.float32(5.0)
+        w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3.0)).astype(np.float32)
+        c_lt = np.asarray(_ERFINV_LT5, np.float32)
+        c_ge = np.asarray(_ERFINV_GE5, np.float32)
+        p = np.where(lt, c_lt[0], c_ge[0]).astype(np.float32)
+        for i in range(1, 9):
+            p = _fma_f32(p, w, np.where(lt, c_lt[i], c_ge[i]))
+        out = p * x
+    big = np.float32(np.finfo(np.float32).max)
+    return np.where(np.abs(x) == np.float32(1.0), x * big, out).astype(np.float32)
+
+
 def normal(k: np.ndarray, shape) -> np.ndarray:
-    """float32 `jax.random.normal(key, shape)`."""
+    """float32 `jax.random.normal(key, shape)`, within a float32 rounding
+    (numpy's `log1p` inside erfinv rounds otherwise than XLA's for about
+    one draw in twenty)."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
     u = uniform(k, shape, lo, 1.0)
     return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)
+
+
+def normal_exact(k: np.ndarray, shape) -> np.ndarray:
+    """float32 `jax.random.normal(key, shape)` bit for bit: erfinv as
+    XLA's CPU backend evaluates it (`erfinv_xla_f32`). gem's initial
+    parameters draw with it; `normal`'s older callers keep `normal`."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+    u = uniform(k, shape, lo, 1.0)
+    return (np.float32(np.sqrt(2)) * erfinv_xla_f32(u)).astype(np.float32)
 
 
 def gumbel(k: np.ndarray, shape) -> np.ndarray:

@@ -1203,3 +1203,81 @@ def test_streaming_writer_on_the_card_machine_equals_the_in_memory_writer(dev, t
     assert mem == st and len(mem) > 40
     for f in mem:
         assert (tmp_path / "mem.zarr" / f).read_bytes() == (tmp_path / "st.zarr" / f).read_bytes()
+
+
+# ---- slice 13: faba's BAM path, faba gem --------------------------------------------
+
+
+def _gem_pb(seed=0, p=256, d=1500, h=4):
+    """Pseudobulk spliced / unspliced counts (the shape `faba gem --raw`
+    sums a few thousand cells into), a low-rank state plus a velocity
+    shift."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(p, h))
+    beta = rng.normal(size=(d, h)) * 0.5
+    delta = rng.normal(size=(d, h)) * 0.3 * (rng.random((d, 1)) < 0.4)
+    s = rng.poisson(np.exp(z @ beta.T + 1.5)).astype(np.float32)
+    u = rng.poisson(np.exp(z @ (beta + delta).T + 0.5)).astype(np.float32)
+    return s, u
+
+
+def test_fit_gem_on_the_card_matches_the_cpu_and_is_bit_equal(dev):
+    """The initial parameters equal (host threefry); two card runs
+    bit-equal; the card's end state within twice the CPU float32 fit's
+    distance from the float64 fit, 1e-5 at the least (gem and the
+    encoder)."""
+    from legume_tpu_torch.embedding import gem
+
+    s, u = _gem_pb()
+    a0 = gem.fit_gem(s, u, epochs=0, device=dev)
+    b0 = gem.fit_gem(s, u, epochs=0, device="cpu")
+    np.testing.assert_array_equal(a0.e_feat, b0.e_feat)
+    np.testing.assert_array_equal(a0.pb_e, b0.pb_e)
+    for fit, fields in ((gem.fit_gem, ("e_feat", "delta", "pb_e", "b_feat_s", "b_feat_u", "pb_b")),
+                        (gem.fit_gem_encoder, ("rho", "delta", "w1", "b1", "bias_s"))):
+        card = fit(s, u, epochs=200, device=dev)
+        again = fit(s, u, epochs=200, device=dev)
+        cpu = fit(s, u, epochs=200, device="cpu")
+        ref = fit(s, u, epochs=200, device="cpu", dtype=torch.float64)
+        assert card.losses == again.losses
+        for name in fields:
+            a, b = getattr(card, name), getattr(again, name)
+            np.testing.assert_array_equal(a, b, err_msg=name)
+            gap_cpu = float(np.abs(getattr(cpu, name) - getattr(ref, name)).max())
+            gap_card = float(np.abs(a - getattr(ref, name)).max())
+            assert gap_card <= max(2 * gap_cpu, 1e-5), (fit.__name__, name, gap_card, gap_cpu)
+
+
+def test_gem_gibbs_on_the_card_matches_the_cpu_over_the_first_sweep(dev):
+    from legume_tpu_torch.embedding import gem
+    from legume_tpu_torch.embedding.posterior import gem_gibbs
+
+    s, u = _gem_pb(1, p=128, d=400, h=3)
+    fit = gem.fit_gem(s, u, embedding_dim=4, epochs=100, device="cpu")
+    args = (s, u, fit.e_feat, fit.delta, fit.b_feat_s, fit.b_feat_u, fit.pb_e, fit.pb_b)
+    kw = dict(n_sweeps=1, burnin=0, seed=3)
+    card, cpu = gem_gibbs(*args, **kw, device=dev), gem_gibbs(*args, **kw, device="cpu")
+    np.testing.assert_array_equal(card.beta_pip, cpu.beta_pip)
+    np.testing.assert_array_equal(card.delta_pip, cpu.delta_pip)
+    for name in ("beta_mean", "delta_mean", "e_pb_mean", "b_pb_mean"):
+        np.testing.assert_allclose(getattr(card, name), getattr(cpu, name), rtol=0, atol=1e-5,
+                                   err_msg=name)
+    many = gem_gibbs(*args, n_sweeps=4, burnin=2, seed=3, device=dev)
+    assert np.isfinite(many.rhat).all() and (many.beta_pip <= 1).all()
+
+
+def test_faba_genes_on_the_card_machine_equals_the_planted_counts(dev, tmp_path):
+    """The native BAM reader builds there (g++ at first use) and `faba
+    genes` / `--splice` give the planted counts exactly."""
+    from legume_tpu_torch.cli.main import run_faba
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+    from legume_tpu_torch.faba.bam_sim import simulate_10x_bam
+
+    sim = simulate_10x_bam(str(tmp_path / "a.bam"), str(tmp_path / "a.gff"), n_cells=300,
+                           n_genes=200, umis_per_cell=80, n_mito=5, seed=2)
+    run_faba(["genes", "--bam", str(tmp_path / "a.bam"), "--gff", str(tmp_path / "a.gff"),
+              "--output", str(tmp_path / "g"), "--splice"])
+    for nm in ("spliced", "unspliced"):
+        b = open_sparse_matrix(str(tmp_path / f"g.{nm}"))
+        got = b.read_columns_csc(np.arange(b.num_columns))
+        assert (got != sim[nm]).nnz == 0 and b.column_names() == sim["barcodes"]

@@ -104,7 +104,6 @@ def test_fuzzy_edges_equal_and_weights_exact(graph):
     src, dst, w = tumap.fuzzy_edges(x, 15, device="cpu")
     np.testing.assert_array_equal(src, graph["src"])
     np.testing.assert_array_equal(dst, graph["dst"])
-    np.testing.assert_allclose(w, graph["w"], rtol=0, atol=2e-4)
     # the same weights from float64 distances to the same neighbours
     x64 = x.astype(np.float64)
     d_all = np.sqrt(((x64[:, None] - x64[None]) ** 2).sum(-1))
@@ -120,7 +119,35 @@ def test_fuzzy_edges_equal_and_weights_exact(graph):
                        (np.repeat(np.arange(n), 15), idx.ravel())), shape=(n, n))
     g = (g + g.T - g.multiply(g.T)).tocoo()
     exact = dict(zip(zip(g.row, g.col), g.data))
-    np.testing.assert_allclose(w, [exact[e] for e in zip(src, dst)], rtol=0, atol=1e-6)
+    exact_w = np.array([exact[e] for e in zip(src, dst)])
+    np.testing.assert_allclose(w, graph["w"], rtol=0, atol=2e-4,
+                               err_msg=_which_weights_moved(x, src, dst, w, graph["w"], exact_w, d))
+    np.testing.assert_allclose(w, exact_w, rtol=0, atol=1e-6)
+
+
+def _which_weights_moved(x, src, dst, w_port, w_jax, exact_w, d64):
+    """Each package's largest distance from the float64 weights, with the
+    rows it is largest in, and the port's kNN distances against float64:
+    when the packages disagree, this says which side moved."""
+    from legume_tpu_torch.ops.knn import knn_within
+
+    def side(name, w):
+        gap = np.abs(np.asarray(w, np.float64) - exact_w)
+        worst = np.argsort(gap)[::-1][:8]
+        rows = sorted(set(src[worst].tolist()) | set(dst[worst].tolist()))
+        return (f"{name}: largest gap from float64 {gap.max():.3g}, {(gap > 1e-6).sum()} "
+                f"edges past 1e-6, rows {rows}")
+
+    off = np.abs(np.asarray(w_port, np.float64) - w_jax) > 2e-4
+    d_port, _ = knn_within(x, 15, device="cpu")
+    return "; ".join([
+        side("port", w_port), side("jax", w_jax),
+        f"rows of the {off.sum()} edges past 2e-4: "
+        f"{sorted(set(src[off].tolist()) | set(dst[off].tolist()))[:40]}",
+        f"port kNN distances, largest gap from float64: {np.abs(d_port - d64).max():.3g}",
+        f"torch threads {torch.get_num_threads()}, float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()}",
+    ])
 
 
 def test_sgd_draws_equal_jax_random(graph):
