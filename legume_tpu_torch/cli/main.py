@@ -8,7 +8,9 @@ simulate-collider} ...`, `python -m legume_tpu_torch data-beans ...`
 (`cli/beans_cli.py`), `python -m legume_tpu_torch data-beans-sim ...`
 (`cli/sim_cli.py`) and `python -m legume_tpu_torch faba {index,genes,gem,
 gem-encoder,dyn-assoc} ...` (`cli/faba_cli.py`, whose other subcommands
-raise `NotImplementedError`) (or `python -m legume_tpu_torch.cli.main`,
+raise `NotImplementedError`) and `python -m legume_tpu_torch pinto {lc,
+cascade,annotate,p,interfaces,prop,dsvd,cage,lc-etm,lra} ...`
+(`cli/pinto_cli.py`) (or `python -m legume_tpu_torch.cli.main`,
 or the `legume-torch` script).
 
 The flags are those of the JAX package's commands; the ones the port
@@ -470,7 +472,7 @@ def main(argv=None) -> int:
 
     install_sigint_handler()  # a first Ctrl-C ends training with partial outputs
     binaries = {"senna": run_senna, "cocoa": run_cocoa, "data-beans": run_beans,
-                "data-beans-sim": run_sim, "faba": run_faba}
+                "data-beans-sim": run_sim, "faba": run_faba, "pinto": run_pinto}
     if not argv or argv[0] not in binaries:
         print("usage: python -m legume_tpu_torch senna {topic,vae,svd,joint-svd,"
               "joint-topic,masked-topic,masked-vae,masked-sbp,bge,fne,resolve-embedding-space,"
@@ -482,7 +484,9 @@ def main(argv=None) -> int:
               "       python -m legume_tpu_torch data-beans <subcommand> ...\n"
               "       python -m legume_tpu_torch data-beans-sim {topic,faba,multimodal,multiome,"
               "bulk} ...\n"
-              "       python -m legume_tpu_torch faba {index,genes,gem,gem-encoder,dyn-assoc} ...")
+              "       python -m legume_tpu_torch faba {index,genes,gem,gem-encoder,dyn-assoc} ...\n"
+              "       python -m legume_tpu_torch pinto {lc,cascade,annotate,p,interfaces,prop,dsvd,"
+              "cage,lc-etm,lra} ...")
         return 1
     binaries[argv[0]](argv[1:])
     return 0
@@ -507,6 +511,13 @@ def run_faba(argv):
     from .faba_cli import run_faba as _run
 
     return _run(argv)
+
+
+def run_pinto(argv, *, vec=None):
+    """`pinto`: spatial link communities and their companions."""
+    from .pinto_cli import run_pinto as _run
+
+    return _run(argv, vec=vec)
 
 
 if __name__ == "__main__":

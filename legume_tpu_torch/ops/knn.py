@@ -1,11 +1,30 @@
 """Exact chunked kNN over projected coordinates (the port of the JAX
 package's `ops/knn.py`): one [chunk, K] x [K, N] matmul per query chunk
-and `torch.topk` on the negated squared distances."""
+and a top-k on the negated squared distances that breaks exact ties by
+the lower index, as `lax.top_k` does."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def _topk_lower_index_first(neg_d, k: int):
+    """`torch.topk` of each row, ordered as `lax.top_k` orders it: larger
+    values first and, among exactly equal values, the lower index first.
+    `torch.topk` gives no order among equal values, so where the values
+    tied with the k-th reach past the k chosen, the row is taken from a
+    stable sort instead; then the k chosen are ordered by (value, index)."""
+    val, idx = torch.topk(neg_d, k, dim=1)
+    spill = (neg_d >= val[:, -1:]).sum(dim=1) > k
+    if bool(spill.any()):
+        rows = spill.nonzero()[:, 0]
+        v2, i2 = torch.sort(neg_d[rows], dim=1, descending=True, stable=True)
+        val[rows], idx[rows] = v2[:, :k], i2[:, :k]
+    by_index = torch.argsort(idx, dim=1)
+    val, idx = torch.gather(val, 1, by_index), torch.gather(idx, 1, by_index)
+    by_value = torch.sort(val, dim=1, descending=True, stable=True).indices
+    return torch.gather(val, 1, by_value), torch.gather(idx, 1, by_value)
 
 
 def _topk_chunk(q, r, r_sq, mask_n, k: int, self_ids=None):
@@ -24,7 +43,7 @@ def _topk_chunk(q, r, r_sq, mask_n, k: int, self_ids=None):
         rows = torch.arange(q.shape[0], device=q.device)
         ok = self_ids < r.shape[0]
         neg_d[rows[ok], self_ids[ok]] = -torch.inf
-    val, idx = torch.topk(neg_d, k, dim=1)
+    val, idx = _topk_lower_index_first(neg_d, k)
     diff = q[:, None, :] - r[idx]  # [C, k, K]
     d2 = diff[..., 0] * diff[..., 0]
     for j in range(1, diff.shape[-1]):

@@ -1,6 +1,6 @@
-"""Figures of `senna plot`, `senna plot-topic` and `senna plot-strand`
-(the port's copy of the functions of the JAX package's `utils/plot.py`
-that these commands use).
+"""Figures of `senna plot`, `senna plot-topic`, `senna plot-strand`,
+`pinto p` and `pinto interfaces` (the port's copy of the functions of
+the JAX package's `utils/plot.py` that these commands use).
 
 matplotlib's Agg/SVG/PDF backends draw the reference's artifact kinds:
 embedding scatters coloured by cluster, topic, pseudotime or annotation,
@@ -232,3 +232,169 @@ def scatter_figure(
         fig.savefig(out, dpi=dpi)
     plt.close(fig)
     return outputs
+
+
+# ---- pinto's figures (`pinto p`, `pinto interfaces`) ----------------------
+
+
+def scatter_by_label(
+    coords: np.ndarray,  # [N, 2]
+    labels: np.ndarray,
+    out: str,
+    *,
+    title: str = "",
+    point_size: float = 3.0,
+):
+    """Embedding scatter colored by discrete labels (senna plot)."""
+    plt = _mpl()
+    labels = np.asarray(labels)
+    uniq = np.unique(labels)
+    fig, ax = plt.subplots(figsize=(6, 5), dpi=150)
+    for i, lab in enumerate(uniq):
+        m = labels == lab
+        ax.scatter(
+            coords[m, 0], coords[m, 1], s=point_size,
+            color=PALETTE[i % len(PALETTE)], label=str(lab), linewidths=0,
+        )
+    ax.set_title(title)
+    ax.set_xticks([])
+    ax.set_yticks([])
+    if len(uniq) <= 15:
+        ax.legend(markerscale=4, fontsize=7, frameon=False)
+    fig.tight_layout()
+    fig.savefig(out)
+    plt.close(fig)
+
+
+def spatial_hex(
+    coords: np.ndarray,  # [N, 2] spatial coordinates
+    values: np.ndarray,
+    out: str,
+    *,
+    title: str = "",
+    gridsize: int = 60,
+):
+    """Hex-binned spatial map (pinto plot hex scatter)."""
+    plt = _mpl()
+    fig, ax = plt.subplots(figsize=(6, 5), dpi=150)
+    hb = ax.hexbin(
+        coords[:, 0], coords[:, 1], C=np.asarray(values),
+        gridsize=gridsize, cmap="viridis", linewidths=0,
+    )
+    fig.colorbar(hb, ax=ax, shrink=0.8)
+    ax.set_title(title)
+    ax.set_aspect("equal")
+    fig.tight_layout()
+    fig.savefig(out)
+    plt.close(fig)
+
+
+def interface_map(
+    coords: np.ndarray,  # [N, 2]
+    entropy: np.ndarray,  # [N]
+    focal: np.ndarray,  # focal cell indices
+    out: str,
+    *,
+    title: str = "interfaces",
+):
+    """Entropy-as-grayscale+size overview with focal cells highlighted
+    (pinto/src/plot/interfaces.rs figure: radius scales with the
+    entropy quantile; darkest/largest = strongest interface)."""
+    plt = _mpl()
+    ent = np.asarray(entropy, np.float64)
+    lo, hi = float(ent.min()), float(ent.max())
+    q = (ent - lo) / max(hi - lo, 1e-12)
+    fig, ax = plt.subplots(figsize=(6, 5), dpi=150)
+    ax.scatter(
+        coords[:, 0], coords[:, 1], s=2 + 28 * q, c=0.85 - 0.7 * q,
+        cmap="gray", vmin=0, vmax=1, linewidths=0,
+    )
+    if len(focal):
+        ax.scatter(
+            coords[focal, 0], coords[focal, 1], s=46,
+            facecolors="none", edgecolors="crimson", linewidths=0.8,
+        )
+    ax.set_title(title)
+    ax.set_aspect("equal")
+    fig.tight_layout()
+    fig.savefig(out)
+    plt.close(fig)
+
+
+def mesh_figure(
+    coords: np.ndarray,      # [N, 2]
+    edges: np.ndarray,       # [E, 2] cell index pairs
+    out: str,
+    *,
+    cell_labels: np.ndarray | None = None,  # discrete per-cell (argmax community)
+    edge_labels: np.ndarray | None = None,  # discrete per-edge community
+    title: str = "",
+):
+    """Spatial graph mesh (pinto plot `mesh` kind): the lc edge graph
+    drawn over cell coordinates at low opacity so dense kNN graphs do
+    not drown the community colours (`pinto/src/plot/mod.rs` MESH_ALPHA
+    rationale), cells colored by their argmax community on top."""
+    plt = _mpl()
+    from matplotlib.collections import LineCollection
+
+    fig, ax = plt.subplots(figsize=(6.5, 5.5), dpi=150)
+    segs = np.stack([coords[edges[:, 0]], coords[edges[:, 1]]], axis=1)
+    if edge_labels is not None:
+        cols = [PALETTE[int(l) % len(PALETTE)] for l in edge_labels]
+    else:
+        cols = "#888888"
+    ax.add_collection(LineCollection(segs, colors=cols, linewidths=0.4, alpha=0.3))
+    if cell_labels is not None:
+        labs = np.asarray(cell_labels)
+        for i, lab in enumerate(np.unique(labs)):
+            m = labs == lab
+            ax.scatter(coords[m, 0], coords[m, 1], s=4,
+                       color=PALETTE[i % len(PALETTE)], label=str(lab),
+                       linewidths=0)
+        if np.unique(labs).size <= 15:
+            ax.legend(markerscale=3, fontsize=7, frameon=False,
+                      loc="center left", bbox_to_anchor=(1.0, 0.5))
+    else:
+        ax.scatter(coords[:, 0], coords[:, 1], s=3, color="#444444",
+                   linewidths=0)
+    ax.set_title(title)
+    ax.set_xticks([])
+    ax.set_yticks([])
+    ax.autoscale()
+    fig.tight_layout()
+    fig.savefig(out, bbox_inches="tight")
+    plt.close(fig)
+
+
+def lr_overlay(
+    coords: np.ndarray,        # [N, 2]
+    ligand_expr: np.ndarray,   # [N]
+    receptor_expr: np.ndarray, # [N]
+    out: str,
+    *,
+    title: str = "",
+):
+    """Ligand-receptor activity overlay (pinto plot `lr` kind,
+    `lr_overlay.rs` role): faint gray scatter of all cells with
+    ligand-expressing cells in one colour, receptor-expressing in
+    another, co-expressing in a third — the spatial footprint of the
+    pair the activity statistic scored."""
+    plt = _mpl()
+    fig, ax = plt.subplots(figsize=(6.5, 5.5), dpi=150)
+    ax.scatter(coords[:, 0], coords[:, 1], s=3, color="#CCCCCC", linewidths=0)
+    lig = np.asarray(ligand_expr) > 0
+    rec = np.asarray(receptor_expr) > 0
+    both = lig & rec
+    ax.scatter(coords[lig & ~both, 0], coords[lig & ~both, 1], s=6,
+               color="#4E79A7", linewidths=0, label="ligand")
+    ax.scatter(coords[rec & ~both, 0], coords[rec & ~both, 1], s=6,
+               color="#E15759", linewidths=0, label="receptor")
+    ax.scatter(coords[both, 0], coords[both, 1], s=8,
+               color="#59A14F", linewidths=0, label="both")
+    ax.legend(markerscale=3, fontsize=7, frameon=False)
+    ax.set_title(title, fontsize=9)
+    ax.set_xticks([])
+    ax.set_yticks([])
+    fig.tight_layout()
+    fig.savefig(out, bbox_inches="tight")
+    plt.close(fig)

@@ -418,3 +418,45 @@ def normal_keys(keys: np.ndarray, n: int, device) -> torch.Tensor:
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32))
     u = uniform_keys(keys, n, device, lo, 1.0)
     return float(np.float32(np.sqrt(2))) * erfinv_rows(u)
+
+
+def _fma_rows(a, b, c) -> torch.Tensor:
+    """`_fma_f32` in torch ops: the product of two float32 values is exact
+    in float64, the sum rounds there and then to float32, as the numpy
+    form does (each argument a float32 tensor or a float32 value)."""
+    a, b, c = (v.double() if isinstance(v, torch.Tensor) else v for v in (a, b, c))
+    return (a * b + c).float()
+
+
+def log_f32_rows(x: torch.Tensor) -> torch.Tensor:
+    """`log_f32` (XLA's CPU float32 `log`) in torch ops on any device: a
+    float32 add or multiply is one rounding in every torch kernel, and the
+    fused multiply-adds are emulated in float64, so the result is the
+    same bits on the card as on the CPU."""
+    f = lambda v: float(np.float32(v))  # noqa: E731 - float32 constants as Python floats
+    x = torch.clamp_min(x.float(), float(np.uint32(0x00800000).view(np.float32)))
+    bits = x.view(torch.int32)  # positive: the sign bit is clear
+    e = 1.0 + ((bits >> 23) - 0x7F).float()
+    t = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    low = t < f(0.707106781186547524)
+    t1 = torch.where(low, t, torch.zeros_like(t))
+    t = t - 1.0
+    e = e - low.float()
+    t = t + t1
+    x2 = t * t
+    x3 = x2 * t
+    p = [float(v) for v in _LOG_P]
+    y, y1, y2 = _fma_rows(t, p[0], p[1]), _fma_rows(t, p[3], p[4]), _fma_rows(t, p[6], p[7])
+    y, y1, y2 = _fma_rows(y, t, p[2]), _fma_rows(y1, t, p[5]), _fma_rows(y2, t, p[8])
+    y = _fma_rows(_fma_rows(y, x3, y1), x3, y2)
+    y = _fma_rows(y, x3, f(-2.12194440e-4) * e)
+    t = _fma_rows(f(-0.5), x2, t)
+    return _fma_rows(f(0.693359375), e, t + y)
+
+
+def gumbel_keys(keys: np.ndarray, n: int, device) -> torch.Tensor:
+    """`jax.random.gumbel(k, (n,))` for each host key `k` of `keys [S, 2]`,
+    drawn on `device` bit for bit: `[S, n]` float32 (the uniform's bits
+    from the device threefry, XLA's CPU `log` from `log_f32_rows`)."""
+    u = uniform_keys(keys, n, device, float(np.finfo(np.float32).tiny), 1.0)
+    return -log_f32_rows(-log_f32_rows(u))

@@ -1281,3 +1281,92 @@ def test_faba_genes_on_the_card_machine_equals_the_planted_counts(dev, tmp_path)
         b = open_sparse_matrix(str(tmp_path / f"g.{nm}"))
         got = b.read_columns_csc(np.arange(b.num_columns))
         assert (got != sim[nm]).nnz == 0 and b.column_names() == sim["barcodes"]
+
+
+def _spatial_cells(n=3000, d=120, domains=4, seed=3):
+    """Planted domains (vertical stripes) at tissue-scale coordinates (µm,
+    millimetres from the origin), Poisson counts over domain programs."""
+    rng = np.random.default_rng(seed)
+    coords = np.array([4000.0, 6000.0]) + rng.uniform(0.0, 1500.0, (n, 2))
+    domain = np.minimum(((coords[:, 0] - 4000.0) / 1500.0 * domains).astype(int), domains - 1)
+    prog = np.tile(rng.gamma(2.0, 0.5, d), (domains, 1))
+    for c in range(domains):
+        prog[c, c * 10 : c * 10 + 10] *= 6.0
+    prog /= prog.sum(1, keepdims=True)
+    counts = rng.poisson(prog[domain] * rng.integers(100, 251, n)[:, None]).astype(np.float32)
+    mem = MemoryBackend(sp.csc_matrix(counts.T), [f"g{i}" for i in range(d)],
+                        [f"c{j}" for j in range(n)])
+    return coords, domain, mem
+
+
+def test_pinto_sweep_kernels_at_the_sweep_plane(dev):
+    """K3 (the community sums and sizes) and K2 (the scores) at a sweep's
+    plane, fractional (gene-weighted) profiles, against their plain
+    versions; two launches bit-equal. Each K3 sum runs over tens of
+    thousands of terms, where the plain float32 sum itself strays past
+    1e-5 of float64: K3 is held elementwise to the plain version at 1e-5,
+    or to the float64 sum, no farther from it than twice the plain
+    version is (`chip_smoke.py`'s float64 arm)."""
+    from legume_tpu_torch.pinto import lc as tlc
+
+    coords, _, mem = _spatial_cells()
+    edges = tlc.spatial_knn_edges(coords, 10, device=dev)
+    w = np.random.default_rng(0).uniform(0.3, 1.7, mem.num_rows).astype(np.float32)
+    plane = tlc.SweepPlane.from_csr(tlc.edge_profiles(mem, edges, gene_weights=w), dev)
+    k = 10
+    lab = torch.randint(0, k, (plane.n_edges,), generator=torch.Generator().manual_seed(1),
+                        dtype=torch.int32).to(dev)
+    for args, genes in (((plane.rows, plane.ptr, plane.vals), plane.n_genes),
+                        ((plane.tot_rows, plane.tot_ptr, plane.edge_tot), 1)):
+        got = kernels.collapse(*args, lab, num_genes=genes, num_groups=k)
+        assert torch.equal(got, kernels.collapse(*args, lab, num_genes=genes, num_groups=k))
+        want = kernels.collapse_plain(*args, lab, num_genes=genes, num_groups=k)
+        rows, ptr, vals = (a.cpu() for a in args)
+        cols = torch.repeat_interleave(torch.arange(ptr.numel() - 1), (ptr[1:] - ptr[:-1]).long())
+        keys = rows.long() * k + lab.cpu().long()[cols]
+        exact = torch.zeros(genes * k, dtype=torch.float64).index_add_(0, keys, vals.double())
+        exact = exact.view(genes, k)
+        if not bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs()).all()):
+            err64, plain64 = (float((x.cpu().double() - exact).abs().max()) for x in (got, want))
+            assert err64 <= 2.0 * plain64, (err64, plain64)
+    basis = torch.randn(plane.n_genes, k, generator=torch.Generator().manual_seed(2)).to(dev)
+    got = kernels.project(basis, plane.rows, plane.ptr, plane.vals, normed=False)
+    assert torch.equal(got, kernels.project(basis, plane.rows, plane.ptr, plane.vals, normed=False))
+    want = kernels.project_plain(basis, plane.rows, plane.ptr, plane.vals, normed=False)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_pinto_gumbel_noise_on_the_card_equals_the_cpu(dev):
+    """The sweep's Gumbel noise drawn on the card has the CPU's bits (JAX's
+    `jax.random.gumbel`, held in `tests/test_torch_pinto.py`)."""
+    from legume_tpu_torch.utils import prng
+
+    keys = prng.split(prng.key(7), 3)
+    card = prng.gumbel_keys(keys, 200_003, dev).cpu()
+    cpu = prng.gumbel_keys(keys, 200_003, "cpu")
+    assert torch.equal(card.view(torch.int32), cpu.view(torch.int32))
+
+
+def test_pinto_lc_on_the_card_is_bit_equal_and_matches_the_cpu(dev):
+    """Two card runs of `fit_link_community` give the same labels and
+    trace bit for bit; the CPU run has the same edges and edge labels
+    within the CPU tests' band (ARI 0.95)."""
+    from legume_tpu_torch.pinto import lc as tlc
+
+    coords, domain, mem = _spatial_cells()
+    kw = dict(n_communities=4, knn=10, n_sweeps=15, n_greedy=5, em_sweeps=5, seed=3)
+    a = tlc.fit_link_community(mem, coords, device=dev, **kw)
+    b = tlc.fit_link_community(mem, coords, device=dev, **kw)
+    np.testing.assert_array_equal(a.edge_labels, b.edge_labels)
+    assert a.scores_trace == b.scores_trace
+    c = tlc.fit_link_community(mem, coords, device="cpu", **kw)
+    np.testing.assert_array_equal(a.edges, c.edges)
+    _, ia = np.unique(a.edge_labels, return_inverse=True)
+    _, ic = np.unique(c.edge_labels, return_inverse=True)
+    table = np.zeros((ia.max() + 1, ic.max() + 1))
+    np.add.at(table, (ia, ic), 1)
+    pairs = lambda x: x * (x - 1) / 2.0  # noqa: E731
+    s_a, s_c = pairs(table.sum(1)).sum(), pairs(table.sum(0)).sum()
+    expected = s_a * s_c / pairs(len(ia))
+    ari = (pairs(table).sum() - expected) / (0.5 * (s_a + s_c) - expected)
+    assert ari >= 0.95, ari
