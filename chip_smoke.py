@@ -59,7 +59,7 @@ Phases (any failure exits non-zero; nothing is caught):
    zeroed just before, one launch per 4,096-cell block required), held
    at one BHC plane against the plain version; hsblock (depth 4) at
    100,000 cells, and on a 5,000-cell subset against the port's CPU run
-   (equal partitions up to relabelling); Leiden at 20,000 cells;
+   (equal partitions up to relabelling); Leiden at 10,000 cells;
 10. report whether phase 2's fine partition on the card equals the
    port's CPU projection and sort at 100,000 cells as a set partition
    (and as codes);
@@ -118,7 +118,7 @@ Phases (any failure exits non-zero; nothing is caught):
    causal genes' effects above the others', the carriers' block above
    the rest in cn_score, every timing key); `cocoa collapse` (one K3
    launch a block); K1 (K = 30) and K3 (40 groups) held against their
-   plain versions at the first block each run gives them; on 100 cells
+   plain versions at the first block each run gives them; on 50 cells
    of each individual the card against the CPU: the projections within
    K1's bar, caches from one projection equal up to distance ties of 1e-5,
    stats within 1e-5, z within 1e-4, CNV states equal (the match cache's
@@ -196,17 +196,17 @@ Phases (any failure exits non-zero; nothing is caught):
 29. `data-beans` on x.zarr: `info`, `stat`, `list-zarr`, `qc
    --feature-min-cells 10 --report` on the card and with `--device cpu`
    (keep masks equal, totals within 1e-6), `histogram`, `subsample
-   --cells 5000 --seed 7`, `subset` (5,000 cells, 500 genes),
+   --cells 2500 --seed 7`, `subset` (5,000 cells, 500 genes),
    `take-columns` / `take-rows` (100 names each), `sort-rows`, `reorder`,
    `squeeze`, `convert` of the subsample to `.zarr.zip` and back
    (byte-equal to it),
    `merge-backend` of the two halves (equal to the whole) and
    `align` of two stores on overlapping gene sets, each held against
    scipy on phase 2's matrix, with each command's seconds;
-30. ingestion: `to-mtx` of phase 29's 5,000 cells, `from-mtx` and
+30. ingestion: `to-mtx` of phase 29's 2,500 cells, `from-mtx` and
    `from-mtx --streaming` (byte-equal to the source; the native parser
    required), `merge-mtx`, `from-triplets` (2,000 cells' transcripts),
-   `from-zarr` (a Xenium-layout zarr v2 zlib store of the 5,000 cells),
+   `from-zarr` (a Xenium-layout zarr v2 zlib store of the 2,500 cells),
    `from-fragments` (1M fragments over 2,000 cells, to tiles, against a
    direct count), `data-beans-sim multimodal`, `multiome`, `faba`,
    `bulk` (phase 2's top topic as labels) and `topic --reference` (phase
@@ -255,15 +255,36 @@ Phases (any failure exits non-zero; nothing is caught):
    most 0.05, its null's floor, a control pair's above), `annotate` (a GMT of the planted markers), and `interfaces` and
    `p` where matplotlib imports (else skipped and said); K1 and K4 held
    at cage's projection block and fne plane;
-37. print the script's total seconds, one JSON line of all kernels, then
+37. `fagioli` through the port's CLI entry on a fine-mapping locus (`sim-sumstat
+   --n 503 --p 2000`, the size of 1000 Genomes' EUR panel, 3 causal
+   variants against L = 5): `map-sumstat` (plain and `--multilevel`),
+   `fit-sumstat-sgvb` (the prior-variance grid, and `--prior-type ash`),
+   `fit-prs-susie` and `fit-sumstat-mcmc`, each command's seconds and the
+   milliseconds of one SGVB step; each causal variant (or one within 2
+   positions) in the top-5 PIPs of the SuSiE fits; a small locus (200 x
+   150) on the card against the CPU (PIPs within 1e-3) and twice
+   bit-equal; on a cohort (`sim-qtl`, 200
+   individuals x 500 cells, 2,000 genes, 5 cell types) `pseudobulk` on
+   every gene (K3, one launch) with K3 held and timed at that plane, and
+   `fit-qtl-sgvb --annot` on a store of one of its eGenes (K3, one
+   launch per cell type);
+38. `chickpea p2g --pseudobulk --knockoff-fdr 0.2 --rank 200` (the LD rank
+   capped at the pseudobulks less one) through the CLI entry on
+   `data-beans-sim multiome` cells (20,000 paired cells, 2,000 peaks,
+   30 genes):
+   K1 and K3 launched, held at the run's own first calls; the driving
+   peaks rank high by PIP (the median percentile above 0.7);
+39. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
 
 The simulations of phases 8, 13a, 15 and 19 run in a pool of four
 processes started after phase 4, phase 28 in a process started before
 phase 21, phase 32's BAM, index and counts in a process started before
-phase 17 and phase 35's cells in a process started before phase 32, so
-the host makes them while the card runs the phases before them; each
-takes the same function, arguments and seed it would call itself.
+phase 17, phase 35's cells in a process started before phase 32 and
+phases 37-38's loci, cohort and multiome cells in processes started
+before phase 35, so the host makes them while the card runs the phases
+before them; each takes the same function, arguments and seed it would
+call itself.
 
 Every kernel check launches the kernel twice on the same inputs and
 fails unless the two results are bit-equal (`deterministic`). Times are
@@ -319,6 +340,12 @@ POSTERIOR_SWEEPS, POSTERIOR_BURNIN = 4, 1  # cut so that the script ends near 1,
 # of the cells) took 86-180 s at 100,000 beside the simulations, and the
 # script's host is its bottleneck
 BGE_CELLS = 50_000
+# depth cuts that keep the script inside its limit on the slower hosts, where
+# every phase takes 1.5-2x its time on the faster ones: clustering's Leiden
+# on 10,000 of predict's cells (20,000), cocoa's card-against-CPU check on
+# 50 cells of each individual (100), and `data-beans`' subsample, `to-mtx`
+# and the ingestion on 2,500 cells (5,000)
+LEIDEN_CELLS, COCOA_CPU_PER_INDV, BEANS_CELLS = 10_000, 50, 2_500
 
 # Run in a fresh process: splits `MixedTrainer`'s construction at the e2e
 # shapes into CUDA start-up, moving the modules to the card, the
@@ -1401,13 +1428,14 @@ def cocoa_phase(work: str, K, dev, card: str, checks: dict, keep: dict) -> dict:
         print(json.dumps({"kernel_check": name, "card": card, **row}), flush=True)
         checks[name].append(row)
 
-    # ---- the card against the CPU on 100 cells of each individual. The
+    # ---- the card against the CPU on 50 cells of each individual. The
     # two runs project through K1 and its plain version (within K1's 2e-4
     # bar), so their caches may part at near-tied neighbours; the caches
     # built from one projection on the card and on the CPU are compared.
     from legume_tpu_torch.cocoa.collapse import build_match_cache
 
-    sub = np.concatenate([np.flatnonzero(sim.cell_indv == i)[:100] for i in range(40)])
+    sub = np.concatenate([np.flatnonzero(sim.cell_indv == i)[:COCOA_CPU_PER_INDV]
+                          for i in range(40)])
     t0 = time.time()
     g = diff(f"{work}/sub", sub, str(dev))
     c = diff(f"{work}/subcpu", sub, "cpu", "--no-match-cache")
@@ -1487,6 +1515,25 @@ def _subset(vec, n: int, with_batches: bool = True):
     return sub
 
 
+class fixed_order_products:
+    """Within the block, `torch.nn.functional.linear` (every `nn.Linear`)
+    sums its products in float64 from the float32 operands and rounds the
+    result to float32 once: a fixed order on any device, in place of the
+    library's blocked float32 sums."""
+
+    def __enter__(self):
+        self.orig = torch.nn.functional.linear
+
+        def linear(x, w, b=None):
+            y = x.double() @ w.double().T
+            return (y if b is None else y + b.double()).float()
+
+        torch.nn.functional.linear = linear
+
+    def __exit__(self, *exc):
+        torch.nn.functional.linear = self.orig
+
+
 def vae_phase(work: str, vec, hvec, held_batch_file: str, K, dev, card: str) -> dict:
     """Phase 17: `senna vae` at the CLI defaults (5 epochs) on phase 2's
     cells, `senna predict` with that model on phase 8's held-out cells,
@@ -1556,6 +1603,21 @@ def vae_phase(work: str, vec, hvec, held_batch_file: str, K, dev, card: str) -> 
     card_f64, cpu_f64 = (float(np.abs(zs[d] - z64).max()) for d in (dev, "cpu"))
     print(json.dumps({"phase": "vae_card_vs_cpu", "cells": 4000, "latent_max_abs_err": err,
                       "card_vs_f64": card_f64, "cpu_vs_f64": cpu_f64, "card": card}), flush=True)
+    # open fault 1: the same encoder with every layer's product summed in a
+    # fixed order (float64 accumulation of the float32 operands, rounded
+    # once), the rest of the forward in float32 as before; if the card's
+    # extra distance from float64 is cuBLAS's summation order, it goes here
+    with fixed_order_products():
+        fixed = {d: P.score_dense_backend(first, build_encoder(meta, flat, device=d), remap,
+                                          device=d) for d in (dev, "cpu")}
+    print(json.dumps({
+        "phase": "fault1_summation_order", "cells": 4000,
+        "card_f32_vs_f64": card_f64, "cpu_f32_vs_f64": cpu_f64,
+        "card_fixed_vs_f64": float(np.abs(fixed[dev] - z64).max()),
+        "cpu_fixed_vs_f64": float(np.abs(fixed["cpu"] - z64).max()),
+        "card_fixed_vs_cpu_fixed": float(np.abs(fixed[dev] - fixed["cpu"]).max()),
+        "card_f32_vs_card_fixed": float(np.abs(zs[dev] - fixed[dev]).max()), "card": card,
+    }), flush=True)
     if not err <= 1e-3:
         raise AssertionError(f"vae latent on the card vs the CPU: {err} > 1e-3 (from float64: "
                              f"card {card_f64}, CPU {cpu_f64})")
@@ -2485,9 +2547,10 @@ def _add_counts(total: dict, counts: dict) -> dict:
     return total
 
 
-def _cli_chains(chains: dict, workers: int = 4) -> tuple[dict, float, dict]:
+def _cli_chains(chains: dict, workers: int = 8) -> tuple[dict, float, dict]:
     """Chains of port CLI commands (`CLI_COUNTED`, each in a process of its
-    own): the chains side by side, at most `workers` at a time, each
+    own, each first importing torch): the chains side by side, at most
+    `workers` at a time (one a core of the card's host), each
     chain's commands in order. Returns (each command's seconds, the wall
     seconds of them all, the kernel launches the commands reported, summed);
     a failed command raises with the end of its standard error."""
@@ -2524,7 +2587,7 @@ def beans_phase(work: str, sim, store: str, K, dev, card: str, *, sub_cells: int
     against a `--device cpu` run (keep masks equal, totals within 1e-6
     relative). The commands on the card (`qc`, `histogram`) and the
     printing ones run in this process; the ones that write stores run as
-    port CLI processes (`CLI_COUNTED`), four at a time, phase 30's
+    port CLI processes (`CLI_COUNTED`), eight at a time, phase 30's
     `to-mtx` of the subsample among them. Returns the launches of every
     command, those of the processes as each reported them."""
     import pandas as pd
@@ -2712,7 +2775,7 @@ def ingest_phase(work: str, sim, res, store: str, card: str, *, mtx_cells: int =
     `data-beans-sim` commands (`multimodal`, `multiome`, `faba` at their
     defaults, `bulk` of x.zarr with phase 2's top topic as labels, `topic
     --reference` phase 29's subset store at the default 1,000 cells), all
-    as port CLI processes (`CLI_COUNTED`), four at a time once their
+    as port CLI processes (`CLI_COUNTED`), eight at a time once their
     inputs are written; the h5py commands skipped where h5py does not import, and said so.
     Returns the launches the processes reported, summed."""
     import gzip
@@ -3585,6 +3648,322 @@ def pinto_commands_phase(work: str, kept: dict, K, dev, card: str, checks: dict,
     return launches
 
 
+# ---- phases 37-38: fagioli and chickpea ------------------------------------
+FAGIOLI_LOCUS = (503, 2000)  # 1000 Genomes' EUR panel x a 2,000-variant locus
+FAGIOLI_SMALL = (200, 150)  # the locus held card against CPU
+FAGIOLI_L = 5  # map-sumstat's default L; the locus plants 3 causal variants
+FAGIOLI_MCMC = (100, 50)  # fit-sumstat-mcmc's samples and burn-in (CLI: 1,000 and 200)
+SGVB_STEP_PROBE = 200  # steps timed for the milliseconds of one SGVB step
+SGVB_CARD_BAND = 1e-3  # small locus: max |PIP card - PIP CPU| after map-sumstat's 1,500 steps
+COHORT = {"indv": 200, "cells_per_indv": 500, "genes": 2000, "types": 5}
+QTL_EGENES = 1  # fit-qtl-sgvb's eGenes, at the CLI's 600 steps and grid of 3
+MULTIOME = {"cols": 20_000, "peaks": 2_000, "genes": 30, "factors": 8}
+P2G_STEPS, P2G_CIS_WINDOW = 300, 20_000  # tests/test_cli_surface.py's p2g settings
+# the LD eigenspace's rank, capped at the pseudobulks less one: at the
+# CLI's 20 (of ~140 pseudobulks) the driving peak's median PIP percentile
+# is 0.5 on these cells (0.9 at full rank; the JAX package's the same)
+P2G_RANK = 200
+P2G_PERCENTILE = 0.7  # the driving peak's median PIP percentile (tests/test_cli_surface.py)
+
+# A port CLI command that does no device work, in a process of its own, then
+# its seconds as the last line of its standard output.
+TIMED_CLI = r"""
+import json, sys, time
+from legume_tpu_torch.cli.main import main
+t = time.time(); rc = main(sys.argv[1:])
+print(json.dumps({"run_s": time.time() - t}))
+sys.exit(rc)
+"""
+
+
+def start_genetics_sims(work: str, *, locus=FAGIOLI_LOCUS, small=FAGIOLI_SMALL, cohort=COHORT,
+                        multiome=MULTIOME) -> dict:
+    """Phases 37-38's inputs through the port's simulators, each in a process
+    of its own: the locus and the small locus (`fagioli sim-sumstat`, 3
+    shared causal variants in 3 LD blocks), the cohort (`fagioli sim-qtl`)
+    and the paired cells (`data-beans-sim multiome`)."""
+    d = Path(f"{work}/genetics")
+    d.mkdir(exist_ok=True)
+
+    def sumstat(n, p, out, seed):
+        return ["fagioli", "sim-sumstat", "--out", f"{d}/{out}", "--n", str(n), "--p", str(p),
+                "--num-causal-blocks", "3", "--num-independent-causal", "0", "--seed", str(seed)]
+
+    cmds = {
+        "locus": sumstat(*locus, "locus", 15),
+        "small": sumstat(*small, "small", 16),
+        "cohort": ["fagioli", "sim-qtl", "--out", f"{d}/cohort", "--indv", str(cohort["indv"]),
+                   "--cells-per-indv", str(cohort["cells_per_indv"]), "--genes",
+                   str(cohort["genes"]), "--num-cell-types", str(cohort["types"]), "--seed", "15"],
+        "multiome": ["data-beans-sim", "multiome", "--cols", str(multiome["cols"]), "--peaks",
+                     str(multiome["peaks"]), "--genes", str(multiome["genes"]), "--factors",
+                     str(multiome["factors"]), "--output", f"{d}/mo"],
+    }
+    started = {}
+    for name, argv in cmds.items():
+        proc = subprocess.Popen([sys.executable, "-c", TIMED_CLI, *argv], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                cwd=Path(__file__).resolve().parent)
+        CHILDREN.append(proc)
+        started[name] = (proc, time.time())
+    return started
+
+
+def _simulated(started: dict, name: str) -> dict:
+    """Wait for simulation `name`: its own seconds and the seconds from its
+    start to the end of the wait."""
+    proc, t0 = started[name]
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"{name} simulation failed: {err[-1500:]}")
+    return {"run_s": json.loads(out.strip().splitlines()[-1])["run_s"],
+            "since_start_s": time.time() - t0}
+
+
+class first_calls:
+    """Within the block, the first call of `K.project` per basis shape and of
+    `K.collapse` per (genes, groups) are kept as the main path makes them
+    (`seen[name][key] = (args, keywords)`), to hold those calls' shapes
+    against the plain versions afterwards."""
+
+    def __init__(self, K):
+        self.K, self.seen = K, {"project": {}, "collapse": {}}
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.K, n) for n in self.seen}
+
+        def spy(name):
+            def call(*a, **kw):
+                key = tuple(a[0].shape) if name == "project" else (kw["num_genes"],
+                                                                   kw["num_groups"])
+                keep = {k: v for k, v in kw.items() if k not in ("out", "also_count")}
+                self.seen[name].setdefault(key, (a, keep))
+                return self.orig[name](*a, **kw)
+            return call
+
+        for n in self.seen:
+            setattr(self.K, n, spy(n))
+        return self.seen
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.K, n, fn)
+
+
+def _held_collapse(K, seen, checks, path: str, launches: int, what: str):
+    for (genes, groups), (a, kw) in seen["collapse"].items():
+        rows, ptr, vals, seg = a[:4]
+        checks["collapse"].append({
+            **check_collapse(K, rows, ptr, vals, seg, num_genes=genes, num_groups=groups,
+                             shape=f"{what} ({genes} rows x {ptr.shape[0] - 1} cells -> "
+                                   f"{groups} groups, {rows.shape[0]} nonzeros)"),
+            "path": path, "launches_in_e2e": launches,
+        })
+
+
+def _recovered(pip: np.ndarray, causal) -> bool:
+    """Each causal variant, or one within 2 positions of it, in the top-5
+    PIPs (tests/test_sgvb.py's bar)."""
+    top = np.argsort(-pip)[:5]
+    return all(np.min(np.abs(top - c)) <= 2 for c in causal)
+
+
+def fagioli_phase(work: str, started: dict, K, dev, card: str, checks: dict, *,
+                  mcmc=FAGIOLI_MCMC, qtl_genes: int = QTL_EGENES,
+                  step_probe: int = SGVB_STEP_PROBE) -> dict:
+    """Phase 37: the fine-mapping commands on the locus, the small locus on
+    the card against the CPU, then `pseudobulk` and `fit-qtl-sgvb` on the
+    cohort, K3 held at their planes."""
+    import pandas as pd
+    import scipy.sparse as sp
+
+    from legume_tpu_torch.cli.main import run_fagioli
+    from legume_tpu_torch.data.sparse_io import create_sparse_from_csc, open_sparse_matrix
+    from legume_tpu_torch.models import sgvb
+
+    g = f"{work}/genetics"
+    sims = {name: _simulated(started, name) for name in ("locus", "small")}
+    loc = f"{g}/locus"
+    truth = pd.read_parquet(f"{loc}.truth.parquet")
+    causal = np.unique(truth["variant_idx"].to_numpy())
+    if not 0 < len(causal) <= FAGIOLI_L:
+        raise AssertionError(f"the locus plants {len(causal)} causal variants, L = {FAGIOLI_L}")
+    geno = np.load(f"{loc}.geno.npy")
+    z = pd.read_csv(f"{loc}.sumstat.tsv", sep="\t")["z"].to_numpy()
+
+    # one SGVB step at the locus: map-sumstat's design, L and family
+    design = sgvb.RssDesign.from_genotypes(geno, z)
+    fit = lambda n: sgvb.fit_regression(design.x_tilde, design.y_tilde, L=FAGIOLI_L,  # noqa: E731
+                                        config=sgvb.SgvbConfig(num_steps=n), device=dev)
+    fit(10)
+    _sync(dev)
+    t0 = time.time()
+    fit(step_probe)
+    _sync(dev)
+    step_ms = (time.time() - t0) / step_probe * 1e3
+
+    inputs = ["--zscores", f"{loc}.sumstat.tsv", "--geno", f"{loc}.geno.npy", "--device",
+              str(dev)]
+    runs = {
+        "map_sumstat": (["map-sumstat"], "finemap"),
+        "map_sumstat_multilevel": (["map-sumstat", "--multilevel"], "finemap"),
+        "fit_sumstat_sgvb": (["fit-sumstat-sgvb"], "finemap"),
+        "fit_sumstat_sgvb_ash": (["fit-sumstat-sgvb", "--prior-type", "ash"], "finemap"),
+        "fit_prs_susie": (["fit-prs-susie"], "prs_weights"),
+        "fit_sumstat_mcmc": (["fit-sumstat-mcmc", "--samples", str(mcmc[0]), "--burn-in",
+                              str(mcmc[1])], "mcmc"),
+    }
+    secs, recovered, finite = {}, {}, {}
+    K.reset_launch_counts()
+    for name, (argv, table) in runs.items():
+        _, secs[name] = _cli(run_fagioli, argv[:1] + inputs + ["--out", f"{g}/{name}"] + argv[1:])
+        frame = pd.read_parquet(f"{g}/{name}.{table}.parquet")
+        num = frame.select_dtypes("number").to_numpy()
+        finite[name] = bool(len(frame) == geno.shape[1] and np.isfinite(num).all())
+        if "pip" in frame and name != "fit_sumstat_sgvb_ash":
+            recovered[name] = _recovered(frame["pip"].to_numpy(), causal)
+    locus_launches = dict(K.launch_counts)
+
+    # the small locus: the card twice and the CPU once
+    sm = ["map-sumstat", "--zscores", f"{g}/small.sumstat.tsv", "--geno", f"{g}/small.geno.npy"]
+    pips = {}
+    for run_name, d in (("card_a", dev), ("card_b", dev), ("cpu", "cpu")):
+        _cli(run_fagioli, sm + ["--out", f"{g}/small_{run_name}", "--device", str(d)])
+        pips[run_name] = pd.read_parquet(f"{g}/small_{run_name}.finemap.parquet")["pip"].to_numpy()
+    card_cpu = float(np.abs(pips["card_a"] - pips["cpu"]).max())
+    card_equal = bool(np.array_equal(pips["card_a"], pips["card_b"]))
+    print(json.dumps({
+        "phase": "fagioli_locus", "individuals": geno.shape[0], "variants": geno.shape[1],
+        "L": FAGIOLI_L, "causal": causal.tolist(), "sgvb_step_ms": step_ms,
+        "rss_rank": int(design.x_tilde.shape[0]), "seconds": secs, "recovered": recovered,
+        "finite": finite, "mcmc_samples_burn_in": list(mcmc), "launches": locus_launches,
+        "small_locus_card_vs_cpu_pip_max_abs": card_cpu, "small_locus_card_bit_equal": card_equal,
+        "simulations": sims, "card": card,
+    }), flush=True)
+    if not all(recovered.values()) or not all(finite.values()):
+        raise AssertionError(f"fagioli locus: recovered {recovered}, finite {finite}")
+    if not card_equal or not card_cpu <= SGVB_CARD_BAND:
+        raise AssertionError(f"small locus: card runs equal {card_equal}, card vs CPU {card_cpu}")
+
+    # the cohort: pseudobulk on every gene, fit-qtl-sgvb on a few eGenes
+    sims["cohort"] = _simulated(started, "cohort")
+    coh = f"{g}/cohort"
+    annot = pd.read_csv(f"{coh}.annotations.tsv.gz", sep="\t", header=None,
+                        names=["cell", "individual", "celltype"])
+    Path(f"{coh}.indv.txt").write_text("\n".join(annot["individual"]) + "\n")
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with first_calls(K) as seen:
+        _, secs["pseudobulk"] = _cli(run_fagioli, ["pseudobulk", "--backend", f"{coh}.zarr",
+                                                   "--indv", f"{coh}.indv.txt", "--out",
+                                                   f"{g}/pb", "--device", str(dev)])
+    pb_launches = _launched(K, ("collapse",), "fagioli pseudobulk")
+    pb_bytes = torch.cuda.max_memory_allocated()
+    be = open_sparse_matrix(f"{coh}.zarr")
+    n_indv = annot["individual"].nunique()
+    pb = pd.read_parquet(f"{g}/pb.pseudobulk.parquet")
+    pb_ok = pb.shape == (be.num_rows, n_indv + 1) and np.isfinite(pb.iloc[:, 1:].to_numpy()).all()
+    _held_collapse(K, seen, checks, "fagioli_pseudobulk", pb_launches["collapse"],
+                   "fagioli pseudobulk")
+    del seen
+
+    egenes = list(dict.fromkeys(pd.read_parquet(f"{coh}.truth.parquet")["gene"]))[:qtl_genes]
+    names = be.row_names()
+    csc = be.read_columns_csc(np.arange(be.num_columns))
+    new_row = np.full(csc.shape[0], -1)
+    new_row[[names.index(x) for x in egenes]] = np.arange(len(egenes))
+    keep = new_row[csc.indices] >= 0  # the eGenes' entries, in column order
+    ptr = np.concatenate([[0], np.cumsum(keep)])[csc.indptr]
+    create_sparse_from_csc(sp.csc_matrix((csc.data[keep], new_row[csc.indices[keep]], ptr),
+                                         shape=(len(egenes), csc.shape[1])),
+                           f"{g}/egenes.zarr", egenes, be.column_names())
+    K.reset_launch_counts()
+    with first_calls(K) as seen:
+        _, secs["fit_qtl_sgvb"] = _cli(run_fagioli, [
+            "fit-qtl-sgvb", "--backend", f"{g}/egenes.zarr", "--annot",
+            f"{coh}.annotations.tsv.gz", "--geno", f"{coh}.geno.npy", "--out", f"{g}/qtl",
+            "--device", str(dev)])
+    qtl_launches = _launched(K, ("collapse",), "fagioli fit-qtl-sgvb")
+    res = pd.read_parquet(f"{g}/qtl.qtl.parquet")
+    types = annot["celltype"].nunique()
+    truth_q = pd.read_parquet(f"{coh}.truth.parquet")
+    hits = 0
+    for (gene, ct), sub in res.groupby(["gene", "celltype"]):
+        want = set(truth_q[(truth_q["gene"] == gene)
+                           & truth_q["celltype"].isin([-1, int(ct[2:])])]["variant"])
+        hits += int(sub.loc[sub["pip"].idxmax(), "variant"].lstrip("v")) in want
+    qtl_ok = (qtl_launches["collapse"] == types and np.isfinite(res[["pip", "effect"]]).all().all()
+              and len(res) > 0)
+    _held_collapse(K, seen, checks, "fit_qtl_sgvb", qtl_launches["collapse"],
+                   "fagioli fit-qtl-sgvb")
+    del seen
+    print(json.dumps({
+        "phase": "fagioli_cohort", "individuals": n_indv, "cells": be.num_columns,
+        "genes": be.num_rows, "cell_types": types, "nnz": int(csc.nnz), "seconds": secs,
+        "pseudobulk_launches": pb_launches, "pseudobulk_peak_device_bytes": pb_bytes,
+        "pseudobulk_ok": bool(pb_ok), "qtl_genes": egenes, "fit_qtl_sgvb_launches": qtl_launches,
+        "fit_qtl_sgvb_tests": len(res), "fit_qtl_sgvb_top_is_causal": hits,
+        "fit_qtl_sgvb_fits": int(res.groupby(["gene", "celltype"]).ngroups),
+        "simulations": sims, "card": card,
+    }), flush=True)
+    if not pb_ok or not qtl_ok:
+        raise AssertionError(f"fagioli cohort: pseudobulk ok {pb_ok}, fit-qtl-sgvb ok {qtl_ok}")
+    return {"fagioli_pseudobulk": pb_launches, "fit_qtl_sgvb": qtl_launches}
+
+
+def chickpea_phase(work: str, started: dict, K, dev, card: str, checks: dict, *,
+                   steps: int = P2G_STEPS) -> dict:
+    """Phase 38: `chickpea p2g --pseudobulk --knockoff-fdr 0.2` on the paired
+    cells; K1 and K3 launched and held at the run's own first calls; the
+    driving peaks rank high."""
+    import pandas as pd
+
+    from legume_tpu_torch.cli.main import run_chickpea
+
+    sim = _simulated(started, "multiome")
+    g = f"{work}/genetics"
+    mo = f"{g}/mo"
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with first_calls(K) as seen:
+        text, secs = _cli(run_chickpea, [
+            "p2g", "--rna", f"{mo}.rna.zarr", "--atac", f"{mo}.atac.zarr", "--gff",
+            f"{mo}.genes.gff", "--out", f"{g}/p2g", "--pseudobulk", "--knockoff-fdr", "0.2",
+            "--cis-window", str(P2G_CIS_WINDOW), "--rank", str(P2G_RANK), "--steps", str(steps),
+            "--device", str(dev)])
+    launches = _launched(K, ("project_normed", "collapse"), "chickpea p2g --pseudobulk")
+    peak_bytes = torch.cuda.max_memory_allocated()
+    links = pd.read_parquet(f"{g}/p2g.p2g.parquet")
+    truth = pd.read_parquet(f"{mo}.truth.parquet").set_index("gene")["peak"]
+    pctls = []
+    for gene, grp in links.groupby("gene"):
+        m = grp["peak"] == truth.loc[gene]
+        if m.any():
+            pctls.append(float(grp["pip"].rank(pct=True)[m].iloc[0]))
+    med = float(np.median(pctls)) if pctls else 0.0
+    for basis_shape, (a, kw) in seen["project"].items():
+        checks["project_normed"].append({
+            **check_projection(K, *a[:4], normed=True,
+                               shape=f"chickpea p2g projection ({a[0].shape[0]} genes, K = "
+                                     f"{a[0].shape[1]}, {a[2].shape[0] - 1} cells)"),
+            "path": "chickpea_p2g", "launches_in_e2e": launches["project_normed"],
+        })
+    _held_collapse(K, seen, checks, "chickpea_p2g", launches["collapse"], "chickpea p2g")
+    del seen
+    print(json.dumps({
+        "phase": "chickpea_p2g", "cells": MULTIOME["cols"], "peaks": MULTIOME["peaks"],
+        "genes": MULTIOME["genes"], "steps": steps, "rank": P2G_RANK, "seconds": secs,
+        "launches": launches,
+        "peak_device_bytes": peak_bytes, "said": [ln for ln in text.splitlines() if ln][-3:],
+        "links": len(links), "selected": int(links["selected"].sum()),
+        "genes_with_truth": len(pctls), "driving_peak_pip_percentile_median": med,
+        "simulation": sim, "card": card,
+    }), flush=True)
+    if len(pctls) < 0.75 * MULTIOME["genes"] or not med > P2G_PERCENTILE:
+        raise AssertionError(f"chickpea p2g: {len(pctls)} genes, median percentile {med}")
+    return {"chickpea_p2g": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -3742,7 +4121,8 @@ def run(work: str, t_script: float) -> int:
     )
     print(probe.stdout.strip().splitlines()[-1], flush=True)
     # the later phases' simulations, on the host from here on (after the
-    # first kernel timings and the set-up split, which they would disturb)
+    # first kernel timings and the set-up split, which they would disturb;
+    # started before phase 4 they took bge's Leiden from 25.5 to 77.3 s)
     start_prefetch(sim.row_names)
 
     # ---- phase 5: senna bge end to end -----------------------------------
@@ -4005,7 +4385,7 @@ def run(work: str, t_script: float) -> int:
     hs_card = hsblock_clustering(adj5, max_depth=4, seed=0, device=dev).membership
     hs_cpu = hsblock_clustering(adj5, max_depth=4, seed=0, device="cpu").membership
     t0 = time.time()
-    ld = cluster_latent(zp[:20_000], ClusteringArgs(method="leiden"), device=dev)
+    ld = cluster_latent(zp[:LEIDEN_CELLS], ClusteringArgs(method="leiden"), device=dev)
     leiden_s = time.time() - t0
     print(json.dumps({
         "phase": "senna_clustering", "cells": n_held, "kmeans_bhc_s": kmeans_bhc_s,
@@ -4014,7 +4394,7 @@ def run(work: str, t_script: float) -> int:
         "hsblock_clusters": int(hs.max()) + 1,
         "hsblock_5000_card_vs_cpu_same_partition": same_partition(hs_card, hs_cpu),
         "hsblock_5000_clusters": [int(hs_card.max()) + 1, int(hs_cpu.max()) + 1],
-        "leiden_cells": 20_000, "leiden_s": leiden_s, "leiden_clusters": int(ld.max()) + 1,
+        "leiden_cells": LEIDEN_CELLS, "leiden_s": leiden_s, "leiden_clusters": int(ld.max()) + 1,
         "card": card,
     }), flush=True)
     if claunches["collapse"] != bhc_blocks:
@@ -4090,8 +4470,8 @@ def run(work: str, t_script: float) -> int:
     slice12 = beans_sim_phase(work, sim, store, beans_sim, card)
     # 5,000 cells for to-mtx, convert and the ingestion: the depth cut that
     # keeps the script near 1,000 s with phases 35-36
-    slice12.update(beans_phase(work, sim, store, K, dev, card, sub_cells=5_000))
-    slice12.update(ingest_phase(work, sim, res, store, card, mtx_cells=5_000))
+    slice12.update(beans_phase(work, sim, store, K, dev, card, sub_cells=BEANS_CELLS))
+    slice12.update(ingest_phase(work, sim, res, store, card, mtx_cells=BEANS_CELLS))
     slice12.update(gff_phase(work, kept, K, dev, card))
 
     # ---- phases 32-34: faba index / genes, faba gem, faba dyn-assoc -------------
@@ -4102,11 +4482,16 @@ def run(work: str, t_script: float) -> int:
     slice13.update(assoc_phase(work, gem_res["cell_pseudotime"], K, dev, card))
 
     # ---- phases 35-36: pinto ----------------------------------------------------
+    genetics = start_genetics_sims(work)  # phases 37-38's inputs, on the host meanwhile
     pinto = pinto_phase(work, pinto_started, K, dev, card, checks)
     slice14 = pinto["launches"]
     slice14.update(pinto_commands_phase(work, pinto["kept"], K, dev, card, checks))
 
-    # ---- phase 37: the kernels line, then the device line -----------------
+    # ---- phases 37-38: fagioli, chickpea ------------------------------------------
+    slice15 = fagioli_phase(work, genetics, K, dev, card, checks)
+    slice15.update(chickpea_phase(work, genetics, K, dev, card, checks))
+
+    # ---- phase 39: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
     # and `shapes` holds every checked shape, each with the run (`path`)
@@ -4127,7 +4512,8 @@ def run(work: str, t_script: float) -> int:
     # diff_gff; faba_genes, gem_raw, gem_posterior, gem_lineage,
     # gem_encoder, gem_bam, assoc_bayes, assoc_gam; pinto_lc, pinto_cascade,
     # pinto_gene_network, pinto_prop, pinto_dsvd, pinto_cage, pinto_lc_etm,
-    # pinto_lra, pinto_annotate).
+    # pinto_lra, pinto_annotate; fagioli_pseudobulk, fit_qtl_sgvb,
+    # chickpea_p2g).
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
@@ -4146,7 +4532,7 @@ def run(work: str, t_script: float) -> int:
             "launches_topic_options": option_launches.get(name, 0),
             **{f"launches_{path}": counts[name]
                for path, counts in {**slice9, **slice10, **slice11, **slice12,
-                                    **slice13, **slice14}.items()},
+                                    **slice13, **slice14, **slice15}.items()},
             **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),

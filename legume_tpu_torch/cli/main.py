@@ -10,8 +10,12 @@ simulate-collider} ...`, `python -m legume_tpu_torch data-beans ...`
 gem-encoder,dyn-assoc} ...` (`cli/faba_cli.py`, whose other subcommands
 raise `NotImplementedError`) and `python -m legume_tpu_torch pinto {lc,
 cascade,annotate,p,interfaces,prop,dsvd,cage,lc-etm,lra} ...`
-(`cli/pinto_cli.py`) (or `python -m legume_tpu_torch.cli.main`,
-or the `legume-torch` script).
+(`cli/pinto_cli.py`), `python -m legume_tpu_torch fagioli {map-sumstat,
+fit-sumstat-sgvb,fit-prs-susie,fit-sumstat-mcmc,sim-sumstat,sim-geno,sim-qtl,
+map-qtl,fit-qtl-sgvb,sim-mediation,fit-regression,pseudobulk} ...`
+(`cli/fagioli_cli.py`) and `python -m legume_tpu_torch chickpea {p2g,
+from-multiome} ...` (`cli/chickpea_cli.py`) (or `python -m
+legume_tpu_torch.cli.main`, or the `legume-torch` script).
 
 The flags are those of the JAX package's commands; the ones the port
 does not carry yet are accepted and raise `NotImplementedError` when set.
@@ -472,7 +476,8 @@ def main(argv=None) -> int:
 
     install_sigint_handler()  # a first Ctrl-C ends training with partial outputs
     binaries = {"senna": run_senna, "cocoa": run_cocoa, "data-beans": run_beans,
-                "data-beans-sim": run_sim, "faba": run_faba, "pinto": run_pinto}
+                "data-beans-sim": run_sim, "faba": run_faba, "pinto": run_pinto,
+                "fagioli": run_fagioli, "chickpea": run_chickpea}
     if not argv or argv[0] not in binaries:
         print("usage: python -m legume_tpu_torch senna {topic,vae,svd,joint-svd,"
               "joint-topic,masked-topic,masked-vae,masked-sbp,bge,fne,resolve-embedding-space,"
@@ -486,7 +491,11 @@ def main(argv=None) -> int:
               "bulk} ...\n"
               "       python -m legume_tpu_torch faba {index,genes,gem,gem-encoder,dyn-assoc} ...\n"
               "       python -m legume_tpu_torch pinto {lc,cascade,annotate,p,interfaces,prop,dsvd,"
-              "cage,lc-etm,lra} ...")
+              "cage,lc-etm,lra} ...\n"
+              "       python -m legume_tpu_torch fagioli {map-sumstat,fit-sumstat-sgvb,"
+              "fit-prs-susie,fit-sumstat-mcmc,sim-sumstat,sim-geno,sim-qtl,map-qtl,fit-qtl-sgvb,"
+              "sim-mediation,fit-regression,pseudobulk} ...\n"
+              "       python -m legume_tpu_torch chickpea {p2g,from-multiome} ...")
         return 1
     binaries[argv[0]](argv[1:])
     return 0
@@ -518,6 +527,20 @@ def run_pinto(argv, *, vec=None):
     from .pinto_cli import run_pinto as _run
 
     return _run(argv, vec=vec)
+
+
+def run_fagioli(argv):
+    """`fagioli`: GWAS and single-cell eQTL fine-mapping."""
+    from .fagioli_cli import run_fagioli as _run
+
+    return _run(argv)
+
+
+def run_chickpea(argv):
+    """`chickpea`: peak-to-gene linkage."""
+    from .chickpea_cli import run_chickpea as _run
+
+    return _run(argv)
 
 
 if __name__ == "__main__":

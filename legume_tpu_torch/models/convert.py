@@ -193,3 +193,31 @@ def masked_params_to_jax(state: dict) -> dict[str, np.ndarray]:
             flat[f"{where}/{'kernel' if leaf == 'weight' else 'bias'}"] = (
                 np.ascontiguousarray(arr.T) if leaf == "weight" else arr)
     return flat
+
+
+# ---- SGVB variational families (models/sgvb.py) ------------------------------
+
+_SGVB_FAMILIES = ("GaussianVarParams", "SpikeSlabVarParams", "SusieVarParams",
+                  "BiSusieVarParams", "MlSusieVarParams", "AshVarParams")
+
+
+def sgvb_params_from_jax(q, device="cpu"):
+    """A JAX package `q` (any of its SGVB family NamedTuples, fields as
+    arrays) -> the port's NamedTuple of the same name and fields, float32
+    tensors on `device`."""
+    from . import sgvb
+
+    name = type(q).__name__
+    if name not in _SGVB_FAMILIES:
+        raise KeyError(f"unknown SGVB family {name}")
+    return getattr(sgvb, name)(*(_tensor(np.asarray(v)).to(device) for v in q))
+
+
+def sgvb_params_to_jax(q) -> tuple[str, dict[str, np.ndarray]]:
+    """The inverse of `sgvb_params_from_jax`: (the family's class name,
+    `{field: float32 array}`), from which the JAX package's NamedTuple of
+    that name is built."""
+    name = type(q).__name__
+    if name not in _SGVB_FAMILIES:
+        raise KeyError(f"unknown SGVB family {name}")
+    return name, {f: v.detach().cpu().numpy() for f, v in zip(q._fields, q)}

@@ -454,6 +454,56 @@ def log_f32_rows(x: torch.Tensor) -> torch.Tensor:
     return _fma_rows(f(0.693359375), e, t + y)
 
 
+def log1p_f32_rows(x: torch.Tensor) -> torch.Tensor:
+    """`log1p_f32` (XLA's float32 `log1p`) in torch ops on any device, the
+    same bits on the card as on the CPU (as `log_f32_rows`)."""
+    f = lambda v: float(np.float32(v))  # noqa: E731 - float32 constants as Python floats
+
+    def horner(cs):
+        r = torch.zeros_like(x)
+        for c in cs:
+            r = _fma_rows(r, x, float(c))
+        return r
+
+    x2 = x * x
+    small = horner(_LOG1P_NUM) / horner(_LOG1P_DEN)
+    small = x + _fma_rows(-0.5, x2, (x * x2) * small)
+    return torch.where(x.abs() < f(0.41421356237309504880), small, log_f32_rows(x + 1.0))
+
+
+def erfinv_xla_rows(x: torch.Tensor) -> torch.Tensor:
+    """`erfinv_xla_f32` in torch ops on any device, bit for bit."""
+    w = -log1p_f32_rows(-x * x)
+    lt = w < 5.0
+    # float32 sqrt, correctly rounded (torch's CPU float32 sqrt may be an ulp off)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    c_lt = [float(np.float32(c)) for c in _ERFINV_LT5]
+    c_ge = [float(np.float32(c)) for c in _ERFINV_GE5]
+    p = torch.where(lt, c_lt[0], c_ge[0])
+    for i in range(1, 9):
+        p = _fma_rows(p, w, torch.where(lt, c_lt[i], c_ge[i]))
+    big = float(np.finfo(np.float32).max)
+    return torch.where(x.abs() == 1.0, x * big, p * x)
+
+
+def normal_exact_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`normal_exact(key, (n,))` of each row of the key tensor `keys [S, 2]`
+    (`key_rows`), drawn on its device bit for bit: `[S, n]` float32."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+    u = torch.clamp_min(uniform_rows(keys, n) * float(np.float32(1.0) - lo) + float(lo), float(lo))
+    return float(np.float32(np.sqrt(2))) * erfinv_xla_rows(u)
+
+
+def normal_exact_keys(keys: np.ndarray, n: int, device) -> torch.Tensor:
+    """`normal_exact(k, (n,))` for each host key `k` of `keys [S, 2]`, drawn
+    on `device` bit for bit: `[S, n]` float32. On the CPU the draws are
+    numpy's (`normal_exact`, the same bits), whose ufuncs keep to one
+    thread: torch's thread team stalls when processes share the cores."""
+    if torch.device(device).type == "cpu":
+        return torch.from_numpy(np.stack([normal_exact(k, (n,)) for k in np.asarray(keys)]))
+    return normal_exact_rows(key_rows(keys, device), n)
+
+
 def gumbel_keys(keys: np.ndarray, n: int, device) -> torch.Tensor:
     """`jax.random.gumbel(k, (n,))` for each host key `k` of `keys [S, 2]`,
     drawn on `device` bit for bit: `[S, n]` float32 (the uniform's bits

@@ -1370,3 +1370,89 @@ def test_pinto_lc_on_the_card_is_bit_equal_and_matches_the_cpu(dev):
     expected = s_a * s_c / pairs(len(ia))
     ari = (pairs(table).sum() - expected) / (0.5 * (s_a + s_c) - expected)
     assert ari >= 0.95, ari
+
+
+def test_sgvb_fit_on_the_card_is_bit_equal_and_matches_the_cpu(dev):
+    """The SGVB trainer's normal draws on the card have the CPU's bits (JAX's
+    `jax.random.normal`); two card fits of the same locus give the same q
+    bit for bit; the card's fit lies within 1e-3 of the CPU's in PIP (the
+    card's matmuls round otherwise than the CPU's)."""
+    from legume_tpu_torch.fagioli import sumstat as tss
+    from legume_tpu_torch.models import sgvb
+    from legume_tpu_torch.utils import prng
+
+    keys = prng.split(prng.key(4), 3)
+    assert torch.equal(prng.normal_exact_keys(keys, 100_003, dev).cpu().view(torch.int32),
+                       prng.normal_exact_keys(keys, 100_003, "cpu").view(torch.int32))
+    sim = tss.simulate_sumstat(n=300, p=120, n_causal=2, h2=0.4, seed=2)
+    design = sgvb.RssDesign.from_genotypes(sim.genotypes, sim.z)
+    cfg = sgvb.SgvbConfig(num_steps=600, learning_rate=0.02)
+    a, b = (sgvb.fit_susie_rss(design, L=4, config=cfg, device=dev) for _ in range(2))
+    for u, v in zip(a["q"], b["q"]):
+        assert torch.equal(u, v)
+    assert a["elbo"] == b["elbo"]
+    c = sgvb.fit_susie_rss(design, L=4, config=cfg, device="cpu")
+    assert np.abs(a["pip"] - c["pip"]).max() <= 1e-3
+    assert abs(a["elbo"] - c["elbo"]) <= 1e-4 * abs(c["elbo"])
+
+
+def test_fagioli_pseudobulk_sums_through_k3_match_the_plain_version(dev):
+    """fagioli's pseudobulk sums (hard and soft cell-type membership) take
+    one K3 launch per cell type and equal the plain version's sums within
+    K3's bar (1e-5), run twice bit-equal."""
+    from legume_tpu_torch.fagioli import qtl as tqtl
+
+    rng = np.random.default_rng(3)
+    counts = sp.random(300, 5000, density=0.2, format="csc", random_state=4,
+                       data_rvs=lambda n: rng.integers(1, 20, n)).astype(np.float32)
+    indv = rng.integers(0, 40, 5000)
+    memb = rng.dirichlet(np.ones(3), 5000).astype(np.float32)
+    for m in (np.ones((5000, 1), np.float32), memb):
+        kernels.reset_launch_counts()
+        got = tqtl.pseudobulk_sums(counts, indv, 40, m, device=dev)
+        assert kernels.launch_counts["collapse"] == m.shape[1]
+        assert torch.equal(got, tqtl.pseudobulk_sums(counts, indv, 40, m, device=dev))
+        want = tqtl.pseudobulk_sums(counts, indv, 40, m, device="cpu")
+        assert bool(((got.cpu() - want).abs() <= 1e-5 + 1e-5 * want.abs()).all())
+
+
+def test_chickpea_pseudobulk_partitions_on_the_card_match_the_cpu(dev, tmp_path):
+    """`chickpea p2g --pseudobulk`'s cell partition (the RNA projection K1,
+    the sort) on the card equals the CPU's as a set partition, and both
+    pseudobulk planes (RNA through `load_and_collapse`, ATAC through
+    `collect_basic_stats` and `optimize`, K3) lie within 1e-4 of the CPU's
+    (normwise). The links' PIPs are not compared: on ~160 pseudobulks the
+    peaks' LD leaves SuSiE's single effects near-ties, which the card's
+    and the CPU's rounding resolve apart (up to 0.19 in PIP on an H100)."""
+    from legume_tpu_torch.cli.main import run_chickpea, run_sim
+    from legume_tpu_torch.data import open_sparse_matrix
+    from legume_tpu_torch.ops import collapse as tclp
+
+    out = str(tmp_path / "mo")
+    run_sim(["multiome", "--genes", "20", "--peaks", "80", "--cols", "3000", "--factors", "4",
+             "--output", out])
+    rna, atac = SparseIoVec(), SparseIoVec()
+    rna.push(open_sparse_matrix(f"{out}.rna.zarr"))
+    atac.push(open_sparse_matrix(f"{out}.atac.zarr"))
+    args = ttopic.TopicArgs(proj_dim=50, sort_dim=8, num_levels=1, iter_opt=30, seed=0)
+    planes = {}
+    for d in (dev, "cpu"):
+        lv = ttopic.load_and_collapse(rna, args, device=d)
+        groups, n_pb = lv.groups_per_level[0], lv.num_groups_per_level[0]
+        astat = tclp.collect_basic_stats(atac, groups, n_pb, device=d)
+        planes[str(d)] = (groups, lv.collapsed[0].mu_observed.mean().cpu(),
+                          tclp.optimize(astat, num_iter=30, device=d).mu_observed.mean().cpu())
+    (gc, rc, ac), (gh, rh, ah) = planes[str(dev)], planes["cpu"]
+    pairs = set(zip(gc.tolist(), gh.tolist()))
+    assert len(pairs) == len(set(gc.tolist())) == len(set(gh.tolist()))
+    cpu_label = np.empty(len(pairs), np.int64)  # the two runs number the same groups apart
+    for a, b in pairs:
+        cpu_label[a] = b
+    for a, b in ((rc, rh), (ac, ah)):
+        b = b[:, torch.from_numpy(cpu_label)]
+        assert a.shape == b.shape and float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    kernels.reset_launch_counts()
+    run_chickpea(["p2g", "--rna", f"{out}.rna.zarr", "--atac", f"{out}.atac.zarr", "--gff",
+                  f"{out}.genes.gff", "--out", str(tmp_path / "p"), "--pseudobulk",
+                  "--cis-window", "20000", "--rank", "200", "--steps", "300", "--device", "cuda"])
+    assert kernels.launch_counts["project_normed"] > 0 and kernels.launch_counts["collapse"] > 0
