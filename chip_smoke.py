@@ -26,7 +26,7 @@ Phases (any failure exits non-zero; nothing is caught):
 4. split the trainer's construction into its parts in a fresh process;
 5. run `senna bge` through the port's entry point with the JAX package's
    CLI defaults (`-d 16`, 1,000 epochs, sort-dim 8, proj-dim 50, ETM on)
-   on the first BGE_CELLS (50,000) of the simulated cells without their
+   on the first BGE_CELLS (25,000) of the simulated cells without their
    batches (so the marginal is unstratified and both NCE phases take K4;
    the cut halves its host Leiden), counts zeroed just before
    and read just after; check that K1, K3 and K4 ran, K4 exactly
@@ -78,7 +78,7 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel launches (none of the four kernels is on these paths); every
    layout finite; umap's neighbour preservation (the share of 15 latent
    neighbours among 15 layout neighbours, 5,000 sampled cells); and on
-   3,000 of the cells the card against the port's CPU run: umap after 50
+   1,500 of the cells the card against the port's CPU run: umap after 50
    steps (and a second card run, bit-equal) and tsne after 50 iterations
    within 1e-3, phate's squared distances bit-equal and its 200-step
    refinement within 1e-3, pseudotime's nodes within 1e-4 with its tree,
@@ -110,19 +110,21 @@ Phases (any failure exits non-zero; nothing is caught):
    `fit_bge` with `gene_chunk=512` on phase 5's plane, its ten phase-1
    losses within a relative 1e-4 of the dense run and no K4 launch;
 14. `senna rest --from` phase 2's topic run (100,000 x 2,000, 400
-   epochs; finite, loss falling) and `--runs` phase 5's and 13b's bge runs;
+   epochs; finite, loss falling; run before phase 8) and `--runs` phase
+   5's and 13b's bge runs;
 15. `cocoa`: `simulate_collider` at 40 individuals x 2,500 cells, 2,000
    genes, 3 types, a 2.2x amplified block of 100 genes in 6 individuals;
    `cocoa diff` through `run_cocoa` at the CLI defaults with the types as
-   topics, 12 permutations and the CNV side-channel (K1 required; the
+   topics, 12 permutations and the CNV side-channel with one reference
+   pass of its HMM (`COCOA_REF_ITERS`; K1 required; the
    causal genes' effects above the others', the carriers' block above
    the rest in cn_score, every timing key); `cocoa collapse` (one K3
    launch a block); K1 (K = 30) and K3 (40 groups) held against their
-   plain versions at the first block each run gives them; on 50 cells
-   of each individual the card against the CPU: the projections within
-   K1's bar, caches from one projection equal up to distance ties of 1e-5,
-   stats within 1e-5, z within 1e-4, CNV states equal (the match cache's
-   reuse is held in phase 31; a second run here held it before PR 13);
+   plain versions at the first block each run gives them; on 25 cells
+   of each individual the card against the CPU: the projections within K1's bar, caches from one
+   projection equal up to distance ties of 1e-5, stats within 1e-5, z
+   within 1e-4, CNV states equal (the match cache's reuse is held in
+   phase 31);
 16. `senna topic --cnv --from` phase 2's run (its cnv table: 80 bins,
    states in {0, 1, 2});
 17. `senna vae` at the CLI defaults (`-k 16`, encoder (128, 64), 2
@@ -197,12 +199,13 @@ Phases (any failure exits non-zero; nothing is caught):
    --feature-min-cells 10 --report` on the card and with `--device cpu`
    (keep masks equal, totals within 1e-6), `histogram`, `subsample
    --cells 2500 --seed 7`, `subset` (5,000 cells, 500 genes),
-   `take-columns` / `take-rows` (100 names each), `sort-rows`, `reorder`,
-   `squeeze`, `convert` of the subsample to `.zarr.zip` and back
-   (byte-equal to it),
-   `merge-backend` of the two halves (equal to the whole) and
-   `align` of two stores on overlapping gene sets, each held against
-   scipy on phase 2's matrix, with each command's seconds;
+   `take-columns` / `take-rows` (100 names each), and on the subsample
+   `sort-rows`, `reorder`, `squeeze`, `convert` to `.zarr.zip` and back
+   (byte-equal to it), `merge-backend` of its two halves (equal to the
+   whole) and `align` of two stores on overlapping gene sets, each held
+   against scipy on phase 2's matrix, with each command's seconds (each
+   command in a process of its own, eight at a time, each after the
+   commands whose outputs it reads; phase 31 runs meanwhile);
 30. ingestion: `to-mtx` of phase 29's 2,500 cells, `from-mtx` and
    `from-mtx --streaming` (byte-equal to the source; the native parser
    required), `merge-mtx`, `from-triplets` (2,000 cells' transcripts),
@@ -214,7 +217,7 @@ Phases (any failure exits non-zero; nothing is caught):
    not import, and said so;
 31. `cocoa diff --gff` on phase 15's cells with a GFF of `truth.tsv`'s
    positions and phase 15's match cache: gene order and CNV states equal
-   to the `--cnv-ground-truth` run's, cn_score within 1e-3, K1 launched
+   to the `--cnv-ground-truth` run's, cn_score bit for bit, K1 launched
    as often; `senna
    plot-strand` where matplotlib imports, else skipped and said;
 32. faba's BAM path: a coordinate-sorted 10x-style BAM (2,000 cells x
@@ -274,17 +277,31 @@ Phases (any failure exits non-zero; nothing is caught):
    30 genes):
    K1 and K3 launched, held at the run's own first calls; the driving
    peaks rank high by PIP (the median percentile above 0.7);
-39. print the script's total seconds, one JSON line of all kernels, then
+39. `faba all --depth-resolution-kb 1` through the port's CLI entry on a
+   planted wild-type / control pair (`simulate_edit_pair`: 2,000 cells
+   an arm at ~300 UMIs, 500 genes on both strands, ~1.2M reads of 91
+   bases an arm with CB / UB / MD tags, 200 A-to-G and 200 RAC C-to-T
+   sites edited in the wild type only, 200 heterozygous SNPs in both
+   arms, two poly(A) sites a gene), written and run in a process of its
+   own started before phase 17: each arm's gene store equal to its
+   planted counts after UMI dedup and its depth tiles to each cell's
+   molecules starting there, exactly; the planted SNPs called and none
+   among the editing calls; the edits' recall and precision and the
+   poly(A) sites' recall at the bars of FABA_*; the process's seconds,
+   its wait, each stage's seconds and reads a second;
+40. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
 
-The simulations of phases 8, 13a, 15 and 19 run in a pool of four
-processes started after phase 4, phase 28 in a process started before
-phase 21, phase 32's BAM, index and counts in a process started before
-phase 17, phase 35's cells in a process started before phase 32 and
-phases 37-38's loci, cohort and multiome cells in processes started
-before phase 35, so the host makes them while the card runs the phases
-before them; each takes the same function, arguments and seed it would
-call itself.
+Phase 10 and phase 14's `--from` run before phase 8 (they need none of
+its held-out cells). The simulations of phases 8, 13a, 15 and 19 run in a
+pool of four processes started after phase 4, phase 28 in a process
+started before phase 21, phase 32's BAM, index and counts and phase 39's
+pair and `faba all` in processes started before phase 17, phase 35's
+cells in a process started before phase 32 and phases 37-38's loci,
+cohort and multiome cells in processes started before phase 35, so the
+host makes them while the card runs the phases before them; each takes
+the same function, arguments and seed it would call itself. Each phase
+prints `{"mark": name, "at_s": seconds}` as it starts.
 
 Every kernel check launches the kernel twice on the same inputs and
 fails unless the two results are bit-equal (`deterministic`). Times are
@@ -337,15 +354,22 @@ RTOL_BF16_LOSS = 1e-2
 # in N // 4 sweeps first); each reports its seconds a sweep
 POSTERIOR_SWEEPS, POSTERIOR_BURNIN = 4, 1  # cut so that the script ends near 1,000 s
 # phase 5's cells: bge's host Leiden (a resolution search over a kNN graph
-# of the cells) took 86-180 s at 100,000 beside the simulations, and the
-# script's host is its bottleneck
-BGE_CELLS = 50_000
+# of the cells) took 86-180 s at 100,000 beside the simulations and 23-26 s
+# at 50,000, and the script's host is its bottleneck
+BGE_CELLS = 25_000
 # depth cuts that keep the script inside its limit on the slower hosts, where
 # every phase takes 1.5-2x its time on the faster ones: clustering's Leiden
 # on 10,000 of predict's cells (20,000), cocoa's card-against-CPU check on
-# 50 cells of each individual (100), and `data-beans`' subsample, `to-mtx`
-# and the ingestion on 2,500 cells (5,000)
-LEIDEN_CELLS, COCOA_CPU_PER_INDV, BEANS_CELLS = 10_000, 50, 2_500
+# 25 cells of each individual (100, then 50), every cocoa diff with one
+# reference pass of its CNV HMM (the CLI's 2: the HMM's loop over the 2,000
+# genes took 17-21 s of each diff and most of the check's 37 s), and
+# `data-beans`' subsample, `to-mtx` and the ingestion on 2,500 cells (5,000)
+LEIDEN_CELLS, COCOA_CPU_PER_INDV, BEANS_CELLS = 10_000, 25, 2_500
+COCOA_REF_ITERS = 1
+# the layouts' card-against-CPU check on 1,500 cells (3,000): its CPU tsne and
+# phate refinement grow faster than the square of the cells (37 s and 49 s
+# at 3,000 on a CPU host, 2.4 s and 6.0 s at 1,500), and the phase took 161 s
+LAYOUT_CPU_CELLS = 1_500
 
 # Run in a fresh process: splits `MixedTrainer`'s construction at the e2e
 # shapes into CUDA start-up, moving the modules to the card, the
@@ -792,8 +816,9 @@ def layout_phase(work: str, zp: np.ndarray, topic_out: str, K, dev, card: str) -
     """Phase 11: `senna layout` (umap, tumap, tsne, phate, tree), `senna
     pseudotime` (both modes), `senna plot` and `senna plot-topic` through
     the port's CLI on the card, the card against the port's CPU run on
-    3,000 of the cells, and umap's neighbour preservation. Returns the
-    launches of the four kernels per command (none is on these paths)."""
+    LAYOUT_CPU_CELLS of the cells, and umap's neighbour preservation.
+    Returns the launches of the four kernels per command (none is on these
+    paths)."""
     from legume_tpu_torch.cli.main import main as cli
     from legume_tpu_torch.ops import layouts as LY
     from legume_tpu_torch.ops import principal_graph as PG
@@ -890,14 +915,15 @@ def layout_phase(work: str, zp: np.ndarray, topic_out: str, K, dev, card: str) -
     lat_nb, lay_nb = neighbours(zl), neighbours(layouts["umap"].astype(np.float32))
     preserved = float(np.mean([len(np.intersect1d(a, b)) / 15 for a, b in zip(lat_nb, lay_nb)]))
 
-    # the card against the port's CPU run on the same 3,000 cells
-    x3 = np.ascontiguousarray(zl[:3000])
+    # the card against the port's CPU run on the same LAYOUT_CPU_CELLS cells
+    t_cmp = time.time()
+    x3 = np.ascontiguousarray(zl[:LAYOUT_CPU_CELLS])
     src, dst, w = U.fuzzy_edges(x3, 15, device="cpu")
     a, b = U._fit_ab(0.1, 1.0)
     xc = x3 - x3.mean(0)
     u, s, _ = np.linalg.svd(xc, full_matrices=False)
     emb0 = U.init_2d_from_scores(u[:, :2] * s[:2], 0)
-    sgd = dict(n_steps=50, batch=4096, n_points=3000, a=a, b=b)
+    sgd = dict(n_steps=50, batch=4096, n_points=len(x3), a=a, b=b)
     probs = w / w.sum()
     u_card = U._umap_sgd(0, emb0, src, dst, probs, device=dev, **sgd)
     u_again = U._umap_sgd(0, emb0, src, dst, probs, device=dev, **sgd)
@@ -927,6 +953,7 @@ def layout_phase(work: str, zp: np.ndarray, topic_out: str, K, dev, card: str) -
         "pseudotime_root_equal": g_card.root == g_cpu.root,
         "pseudotime_values": float(np.abs(g_card.pseudotime - g_cpu.pseudotime).max()),
     }
+    cmp_s = time.time() - t_cmp
     print(json.dumps({
         "phase": "layout_pseudotime_plot", "cells": len(zl), "runs": runs,
         "finite_share": finite, "umap_neighbour_preservation_15": preserved,
@@ -934,7 +961,8 @@ def layout_phase(work: str, zp: np.ndarray, topic_out: str, K, dev, card: str) -
         "pseudotime_range": [float(ptab["pseudotime"].min()), float(ptab["pseudotime"].max())],
         "branches": int(len(np.unique(ptab["branch"]))),
         "velocity_consistency_positive": float((vtab["consistency"] > 0).mean()),
-        "card_vs_cpu_3000": vs_cpu, "card": card,
+        "card_vs_cpu_cells": len(x3), "card_vs_cpu_s": cmp_s, "card_vs_cpu": vs_cpu,
+        "card": card,
     }), flush=True)
     for k, v in layouts.items():
         if v.shape != (want[k], 2) or finite[k] < (0.9 if k == "tree" else 1.0):
@@ -1275,8 +1303,8 @@ def bge_options_phase(work: str, bvec, bres, acounts, a32, K, dev, card: str, ch
 
 
 def rest_phase(work: str, vec, K, dev, card: str) -> dict:
-    """Phase 14: `senna rest --from` phase 2's topic run and `--runs`
-    phase 5's and 13b's bge runs."""
+    """Phase 14a: `senna rest --from` phase 2's topic run (before phase 8,
+    beside the held-out cells' simulation)."""
     from legume_tpu_torch.cli.senna_cmds.embed_cmds import RestArgs, run_rest
 
     torch.cuda.reset_peak_memory_stats()
@@ -1287,25 +1315,32 @@ def rest_phase(work: str, vec, K, dev, card: str) -> dict:
     from_s = time.time() - t0
     launches = dict(K.launch_counts)
     peak = torch.cuda.max_memory_allocated()
-    t0 = time.time()
-    aligned = run_rest(RestArgs(runs=[f"{work}/bge", f"{work}/bge_post"], out=f"{work}/rest_runs"),
-                       device=dev)["aligned"]
-    runs_s = time.time() - t0
-    before = np.linalg.norm(np.asarray(aligned[1]["e_cell"]) - aligned[0]["e_cell"])
     z, losses = res["cell_embedding"], res["losses"]
     print(json.dumps({
         "phase": "senna_rest", "cells": vec.num_columns, "genes": vec.num_rows,
         "h": int(z.shape[1]), "epochs": 400, "from_s": from_s, "fit_s": res["fit_s"],
-        "runs_s": runs_s, "losses": losses, "launches": launches, "peak_device_bytes": peak,
-        "runs_cell_gap_after": float(before), "card": card,
+        "losses": losses, "launches": launches, "peak_device_bytes": peak, "card": card,
     }), flush=True)
     if z.shape != (vec.num_columns, 10) or not np.isfinite(z).all():
         raise AssertionError("rest cell embedding not finite or of the wrong shape")
     if not (np.isfinite(res["feature_embedding"]).all() and losses[-1] < losses[0]):
         raise AssertionError(f"rest feature embedding not finite or loss did not fall: {losses}")
+    return launches
+
+
+def rest_runs_phase(work: str, dev, card: str) -> None:
+    """Phase 14b: `senna rest --runs` phase 5's and 13b's bge runs."""
+    from legume_tpu_torch.cli.senna_cmds.embed_cmds import RestArgs, run_rest
+
+    t0 = time.time()
+    aligned = run_rest(RestArgs(runs=[f"{work}/bge", f"{work}/bge_post"], out=f"{work}/rest_runs"),
+                       device=dev)["aligned"]
+    runs_s = time.time() - t0
+    before = np.linalg.norm(np.asarray(aligned[1]["e_cell"]) - aligned[0]["e_cell"])
+    print(json.dumps({"phase": "senna_rest_runs", "runs_s": runs_s,
+                      "runs_cell_gap_after": float(before), "card": card}), flush=True)
     if not all(np.isfinite(r["e_feat"]).all() for r in aligned):
         raise AssertionError("rest --runs gave a non-finite embedding")
-    return launches
 
 
 def _write_lines(path: str, lines) -> str:
@@ -1354,7 +1389,8 @@ def cocoa_phase(work: str, K, dev, card: str, checks: dict, keep: dict) -> dict:
         return run_cocoa(["diff", "--data-files", stem, "--out", f"{stem}.de", "--indv", indv,
                           "--exposure", f"{work}/exposure.tsv", "--topic-assignment", types,
                           "--permutations", "12", "--cnv-ground-truth", f"{work}/truth.tsv",
-                          "--device", device, *extra], vec=vec_of(idx))
+                          "--cnv-ref-iters", str(COCOA_REF_ITERS), "--device", device, *extra],
+                         vec=vec_of(idx))
 
     full = np.arange(n)
     cvec = vec_of(full)
@@ -1428,7 +1464,8 @@ def cocoa_phase(work: str, K, dev, card: str, checks: dict, keep: dict) -> dict:
         print(json.dumps({"kernel_check": name, "card": card, **row}), flush=True)
         checks[name].append(row)
 
-    # ---- the card against the CPU on 50 cells of each individual. The
+    # ---- the card against the CPU on COCOA_CPU_PER_INDV cells of each
+    # individual. The
     # two runs project through K1 and its plain version (within K1's 2e-4
     # bar), so their caches may part at near-tied neighbours; the caches
     # built from one projection on the card and on the CPU are compared.
@@ -2547,11 +2584,13 @@ def _add_counts(total: dict, counts: dict) -> dict:
     return total
 
 
-def _cli_chains(chains: dict, workers: int = 8) -> tuple[dict, float, dict]:
+def _cli_chains(chains: dict, workers: int = 8, after: dict | None = None
+                ) -> tuple[dict, float, dict]:
     """Chains of port CLI commands (`CLI_COUNTED`, each in a process of its
     own, each first importing torch): the chains side by side, at most
     `workers` at a time (one a core of the card's host), each
-    chain's commands in order. Returns (each command's seconds, the wall
+    chain's commands in order, a chain named in `after` starting once the
+    chains it lists have ended. Returns (each command's seconds, the wall
     seconds of them all, the kernel launches the commands reported, summed);
     a failed command raises with the end of its standard error."""
     import concurrent.futures as cf
@@ -2561,8 +2600,18 @@ def _cli_chains(chains: dict, workers: int = 8) -> tuple[dict, float, dict]:
     launches: dict = {}
     lock = threading.Lock()
     root = Path(__file__).resolve().parent
+    after = after or {}
+    ended = {name: threading.Event() for name in chains}
 
-    def chain(steps):
+    def chain(key, steps):
+        for dep in after.get(key, ()):
+            ended[dep].wait()
+        try:
+            run_steps(steps)
+        finally:
+            ended[key].set()
+
+    def run_steps(steps):
         for name, argv in steps:
             t0 = time.time()
             p = subprocess.run([sys.executable, "-c", CLI_COUNTED, *argv],
@@ -2573,22 +2622,30 @@ def _cli_chains(chains: dict, workers: int = 8) -> tuple[dict, float, dict]:
             with lock:
                 _add_counts(launches, json.loads(p.stdout.strip().splitlines()[-1]))
 
+    # chains that wait are submitted last, so a waiting thread holds no
+    # worker a runnable chain needs
+    order = sorted(chains, key=lambda k: k in after)
     t0 = time.time()
     with cf.ThreadPoolExecutor(workers) as ex:
-        for fut in [ex.submit(chain, steps) for steps in chains.values()]:
+        for fut in [ex.submit(chain, k, chains[k]) for k in order]:
             fut.result()
     return secs, time.time() - t0, launches
 
 
 def beans_phase(work: str, sim, store: str, K, dev, card: str, *, sub_cells: int = 20_000,
-                subset_cells: int = 5000, subset_genes: int = 500, take: int = 100) -> dict:
-    """Phase 29: `data-beans` on x.zarr through the port's CLI, each output
-    held against scipy on phase 2's matrix in memory; `qc` on the card
-    against a `--device cpu` run (keep masks equal, totals within 1e-6
-    relative). The commands on the card (`qc`, `histogram`) and the
-    printing ones run in this process; the ones that write stores run as
-    port CLI processes (`CLI_COUNTED`), eight at a time, phase 30's
-    `to-mtx` of the subsample among them. Returns the launches of every
+                subset_cells: int = 5000, subset_genes: int = 500, take: int = 100,
+                meanwhile=None) -> dict:
+    """Phase 29: `data-beans` through the port's CLI, each output held
+    against scipy on phase 2's matrix in memory: on x.zarr `info`, `stat`,
+    `list-zarr`, `qc` on the card against a `--device cpu` run (keep masks
+    equal, totals within 1e-6 relative), `histogram`, `subsample`, `subset`
+    and `take-*`; on the subsample the store rewrites (`sort-rows`,
+    `reorder`, `squeeze`, `convert`, the halves' `merge-backend`, `align`).
+    The commands on the card (`qc`, `histogram`) and the printing ones run
+    in this process; the ones that write stores run as port CLI processes
+    (`CLI_COUNTED`), eight at a time, each after the commands whose outputs
+    it reads, phase 30's `to-mtx` of the subsample among them, while this
+    thread runs `meanwhile` (another phase). Returns the launches of every
     command, those of the processes as each reported them."""
     import pandas as pd
 
@@ -2628,31 +2685,31 @@ def beans_phase(work: str, sim, store: str, K, dev, card: str, *, sub_cells: int
     checks["histogram"] = f"median total: {np.median(tot):.0f}" in hist
     launches = dict(K.launch_counts)
 
-    # the name files the store-writing commands take
+    # the name files the store-writing commands take; the rewrites of a
+    # whole store read the subsample (`subsample --seed 7`'s cells)
     sc = np.sort(rng.choice(n, subset_cells, replace=False))
     sg = np.sort(rng.choice(d, subset_genes, replace=False))
     tc = rng.choice(n, take, replace=False)
     tg = rng.choice(d, take, replace=False)
-    half = n // 2
-    row_tot = np.asarray(X.sum(1)).ravel()
+    pick = np.sort(np.random.default_rng(7).choice(n, sub_cells, replace=False))
+    sub, Xs, scells = f"{work}/sub20k.zarr", X[:, pick], [cells[j] for j in pick]
+    half = len(pick) // 2
+    row_tot = np.asarray(Xs.sum(1)).ravel()
     cut = float(np.median(row_tot))
     ga, gb = np.arange(0, 3 * d // 4), np.arange(d // 4, d)
-    ca, cb = np.arange(0, subset_cells), np.arange(subset_cells, 2 * subset_cells)
+    ca, cb = np.arange(0, half), np.arange(half, len(pick))
     w = lambda name, lines: _write_lines(f"{work}/{name}.txt", lines)  # noqa: E731
     b = ["data-beans"]
     chains = {
-        # phase 30's `to-mtx` of the subsample (gzip level 9, the longest
-        # command) starts here, beside the rest
-        # `convert` to .zarr.zip and back runs on the subsample (on x.zarr
-        # it took 80 s of the phase's wall)
-        "subsample": [("subsample", b + ["subsample", store, "--output", f"{work}/sub20k.zarr",
-                                         "--cells", str(sub_cells), "--seed", "7"]),
-                      ("convert_zip", b + ["convert", f"{work}/sub20k.zarr", "--output",
-                                           f"{work}/conv.zarr.zip"]),
-                      ("convert_back", b + ["convert", f"{work}/conv.zarr.zip", "--output",
-                                            f"{work}/conv_back.zarr"]),
-                      ("to_mtx", b + ["to-mtx", f"{work}/sub20k.zarr", "--output",
-                                      f"{work}/m20k"])],
+        # phase 30's `to-mtx` of the subsample (gzip level 9) and `convert`
+        # to .zarr.zip and back (on x.zarr it took 80 s of the phase's wall)
+        # run on the subsample, each after it, beside the rest
+        "subsample": [("subsample", b + ["subsample", store, "--output", sub,
+                                         "--cells", str(sub_cells), "--seed", "7"])],
+        "convert": [("convert_zip", b + ["convert", sub, "--output", f"{work}/conv.zarr.zip"]),
+                    ("convert_back", b + ["convert", f"{work}/conv.zarr.zip", "--output",
+                                          f"{work}/conv_back.zarr"])],
+        "to_mtx": [("to_mtx", b + ["to-mtx", sub, "--output", f"{work}/m20k"])],
         "subset": [("subset", b + ["subset", store, "--output", f"{work}/subset.zarr", "--columns",
                                    w("subset.cols", [cells[j] for j in rng.permutation(sc)]),
                                    "--rows", w("subset.rows", [genes[i] for i in
@@ -2663,31 +2720,41 @@ def beans_phase(work: str, sim, store: str, K, dev, card: str, *, sub_cells: int
                  ("take_rows", b + ["take-rows", store, "--rows",
                                     w("take.rows", [genes[i] for i in tg]), "--output",
                                     f"{work}/take_rows.tsv"])],
-        "sort_rows": [("sort_rows", b + ["sort-rows", store, "--rows",
+        "sort_rows": [("sort_rows", b + ["sort-rows", sub, "--rows",
                                          w("genes.rev", genes[::-1]), "--output",
                                          f"{work}/sorted.zarr"])],
-        "reorder": [("reorder", b + ["reorder", store, "--columns", w("cells.rev", cells[::-1]),
+        "reorder": [("reorder", b + ["reorder", sub, "--columns", w("cells.rev", scells[::-1]),
                                      "--output", f"{work}/reordered.zarr"])],
-        "squeeze": [("squeeze", b + ["squeeze", store, "--output", f"{work}/squeezed.zarr",
+        "squeeze": [("squeeze", b + ["squeeze", sub, "--output", f"{work}/squeezed.zarr",
                                      "--min-row-total", str(cut)])],
-        "merge": [*[(f"subset_half{i}", b + ["subset", store, "--output", f"{work}/half{i}.zarr",
-                                             "--columns", w(f"half{i}", part)])
-                    for i, part in enumerate((cells[:half], cells[half:]))],
-                  ("merge_backend", b + ["merge-backend", f"{work}/half0.zarr",
+        **{f"half{i}": [(f"subset_half{i}", b + ["subset", sub, "--output",
+                                                  f"{work}/half{i}.zarr", "--columns",
+                                                  w(f"half{i}", part)])]
+           for i, part in enumerate((scells[:half], scells[half:]))},
+        "merge": [("merge_backend", b + ["merge-backend", f"{work}/half0.zarr",
                                          f"{work}/half1.zarr", "--output", f"{work}/merged.zarr"])],
-        "align": [*[(f"subset_align{t}", b + ["subset", store, "--output", f"{work}/al{t}.zarr",
-                                              "--columns", w(f"al{t}.c", [cells[j] for j in cj]),
-                                              "--rows", w(f"al{t}.r", [genes[i] for i in gi])])
-                    for t, gi, cj in (("A", ga, ca), ("B", gb, cb))],
-                  ("align", b + ["align", f"{work}/alA.zarr", f"{work}/alB.zarr"])],
+        **{f"al{t}": [(f"subset_align{t}", b + ["subset", sub, "--output", f"{work}/al{t}.zarr",
+                                                "--columns", w(f"al{t}.c", [scells[j] for j in cj]),
+                                                "--rows", w(f"al{t}.r", [genes[i] for i in gi])])]
+           for t, gi, cj in (("A", ga, ca), ("B", gb, cb))},
+        "align": [("align", b + ["align", f"{work}/alA.zarr", f"{work}/alB.zarr"])],
     }
-    run_secs, wall_s, sub_launches = _cli_chains(chains)
+    # each command that reads another's output waits for it; the others
+    # (and the chains' first commands) run eight at a time from the start
+    after = {k: ["subsample"] for k in ("convert", "to_mtx", "sort_rows", "reorder", "squeeze",
+                                        "half0", "half1", "alA", "alB")}
+    after.update(merge=["half0", "half1"], align=["alA", "alB"])
+    import concurrent.futures as cf
+
+    with cf.ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(_cli_chains, chains, after=after)
+        if meanwhile is not None:
+            meanwhile()
+        run_secs, wall_s, sub_launches = fut.result()
     secs.update(run_secs)
     _add_counts(launches, sub_launches)
 
-    pick = np.sort(np.random.default_rng(7).choice(n, sub_cells, replace=False))
-    checks["subsample"] = _decodes_to(f"{work}/sub20k.zarr", X[:, pick], genes,
-                                      [cells[j] for j in pick])
+    checks["subsample"] = _decodes_to(sub, Xs, genes, scells)
     checks["subset"] = _decodes_to(f"{work}/subset.zarr", X[sg][:, sc], [genes[i] for i in sg],
                                    [cells[j] for j in sc])
     a = pd.read_csv(f"{work}/take_cols.tsv", sep="\t", index_col=0)
@@ -2696,26 +2763,25 @@ def beans_phase(work: str, sim, store: str, K, dev, card: str, *, sub_cells: int
                       and np.array_equal(a.to_numpy(), X[:, tc].toarray())
                       and list(bt.columns) == [genes[i] for i in tg]
                       and np.array_equal(bt.to_numpy(), X[tg].toarray().T))
-    checks["sort_rows"] = _decodes_to(f"{work}/sorted.zarr", X[::-1], genes[::-1], cells)
-    checks["reorder"] = _decodes_to(f"{work}/reordered.zarr", X[:, ::-1], genes, cells[::-1])
+    checks["sort_rows"] = _decodes_to(f"{work}/sorted.zarr", Xs[::-1], genes[::-1], scells)
+    checks["reorder"] = _decodes_to(f"{work}/reordered.zarr", Xs[:, ::-1], genes, scells[::-1])
     kept = np.flatnonzero(row_tot >= cut)
-    checks["squeeze"] = _decodes_to(f"{work}/squeezed.zarr", X[kept], [genes[i] for i in kept],
-                                    cells)
-    checks["convert"] = _decodes_to(f"{work}/conv.zarr.zip", X[:, pick], genes,
-                                    [cells[j] for j in pick]) and _same_files(
-        f"{work}/conv_back.zarr", f"{work}/sub20k.zarr")
+    checks["squeeze"] = _decodes_to(f"{work}/squeezed.zarr", Xs[kept], [genes[i] for i in kept],
+                                    scells)
+    checks["convert"] = _decodes_to(f"{work}/conv.zarr.zip", Xs, genes, scells) and _same_files(
+        f"{work}/conv_back.zarr", sub)
     checks["merge_backend"] = _decodes_to(
-        f"{work}/merged.zarr", X, genes, [f"{c}@0" for c in cells[:half]]
-        + [f"{c}@1" for c in cells[half:]])
+        f"{work}/merged.zarr", Xs, genes, [f"{c}@0" for c in scells[:half]]
+        + [f"{c}@1" for c in scells[half:]])
     pos = np.argsort(np.asarray(genes), kind="stable")  # the aligned row order: sorted names
     union = [genes[i] for i in pos]
     ok = True
     for t, gi, cj in (("A", ga, ca), ("B", gb, cb)):
         keep = np.zeros(d, bool)
         keep[gi] = True
-        want = X[:, cj][pos].multiply(keep[pos][:, None]).tocsc()
+        want = Xs[:, cj][pos].multiply(keep[pos][:, None]).tocsc()
         want.eliminate_zeros()
-        ok = ok and _decodes_to(f"{work}/al{t}.aligned", want, union, [cells[j] for j in cj])
+        ok = ok and _decodes_to(f"{work}/al{t}.aligned", want, union, [scells[j] for j in cj])
     checks["align"] = bool(ok)
     print(json.dumps({"phase": "data_beans", "cells": n, "genes": d, "nnz": int(X.nnz),
                       "seconds": secs, "store_commands_wall_s": wall_s, "checks": checks,
@@ -2775,8 +2841,9 @@ def ingest_phase(work: str, sim, res, store: str, card: str, *, mtx_cells: int =
     `data-beans-sim` commands (`multimodal`, `multiome`, `faba` at their
     defaults, `bulk` of x.zarr with phase 2's top topic as labels, `topic
     --reference` phase 29's subset store at the default 1,000 cells), all
-    as port CLI processes (`CLI_COUNTED`), eight at a time once their
-    inputs are written; the h5py commands skipped where h5py does not import, and said so.
+    as port CLI processes (`CLI_COUNTED`), eight at a time in one pool
+    (their inputs are written first); the h5py commands skipped where h5py
+    does not import, and said so.
     Returns the launches the processes reported, summed."""
     import gzip
 
@@ -2852,11 +2919,9 @@ def ingest_phase(work: str, sim, res, store: str, card: str, *, mtx_cells: int =
                           f"{m}.features.tsv.gz", "--cols", f"{m}.barcodes.tsv.gz",
                           f"{m}.barcodes.tsv.gz", "--output", f"{work}/mm.zarr"],
     }
-    secs, wall_s, launches = _cli_chains({k: [(k, v)] for k, v in jobs.items()})
-    mtx_secs, mtx_wall_s, mtx_launches = _cli_chains({k: [(k, v)] for k, v in mtx_jobs.items()})
-    secs.update(mtx_secs)
-    wall_s += mtx_wall_s
-    _add_counts(launches, mtx_launches)
+    # one pool of eight for all eleven: the three MatrixMarket readers take
+    # the first workers free
+    secs, wall_s, launches = _cli_chains({k: [(k, v)] for k, v in {**jobs, **mtx_jobs}.items()})
 
     checks["from_mtx"] = _same_files(f"{work}/fm.zarr", src)
     checks["from_mtx_streaming"] = _same_files(f"{work}/fms.zarr", src)
@@ -2925,7 +2990,7 @@ def gff_phase(work: str, kept: dict, K, dev, card: str) -> dict:
     from the gene positions of phase 15's `truth.tsv` (TSS on the +
     strand at each position), reusing phase 15's match cache: its gene
     order and CNV states (and states table) equal the `--cnv-ground-truth`
-    run's, its cn_score within 1e-3, and K1 launches as often;
+    run's, its cn_score bit for bit, and K1 launches as often;
     `senna plot-strand` where matplotlib imports, else skipped and said."""
     import pandas as pd
 
@@ -2948,7 +3013,8 @@ def gff_phase(work: str, kept: dict, K, dev, card: str) -> dict:
     res = run_cocoa(["diff", "--data-files", stem, "--out", f"{stem}.gff.de", "--indv",
                      f"{stem}.indv.txt", "--exposure", f"{work}/exposure.tsv",
                      "--topic-assignment", f"{stem}.types.txt", "--permutations", "12",
-                     "--gff", gff, "--device", str(dev)], vec=c["vec"])
+                     "--gff", gff, "--cnv-ref-iters", str(COCOA_REF_ITERS), "--device",
+                     str(dev)], vec=c["vec"])
     _sync(dev)
     run_s = time.time() - t0
     launches = _launched(K, ("project_normed",), "cocoa diff --gff")
@@ -2969,10 +3035,7 @@ def gff_phase(work: str, kept: dict, K, dev, card: str) -> dict:
         "cn_score_max_abs_diff": score_err, "cnv_states_tables_equal": tables_equal,
         "peak_device_bytes": torch.cuda.max_memory_allocated(), "card": card,
     }), flush=True)
-    # cn_score is not bit-reproducible between two card runs of the diff
-    # (2.1e-4 to 2.4e-4 apart on an H100, the states equal): the calls
-    # are held equal, the scores within 1e-3
-    if not (same_order and states_equal and score_err <= 1e-3 and tables_equal and same_k1
+    if not (same_order and states_equal and score_err == 0.0 and tables_equal and same_k1
             and res["timings"].get("match_cache_reused")):
         raise AssertionError("cocoa diff --gff unlike the --cnv-ground-truth run")
     if importlib.util.find_spec("matplotlib") is None:
@@ -3964,6 +4027,169 @@ def chickpea_phase(work: str, started: dict, K, dev, card: str, checks: dict, *,
     return {"chickpea_p2g": launches}
 
 
+# ---- phase 39: faba all on a planted wild-type / control pair ----------------
+
+# The pair's size: 2,000 cells an arm at ~300 UMIs, 500 genes (two poly(A)
+# sites each), ~1.2M reads an arm; a 10x run holds tens of millions of reads
+# and ~20,000 genes, so this is ~1/30 of one in reads and 1/40 in genes.
+FABA_ALL = {"n_cells": 2000, "n_genes": 500, "umis_per_cell": 300, "atoi_sites": 200,
+            "m6a_sites": 200, "snps": 200}
+FABA_ALL_DEPTH_KB = 1.0  # --depth-resolution-kb
+FABA_PEAK_WINDOW = 30  # run_apa's peak window: the distance that merges read ends
+# Bars fixed from the port's CPU run of the same generator (seed 16) at 400
+# cells x 100 genes x 300 UMIs, 40 sites of each kind, the same molecules a
+# gene (`PERF.md` section 6): recall A-to-G 0.8, C-to-T 0.925 (the misses sit
+# at genes of a few reads, two of them under the VAF mask), SNPs 0.975,
+# poly(A) sites 0.97 (every called site within 5 bases of a planted one),
+# the edits' precision 1.0
+FABA_EDIT_RECALL, FABA_EDIT_PRECISION, FABA_SNP_RECALL, FABA_PAS_RECALL = 0.75, 0.95, 0.95, 0.9
+# The faba-all process: the pair written with the port's `write_bam`
+# (`faba/bam_sim.py::simulate_edit_pair`), its truth pickled, then `faba all`
+# through the port's CLI entry (`CLI_COUNTED`, as `python -m legume_tpu_torch`
+# runs it), its stage seconds in the run's manifest.
+FABA_ALL_CLI = r"""
+import json, pickle, subprocess, sys, time
+from legume_tpu_torch.faba.bam_sim import simulate_edit_pair
+work, size, counted = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+t = time.time()
+truth = simulate_edit_pair(f"{work}/wt.bam", f"{work}/ct.bam", f"{work}/edit.gff3",
+                           f"{work}/edit.fa", seed=16, **size)
+write_s = time.time() - t
+pickle.dump(truth, open(f"{work}/truth.pkl", "wb"))
+argv = ["faba", "all", "--bam", f"{work}/wt.bam", "--control-bam", f"{work}/ct.bam", "--gff",
+        f"{work}/edit.gff3", "--genome", f"{work}/edit.fa", "--output", f"{work}/run",
+        "--depth-resolution-kb", sys.argv[4]]
+t = time.time()
+p = subprocess.run([sys.executable, "-c", counted, *argv], capture_output=True, text=True)
+all_s = time.time() - t
+if p.returncode:
+    sys.exit(p.stderr[-3000:])
+print(json.dumps({"write_s": write_s, "all_s": all_s,
+                  "launches": json.loads(p.stdout.strip().splitlines()[-1])}))
+"""
+
+
+def start_faba_all(work: str, size: dict = FABA_ALL):
+    """Start phase 39's host half (`FABA_ALL_CLI`) in a process of its own."""
+    Path(f"{work}/faba_all").mkdir(exist_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", FABA_ALL_CLI, f"{work}/faba_all", json.dumps(size), CLI_COUNTED,
+         str(FABA_ALL_DEPTH_KB)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=Path(__file__).resolve().parent)
+    CHILDREN.append(proc)
+    return proc, time.time()
+
+
+def _site_set(path: str) -> set:
+    """(chrom, pos) of the rows of an editing store (`chr:pos/modality/XY`)."""
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+
+    if not Path(path).exists():
+        return set()
+    return {(n.split(":")[0], int(n.split(":")[1].split("/")[0]))
+            for n in open_sparse_matrix(path).row_names()}
+
+
+def faba_all_checks(d: str, truth: dict) -> tuple[dict, dict]:
+    """`faba all`'s outputs under `d/run` against the planted truth: each
+    arm's gene store equals its planted counts after UMI dedup, its depth
+    tiles each cell's molecules starting in the tile, exactly; the planted
+    SNPs called and none among the editing calls; the planted edits called
+    at FABA_EDIT_RECALL / FABA_EDIT_PRECISION; the poly(A) sites called
+    within FABA_PEAK_WINDOW of planted ones. Returns (checks, figures)."""
+    import pandas as pd
+    import scipy.sparse as sp
+
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+
+    checks, figs = {}, {}
+    res_bp = int(FABA_ALL_DEPTH_KB * 1000)
+    for arm, tag in (("wt", ""), ("control", ".ct")):
+        t = truth[arm]
+        checks[f"genes{tag}"] = _decodes_to(f"{d}/run{tag}.genes.zarr", t["genes"],
+                                            truth["genes"], t["barcodes"])
+        db = open_sparse_matrix(f"{d}/run{tag}.depth.zarr")
+        per_contig = db.num_rows // (1 + int(t["mol_ref"].max()))
+        tile = t["mol_ref"] * per_contig + t["mol_start"] // res_bp
+        want = sp.coo_matrix((np.ones(len(tile), np.float32), (tile, t["mol_cell"])),
+                             shape=(db.num_rows, len(t["barcodes"]))).tocsc()
+        checks[f"depth{tag}"] = _decodes_to(f"{d}/run{tag}.depth.zarr", want, None, t["barcodes"])
+    snp = pd.read_parquet(f"{d}/run.snp/snp_sites.parquet")
+    called = snp[snp["genotype"] != "./."]
+    planted = {(c, p) for c, p, _, _ in truth["snps"]}
+    got_snp = set(zip(called["chr"], called["pos"].astype(int))) & planted
+    figs["snp_recall"] = len(got_snp) / len(planted)
+    checks["snps_called"] = figs["snp_recall"] >= FABA_SNP_RECALL
+    edits = {}
+    for name in ("atoi", "m6a"):
+        got = _site_set(f"{d}/run.{name}.zarr")
+        want = {(c, p) for c, p, _, _ in truth[name]}
+        figs[f"{name}_recall"] = len(got & want) / len(want)
+        figs[f"{name}_precision"] = len(got & want) / max(len(got), 1)
+        figs[f"{name}_called"] = len(got)
+        checks[name] = (figs[f"{name}_recall"] >= FABA_EDIT_RECALL
+                        and figs[f"{name}_precision"] >= FABA_EDIT_PRECISION)
+        edits[name] = got
+    checks["snps_not_edits"] = not (planted & (edits["atoi"] | edits["m6a"]))
+    ab = open_sparse_matrix(f"{d}/run.apa.zarr")
+    pas = {g: (p, q) for g, p, q, _ in truth["pas"]}
+    off, hit = [], set()
+    for n in ab.row_names():
+        gene, rest = n.split("/apa/")
+        center = int(rest.split("@")[1])
+        near = min(pas[gene], key=lambda x: abs(x - center))
+        off.append(abs(near - center))
+        hit.add((gene, near))
+    figs["pas_called"] = len(off)
+    figs["pas_offset_max"] = int(max(off)) if off else None
+    figs["pas_recall"] = len(hit) / (2 * len(pas))
+    checks["pas"] = bool(off) and max(off) <= FABA_PEAK_WINDOW \
+        and figs["pas_recall"] >= FABA_PAS_RECALL
+    return checks, figs
+
+
+def faba_all_phase(work: str, started, card: str) -> dict:
+    """Phase 39: `faba all --depth-resolution-kb 1` on `start_faba_all`'s
+    planted pair (a wild type and a control), its host work in that
+    process beside the card's phases 17-38; the outputs held against the
+    planted truth (`faba_all_checks`). Returns the process's launches."""
+    import pickle
+
+    proc, t_start = started
+    t0 = time.time()
+    out, err = proc.communicate(timeout=1200)
+    wait_s = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the faba all process failed: {err[-2000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    d = f"{work}/faba_all"
+    with open(f"{d}/truth.pkl", "rb") as f:
+        truth = pickle.load(f)
+    t0 = time.time()
+    checks, figs = faba_all_checks(d, truth)
+    stages = json.load(open(f"{d}/run.gem.json"))["timings"]
+    reads = truth["wt"]["n_reads"] + truth["control"]["n_reads"]
+    print(json.dumps({
+        "phase": "faba_all", **FABA_ALL, "reads": [truth["wt"]["n_reads"],
+                                                   truth["control"]["n_reads"]],
+        "process_s": time.time() - t_start, "wait_s": wait_s, "write_s": res["write_s"],
+        "faba_all_s": res["all_s"], "stages": stages, "reads_per_s": reads / res["all_s"],
+        "check_s": time.time() - t0, "checks": checks, **figs, "launches": res["launches"],
+        "card": card,
+    }), flush=True)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"faba all unlike the planted truth: {failed} {figs}")
+    return {"faba_all": res["launches"]}
+
+
+def mark(name: str, t_script: float) -> None:
+    """The script's seconds when a phase starts: the line the per-phase
+    wall times of `PERF.md` section 5 are read from."""
+    print(json.dumps({"mark": name, "at_s": time.time() - t_script}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -4008,6 +4234,7 @@ def run(work: str, t_script: float) -> int:
     print(json.dumps({"phase": "storage_libraries", **storage_libraries()}), flush=True)
 
     # ---- phase 2: senna topic end to end ---------------------------------
+    mark("2 senna topic", t_script)
     t0 = time.time()
     sim = simulate_topic(rows=2000, cols=100_000, factors=8, batches=2, seed=42)
     vec = SparseIoVec()
@@ -4043,6 +4270,7 @@ def run(work: str, t_script: float) -> int:
         raise AssertionError("llik trace is not finite")
 
     # ---- phase 3: kernels against their plain versions -------------------
+    mark("3 kernel checks", t_script)
     # The main path's own calls: its first block of 8,192 cells (K1, and
     # K3's group and batch planes of `collect_basic_stats`) and its first
     # block of matched cells (K3's weighted plane of `collect_matched_stats`).
@@ -4115,6 +4343,7 @@ def run(work: str, t_script: float) -> int:
         rows_.append(production[name])
 
     # ---- phase 4: where the trainer's construction spends its time ---------
+    mark("4 set-up split", t_script)
     probe = subprocess.run(
         [sys.executable, "-c", SETUP_PROBE], capture_output=True, text=True, check=True,
         cwd=Path(__file__).resolve().parent,
@@ -4126,6 +4355,7 @@ def run(work: str, t_script: float) -> int:
     start_prefetch(sim.row_names)
 
     # ---- phase 5: senna bge end to end -----------------------------------
+    mark("5 senna bge", t_script)
     # The first BGE_CELLS simulated cells without their batches: with
     # batches bge takes the stratified marginal, which has no kernel.
     bvec = SparseIoVec()
@@ -4177,6 +4407,7 @@ def run(work: str, t_script: float) -> int:
         raise AssertionError(f"bge topic latent is not a log-simplex: {tl_err}")
 
     # ---- phase 6: phase 1 at the NCE anchor, f32 and bf16 ------------------
+    mark("6 NCE anchor", t_script)
     acounts = anchor_counts()
     anchor = {}
     for dt in ("float32", "bfloat16"):
@@ -4200,6 +4431,7 @@ def run(work: str, t_script: float) -> int:
         raise AssertionError(f"anchor bf16 final loss {l16} vs f32 {l32}")
 
     # ---- phase 7: K4 against its plain version -----------------------------
+    mark("7 K4 checks", t_script)
     # The e2e run's phase-1 plane (its groups x 2,000 genes) with its
     # trained feature side, one of its phase-2 blocks (2,048 cells), and
     # the anchor plane in f32 and bf16 with that run's trained sides; and
@@ -4256,7 +4488,38 @@ def run(work: str, t_script: float) -> int:
     print(json.dumps({"kernel_check": "collapse", "card": card, **row}), flush=True)
     checks["collapse"].append(row)
 
+    # ---- phases 10 and 14a, before predict: they need no held-out cell, so
+    # they run while its simulation (in the pool since phase 4) ends (phase
+    # 16 ran here too: beside the pool its host collapse took 28.7-40.7 s,
+    # after it 8.8 s)
+    mark("10, 14a fault-1 report, rest --from", t_script)
+    # phase 2's fine partition on the card against the port's CPU projection
+    # and sort of the same cells with the same arguments
+    from legume_tpu_torch.ops import random_projection as rp
+    from legume_tpu_torch.senna.topic import compute_level_sort_dims
+
+    t0 = time.time()
+    _, proj_cpu = rp.project_columns(
+        vec, max(args.proj_dim, args.n_latent_topics), block_size=args.block_size,
+        batch_membership=batches if n_batches > 1 else None, seed=args.seed, device="cpu",
+    )
+    codes_cpu = rp.binary_sort_columns(
+        proj_cpu, compute_level_sort_dims(args.sort_dim, args.num_levels)[0], seed=args.seed,
+        device="cpu",
+    )
+    print(json.dumps({
+        "phase": "fault1_fine_partition", "cells": n_cells, "cpu_s": time.time() - t0,
+        "same_set_partition": same_partition(levels.fine_codes, codes_cpu),
+        "same_codes": bool(np.array_equal(levels.fine_codes, codes_cpu)),
+        "groups_card": int(len(np.unique(levels.fine_codes))),
+        "groups_cpu": int(len(np.unique(codes_cpu))),
+        "proj_max_abs_diff": float(np.abs(levels.proj_kn - proj_cpu).max()), "card": card,
+    }), flush=True)
+
+    rest_launches = rest_phase(work, vec, K, dev, card)
+
     # ---- phase 8: senna predict at full width -----------------------------
+    mark("8 senna predict", t_script)
     from legume_tpu_torch.data import MemoryBackend as Mem
     from legume_tpu_torch.data import blosc_codec
     from legume_tpu_torch.senna import predict as P
@@ -4362,6 +4625,7 @@ def run(work: str, t_script: float) -> int:
         raise AssertionError("residual matrix is not finite or has the wrong shape")
 
     # ---- phase 9: senna clustering on that latent ---------------------------
+    mark("9 clustering", t_script)
     from legume_tpu_torch.ops.hsblock import hsblock_clustering
     from legume_tpu_torch.ops.leiden import knn_adjacency
     from legume_tpu_torch.senna.clustering import ClusteringArgs, cluster_latent, run_clustering
@@ -4412,52 +4676,35 @@ def run(work: str, t_script: float) -> int:
     print(json.dumps({"kernel_check": "collapse", "card": card, **row}), flush=True)
     checks["collapse"].append(row)
 
-    # ---- phase 10: the fault-1 report ----------------------------------------
-    # phase 2's fine partition on the card against the port's CPU projection
-    # and sort of the same cells with the same arguments
-    from legume_tpu_torch.ops import random_projection as rp
-    from legume_tpu_torch.senna.topic import compute_level_sort_dims
-
-    t0 = time.time()
-    _, proj_cpu = rp.project_columns(
-        vec, max(args.proj_dim, args.n_latent_topics), block_size=args.block_size,
-        batch_membership=batches if n_batches > 1 else None, seed=args.seed, device="cpu",
-    )
-    codes_cpu = rp.binary_sort_columns(
-        proj_cpu, compute_level_sort_dims(args.sort_dim, args.num_levels)[0], seed=args.seed,
-        device="cpu",
-    )
-    print(json.dumps({
-        "phase": "fault1_fine_partition", "cells": n_cells, "cpu_s": time.time() - t0,
-        "same_set_partition": same_partition(levels.fine_codes, codes_cpu),
-        "same_codes": bool(np.array_equal(levels.fine_codes, codes_cpu)),
-        "groups_card": int(len(np.unique(levels.fine_codes))),
-        "groups_cpu": int(len(np.unique(codes_cpu))),
-        "proj_max_abs_diff": float(np.abs(levels.proj_kn - proj_cpu).max()), "card": card,
-    }), flush=True)
-
     # ---- phase 11: senna layout, pseudotime and plot on that latent ---------
+    mark("11 layout", t_script)
     layout_launches = layout_phase(work, zp, args.out, K, dev, card)
 
     # ---- phase 12: the senna topic options ------------------------------------
+    mark("12 topic options", t_script)
     option_launches = topic_options_phase(work, sim, vec, args.out, levels, sub, K, dev, card)
 
     # ---- phases 13-16: bge options, rest, cocoa, topic --cnv -----------------
+    mark("13-16 bge options, rest --runs, cocoa, topic --cnv", t_script)
     kept: dict = {}
     slice9 = bge_options_phase(work, bvec, bres, acounts, anchor["float32"], K, dev, card, checks,
                                kept)
-    slice9["rest"] = rest_phase(work, vec, K, dev, card)
+    slice9["rest"] = rest_launches
+    rest_runs_phase(work, dev, card)
     slice9.update(cocoa_phase(work, K, dev, card, checks, kept))
     slice9["topic_cnv"] = topic_cnv_phase(work, vec, K, dev, card)
 
     # ---- phases 17-20: vae, svd / joint-svd, joint-topic, masked models ----
+    mark("17-20 vae, svd, joint, masked", t_script)
     bam_started = start_bam(work)  # phase 32's host half, meanwhile
+    faba_all_started = start_faba_all(work)  # phase 39's host half, meanwhile
     slice10 = vae_phase(work, vec, hvec, bfile, K, dev, card)
     slice10.update(svd_phase(work, vec, kept["multiome"], K, dev, card, checks))
     slice10.update(joint_topic_phase(work, kept["multiome"], K, dev, card))
     slice10.update(masked_phase(work, vec, hvec, K, dev, card, checks))
 
     # ---- phases 21-27: stores, annotation, deconvolve, impute, probe, fne --
+    mark("21-27 stores .. fne", t_script)
     beans_sim = start_beans_sim(work, sim)  # phase 28, on the host meanwhile
     slice11, store = store_phase(work, sim, res, K, dev, card)
     slice11.update(annotation_phase(work, sim, res, args.out, store, K, dev, card))
@@ -4467,14 +4714,18 @@ def run(work: str, t_script: float) -> int:
     slice11_card_vs_cpu(work, sim, args.out, store, dev, card)
 
     # ---- phases 28-31: data-beans-sim, data-beans, ingestion, GFF -----------
+    mark("28-31 data-beans, ingest, gff", t_script)
     slice12 = beans_sim_phase(work, sim, store, beans_sim, card)
     # 5,000 cells for to-mtx, convert and the ingestion: the depth cut that
     # keeps the script near 1,000 s with phases 35-36
-    slice12.update(beans_phase(work, sim, store, K, dev, card, sub_cells=BEANS_CELLS))
+    # phase 31 runs on the card while phase 29's CLI processes run
+    slice12.update(beans_phase(work, sim, store, K, dev, card, sub_cells=BEANS_CELLS,
+                               meanwhile=lambda: slice12.update(gff_phase(work, kept, K, dev,
+                                                                          card))))
     slice12.update(ingest_phase(work, sim, res, store, card, mtx_cells=BEANS_CELLS))
-    slice12.update(gff_phase(work, kept, K, dev, card))
 
     # ---- phases 32-34: faba index / genes, faba gem, faba dyn-assoc -------------
+    mark("32-34 faba bam, gem, assoc", t_script)
     pinto_started = start_pinto_sim(work)  # phase 35's cells, on the host meanwhile
     slice13 = bam_phase(work, bam_started, card)
     gem_res = gem_phase(work, sim, store, K, dev, card, checks)
@@ -4482,16 +4733,22 @@ def run(work: str, t_script: float) -> int:
     slice13.update(assoc_phase(work, gem_res["cell_pseudotime"], K, dev, card))
 
     # ---- phases 35-36: pinto ----------------------------------------------------
+    mark("35-36 pinto", t_script)
     genetics = start_genetics_sims(work)  # phases 37-38's inputs, on the host meanwhile
     pinto = pinto_phase(work, pinto_started, K, dev, card, checks)
     slice14 = pinto["launches"]
     slice14.update(pinto_commands_phase(work, pinto["kept"], K, dev, card, checks))
 
     # ---- phases 37-38: fagioli, chickpea ------------------------------------------
+    mark("37-38 fagioli, chickpea", t_script)
     slice15 = fagioli_phase(work, genetics, K, dev, card, checks)
     slice15.update(chickpea_phase(work, genetics, K, dev, card, checks))
 
-    # ---- phase 39: the kernels line, then the device line -----------------
+    # ---- phase 39: faba all ---------------------------------------------------------
+    mark("39 faba all", t_script)
+    slice16 = faba_all_phase(work, faba_all_started, card)
+
+    # ---- phase 40: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
     # and `shapes` holds every checked shape, each with the run (`path`)
@@ -4513,7 +4770,7 @@ def run(work: str, t_script: float) -> int:
     # gem_encoder, gem_bam, assoc_bayes, assoc_gam; pinto_lc, pinto_cascade,
     # pinto_gene_network, pinto_prop, pinto_dsvd, pinto_cage, pinto_lc_etm,
     # pinto_lra, pinto_annotate; fagioli_pseudobulk, fit_qtl_sgvb,
-    # chickpea_p2g).
+    # chickpea_p2g; faba_all).
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
@@ -4532,7 +4789,8 @@ def run(work: str, t_script: float) -> int:
             "launches_topic_options": option_launches.get(name, 0),
             **{f"launches_{path}": counts[name]
                for path, counts in {**slice9, **slice10, **slice11, **slice12,
-                                    **slice13, **slice14, **slice15}.items()},
+                                    **slice13, **slice14, **slice15,
+                                    **slice16}.items()},
             **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),

@@ -1,11 +1,12 @@
-"""faba `apa`: the JAX package's parsers (its
-`cli/faba_cmds/apa_cmds.py`, flags and defaults unchanged), so that
-`faba --help` lists every subcommand. The handlers are not ported yet
-(ROADMAP item 10c) and raise `NotImplementedError`."""
+"""faba `apa`: parsers and handlers (the port's copy of the JAX
+package's `cli/faba_cmds/apa_cmds.py`, flags, defaults and handlers unchanged;
+the stages run with numpy and scipy on the host)."""
 
 from __future__ import annotations
 
-from ._common import not_ported
+import os
+
+import numpy as np
 
 
 def add_parsers(sub):
@@ -109,4 +110,157 @@ def add_parsers(sub):
 
 
 def _run_apa_cmd(args):
-    not_ported(args.cmd)
+    """`faba apa` dispatch: SCAPE mixture (default) with a logged
+    fallback to the simple pileup path when no 3'UTR regions are
+    derivable (run.rs:665-700 method dispatch)."""
+    import logging
+
+    import pandas as pd
+
+    from ...data.sparse_io import create_sparse_from_csc
+
+    log = logging.getLogger(__name__)
+    bam_paths = [b for b in args.bam.split(",") if b]
+
+    method = args.method
+    utrs_available = bool(args.utr_bed)
+    if method == "mixture" and not utrs_available and args.gff:
+        from ...faba.apa_mixture import build_utr_regions_from_gff
+
+        utrs_available = len(build_utr_regions_from_gff(args.gff)) > 0
+    if method == "mixture" and not utrs_available:
+        log.warning(
+            "apa: no 3'UTR regions derivable from the GFF (no "
+            "three_prime_UTR or CDS rows) and no --utr-bed; falling "
+            "back to --method simple"
+        )
+        method = "simple"
+
+    if method == "mixture":
+        from ...faba.apa_mixture import ScapeParams, load_valid_set, run_apa_mixture
+
+        params = ScapeParams(
+            mu_f=args.mu_f, sigma_f=args.sigma_f, theta_step=args.theta_step,
+            min_ws=args.min_ws, skirt_eta=args.skirt_eta,
+            skirt_mult=args.skirt_mult, merge_beta_mult=args.merge_beta_mult,
+            apa_max_sites=args.apa_max_sites,
+            min_coverage=max(args.min_reads, 1),
+            merge_distance=args.merge_distance,
+            min_beta=args.min_beta, max_beta=args.max_beta,
+            min_fragments=args.min_fragments,
+            min_utr_length=args.min_utr_length,
+            # 0 = unset on the shared flag; the mixture default is 10
+            polya_min_tail_length=args.polya_min_tail_length or 10,
+            polya_max_non_at=args.polya_max_non_a_or_t,
+            internal_prime_window=args.polya_internal_prime_window,
+            internal_prime_count=args.polya_internal_prime_count,
+            min_mapq=args.min_mapq,
+        )
+        genome_seqs = None
+        if args.genome:
+            from ...faba.context import read_fasta
+
+            genome_seqs = read_fasta(args.genome)
+        pre = None
+        if args.pre_sites:
+            import numpy as np
+
+            pre = {}
+            with open(args.pre_sites) as f:
+                for line in f:
+                    t = line.split()
+                    if len(t) >= 4:
+                        pre.setdefault(t[3], []).append(float(t[1]))
+            pre = {k: np.asarray(v) for k, v in pre.items()}
+        res = run_apa_mixture(
+            bam_paths, args.gff,
+            utr_bed=args.utr_bed, params=params, pre_sites=pre,
+            atoi_mask=args.atoi_mask, snp_mask=args.snp_mask,
+            valid_cells=load_valid_set(args.valid_cells) if args.valid_cells else None,
+            valid_genes=load_valid_set(args.valid_genes) if args.valid_genes else None,
+            skip_gene_qc=args.skip_gene_qc,
+            gene_min_cells=args.gene_min_cells,
+            gene_min_counts=args.gene_min_counts,
+            cell_min_genes=args.cell_min_genes,
+            no_umi_dedup=args.no_umi_dedup,
+            write_mixture=args.write_mixture,
+            apa_em_pdui=args.apa_em_pdui,
+            compute_pdui=args.compute_pdui,
+            drop_single_component=args.drop_single_component,
+            genome_seqs=genome_seqs,
+        )
+
+        import numpy as np
+
+        def _squeeze(mat, rows, cols):
+            # row/column nnz cutoffs (run.rs qc_cutoffs via SqueezeCutoffs)
+            csr = mat.tocsr()
+            keep_r = np.diff(csr.indptr) >= args.row_nnz_cutoff
+            csc = csr[keep_r].tocsc()
+            keep_c = np.diff(csc.indptr) >= args.column_nnz_cutoff
+            out = csc[:, keep_c]
+            return (
+                out,
+                [r for r, k in zip(rows, keep_r) if k],
+                [c for c, k in zip(cols, keep_c) if k],
+            )
+
+        multi = len(bam_paths) > 1
+        wrote = []
+        if args.compute_pdui and res.pdui_names:
+            for b, mat in enumerate(res.pdui):
+                tag = f".{b}" if multi else ""
+                path = f"{args.output}{tag}.apa.zarr"
+                m, rn, cn = _squeeze(mat, res.pdui_names, res.barcodes[b])
+                if not m.shape[0]:
+                    continue
+                create_sparse_from_csc(m, path, rn, cn)
+                wrote.append(path)
+        if args.write_mixture and res.mixture is not None and res.mixture_names:
+            for b, mat in enumerate(res.mixture):
+                tag = f".{b}" if multi else ""
+                path = f"{args.output}{tag}.apa_mixture.zarr"
+                m, rn, cn = _squeeze(mat, res.mixture_names, res.barcodes[b])
+                if not m.shape[0]:
+                    continue
+                create_sparse_from_csc(m, path, rn, cn)
+                wrote.append(path)
+        res.annotations.to_parquet(f"{args.output}.apa_sites.parquet")
+        wrote.append(f"{args.output}.apa_sites.parquet")
+        print(
+            f"apa mixture: {len(res.annotations)} sites, wrote "
+            + ", ".join(wrote)
+        )
+        return
+
+    from ...faba.apa import run_apa
+
+    apa = run_apa(
+        bam_paths[0], args.gff,
+        min_mapq=args.min_mapq, peak_window=args.peak_window,
+        min_reads=args.min_reads,
+        polya_min_tail_length=args.polya_min_tail_length,
+        polya_max_non_at=args.polya_max_non_a_or_t,
+        utr_bed=args.utr_bed,
+    )
+    if apa.counts.shape[0]:
+        create_sparse_from_csc(
+            apa.counts, f"{args.output}.zarr", apa.site_names, apa.barcodes
+        )
+    if args.compute_pdui_triplets:
+        from ...faba.apa import compute_pdui
+
+        gg, cc2, vv = compute_pdui(apa)
+        pd.DataFrame(
+            {"gene": gg, "cell": cc2, "pdui": vv}
+        ).to_parquet(f"{args.output}.pdui.parquet")
+        print(f"wrote {args.output}.pdui.parquet ({len(vv)} gene-cell pairs)")
+    pd.DataFrame(
+        {"gene": list(apa.distal_index),
+         "distal_usage": list(apa.distal_index.values())}
+    ).to_parquet(f"{args.output}.distal.parquet")
+    print(
+        f"wrote {args.output}.zarr ({apa.counts.shape[0]} PAS sites) "
+        f"+ .distal.parquet"
+    )
+

@@ -1,11 +1,12 @@
-"""faba `all`: the JAX package's parsers (its
-`cli/faba_cmds/pipeline_cmds.py`, flags and defaults unchanged), so that
-`faba --help` lists every subcommand. The handlers are not ported yet
-(ROADMAP item 10c) and raise `NotImplementedError`."""
+"""faba `all`: parsers and handlers (the port's copy of the JAX
+package's `cli/faba_cmds/pipeline_cmds.py`, flags, defaults and handlers unchanged;
+the stages run with numpy and scipy on the host)."""
 
 from __future__ import annotations
 
-from ._common import not_ported
+import os
+
+import numpy as np
 
 
 def add_parsers(sub):
@@ -89,4 +90,47 @@ def add_parsers(sub):
 
 
 def _cmd_all(args):
-    not_ported(args.cmd)
+    from ...faba.pipeline import run_all
+
+    res = run_all(
+        args.bam.split(","), args.gff, args.output,
+        control_bam=(args.control_bam.split(",")
+                     if args.control_bam else None),
+        genome=args.genome, gene_type=args.gene_type,
+        cell_barcode_tag=args.cell_barcode_tag,
+        gene_barcode_tag=args.gene_barcode_tag,
+        umi_tag=args.umi_tag, no_umi_dedup=args.no_umi_dedup,
+        backend=args.backend, zip_output=args.zip,
+        min_mapq=args.min_mapq,
+        min_base_quality=args.min_base_quality,
+        skip_snp=args.skip_snp, skip_genes=args.skip_genes,
+        skip_atoi=args.skip_atoi, skip_apa=args.skip_apa,
+        depth_resolution_kb=args.depth_resolution_kb,
+        known_snps=args.known_snps,
+        snp_min_depth=args.snp_min_depth,
+        snp_min_gq=args.snp_min_gq,
+        snp_min_coverage=args.snp_min_coverage,
+        snp_min_alt_count=args.snp_min_alt_count,
+        snp_min_alt_freq=args.snp_min_alt_freq,
+        snp_mask_min_vaf=args.snp_mask_min_vaf,
+        atoi_min_coverage=args.atoi_min_coverage,
+        atoi_min_conversion=args.atoi_min_conversion,
+        atoi_pvalue_cutoff=args.atoi_pvalue_cutoff,
+        edit_error_rate=args.edit_error_rate,
+        edit_overdispersion=args.edit_overdispersion,
+        apa_min_coverage=args.apa_min_coverage,
+        apa_max_sites=args.apa_max_sites,
+        polya_min_tail_length=args.polya_min_tail_length,
+        no_apa_pdui=args.no_apa_pdui,
+        mixture=not args.no_mixture,
+        mixture_weight=args.mixture_weight,
+        mixture_prior_alpha=args.mixture_prior_alpha,
+        mixture_prior_beta=args.mixture_prior_beta,
+        drop_single_component=args.drop_single_component,
+        gene_qc=args.gene_qc,
+        gene_min_cells=args.gene_min_cells,
+        gene_min_counts=args.gene_min_counts,
+        cell_min_genes=args.cell_min_genes,
+    )
+    print(f"wrote: {' '.join(sorted(res.outputs))}")
+

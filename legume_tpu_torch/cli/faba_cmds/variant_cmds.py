@@ -1,11 +1,12 @@
-"""faba `depth, snp`: the JAX package's parsers (its
-`cli/faba_cmds/variant_cmds.py`, flags and defaults unchanged), so that
-`faba --help` lists every subcommand. The handlers are not ported yet
-(ROADMAP item 10c) and raise `NotImplementedError`."""
+"""faba `snp, depth`: parsers and handlers (the port's copy of the JAX
+package's `cli/faba_cmds/variant_cmds.py`, flags, defaults and handlers unchanged;
+the stages run with numpy and scipy on the host)."""
 
 from __future__ import annotations
 
-from ._common import not_ported
+import os
+
+import numpy as np
 
 
 def add_parsers(sub):
@@ -91,8 +92,86 @@ def add_parsers(sub):
 
 
 def _cmd_snp(args):
-    not_ported(args.cmd)
+    from ...faba.snp import GenotypeParams, run_snp
+
+    sites = run_snp(
+        args.bam.split(","),
+        args.output,
+        genome=args.genome,
+        known_snps=args.known_snps,
+        gff=args.gff,
+        params=GenotypeParams(
+            min_depth=args.min_depth,
+            min_gq=args.min_gq,
+            base_error_rate=args.base_error_rate,
+            min_coverage=args.min_coverage,
+            min_alt_count=args.min_alt_count,
+            min_alt_freq=args.min_alt_freq,
+        ),
+        cell_barcode_tag=args.cell_barcode_tag,
+        umi_tag=args.umi_tag,
+        no_umi_dedup=args.no_umi_dedup,
+        use_base_quality=args.use_base_quality,
+        min_base_quality=args.min_base_quality,
+        min_mapping_quality=args.min_mapping_quality,
+        bulk=args.bulk,
+        skip_discovery=args.skip_discovery,
+        min_vaf=args.min_vaf,
+        gene_type=args.gene_type,
+        backend=args.backend,
+        zip_output=args.zip,
+    )
+    n_called = int((sites.genotype != 3).sum())
+    print(
+        f"wrote {args.output}/snp_sites.parquet "
+        f"({len(sites)} sites, {n_called} called)"
+    )
+    return
 
 
 def _cmd_depth(args):
-    not_ported(args.cmd)
+    from ...data.sparse_io import create_sparse_from_csc
+    from ...faba.depth import (
+        depth_matrix_uniform,
+        depth_per_region,
+        read_bed,
+    )
+
+    if (args.bed is None) == (args.resolution_kb is None):
+        raise SystemExit(
+            "faba depth: give exactly one of --bed or --resolution-kb"
+        )
+    sfx = ".h5" if args.backend == "hdf5" else (
+        ".zarr.zip" if args.zip else ".zarr")
+    bam_list = args.bam.split(",")
+    for bam_path in bam_list:
+        tag = (
+            "" if len(bam_list) == 1
+            else "." + os.path.splitext(os.path.basename(bam_path))[0]
+        )
+        if args.bed is not None:
+            cov, names, barcodes = depth_per_region(
+                bam_path, read_bed(args.bed), min_mapq=args.min_mapq,
+                use_index=args.use_index,
+            )
+        else:
+            cov, names, barcodes = depth_matrix_uniform(
+                bam_path,
+                resolution_bp=int(args.resolution_kb * 1000),
+                min_mapq=args.min_mapq,
+                cb_tag=args.cell_barcode_tag,
+            )
+        if args.row_nnz_cutoff > 0 or args.column_nnz_cutoff > 0:
+            csc = cov.tocsc()
+            rk = np.asarray((csc > 0).sum(axis=1)).ravel() \
+                >= args.row_nnz_cutoff
+            ck = np.asarray((csc > 0).sum(axis=0)).ravel() \
+                >= args.column_nnz_cutoff
+            cov = csc[rk][:, ck]
+            names = [n for n, k in zip(names, rk) if k]
+            barcodes = [b for b, k in zip(barcodes, ck) if k]
+        out_path = f"{args.output}{tag}{sfx}"
+        create_sparse_from_csc(cov, out_path, names, barcodes)
+        print(f"wrote backend: {out_path} ({cov.shape[0]} rows)")
+    return
+

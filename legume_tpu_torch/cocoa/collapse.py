@@ -19,7 +19,8 @@ pass A scatters every row's normalised coefficients into a weight plane
 W[t, matched cell, sample, topic] and an active plane A[t, cell, topic];
 pass B forms y0 = Y W and the y1 planes from A, one dense column slab at
 a time. Both run on the device in torch ops (the JAX package's XLA
-segment sums; no Pallas kernel on this path).
+segment sums; no Pallas kernel on this path). Every segment sum goes
+through `ops/sparse.py::segment_add`, whose order of addition is fixed.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import torch
 from ..data.visitors import csc_to_coo_block, visit_columns_by_block
 from ..ops.knn import knn_search
 from ..ops.random_projection import block_to_device
-from ..ops.sparse import col_ids_from_ptr, densify_block
+from ..ops.sparse import col_ids_from_ptr, densify_block, segment_add
 from .stat import CocoaStat
 
 # bytes of the W plane one chunk of exposure rows may hold (the JAX
@@ -192,8 +193,8 @@ def collect_cocoa_stat(
         rows, ptr, vals = block_to_device(pair, device)
         cols = col_ids_from_ptr(ptr)
         sample = torch.from_numpy(np.repeat(pb_sample[lb:ub], m).astype(np.int64)).to(device)
-        y0.index_add_(0, rows.long() * n_samples + sample[cols],
-                      vals[:, None] * coeffs.reshape(c * m, k)[cols])
+        segment_add(y0, 0, rows.long() * n_samples + sample[cols],
+                    vals[:, None] * coeffs.reshape(c * m, k)[cols])
         # y1: the query columns
         blk = csc_to_coo_block(data.read_columns_csc(np.arange(lb, ub)))
         rows, ptr, vals = block_to_device(blk, device)
@@ -201,8 +202,8 @@ def collect_cocoa_stat(
         contrib = vals[:, None] * z_active[cols]
         q_s = torch.from_numpy(pb_sample[lb:ub].astype(np.int64)).to(device)
         q_i = torch.from_numpy(cell_indv[lb:ub].astype(np.int64)).to(device)
-        y1.index_add_(0, rows.long() * n_samples + q_s[cols], contrib)
-        y1i.index_add_(0, rows.long() * n_indv + q_i[cols], contrib)
+        segment_add(y1, 0, rows.long() * n_samples + q_s[cols], contrib)
+        segment_add(y1i, 0, rows.long() * n_indv + q_i[cols], contrib)
     stat = CocoaStat.zeros(k, d, n_indv, n_samples)
     stat.y0_sum_kdp = y0.reshape(d, n_samples, k).permute(2, 0, 1).cpu().numpy()
     stat.y1_sum_kdp = y1.reshape(d, n_samples, k).permute(2, 0, 1).cpu().numpy()
@@ -226,7 +227,7 @@ def accumulate_match_weights(w_acc, a_acc, exposures_ti, q_indv, m_indv, dist, v
                                 != exposures_ti[rows[..., 0], q_indv[None]][..., None])
     coeffs, z_active = _pair_coeffs(dist[None], valid, zq[None], zm[None])
     flat = pair_cols * n_samples + pb_blk.repeat_interleave(m)
-    w_acc.index_add_(1, flat, coeffs.reshape(t, c * m, k))
+    segment_add(w_acc, 1, flat, coeffs.reshape(t, c * m, k))
     a_acc[:, q_ids] += z_active
     return w_acc, a_acc
 
@@ -308,9 +309,9 @@ def collect_cocoa_stat_multi(
             x = densify_block(rows, col_ids_from_ptr(ptr), vals, ncols=blk.ncols, num_genes=d)
             apply_weights_block(y0, y1, y1i, w4[:, lb:ub], a_acc[:, lb:ub], x, pb_t[lb:ub],
                                 indv_t[lb:ub], n_samples=n_samples, n_indv=n_indv)
-        szkp = torch.zeros(tc, n_samples, k, device=device).index_add_(1, pb_t, a_acc)
-        szkip = torch.zeros(tc, n_indv * n_samples, k, device=device).index_add_(
-            1, indv_t * n_samples + pb_t, a_acc)
+        szkp = segment_add(torch.zeros(tc, n_samples, k, device=device), 1, pb_t, a_acc)
+        szkip = segment_add(torch.zeros(tc, n_indv * n_samples, k, device=device), 1,
+                            indv_t * n_samples + pb_t, a_acc)
         y0_np, y1_np, y1i_np = (v.permute(1, 3, 0, 2).cpu().numpy() for v in (y0, y1, y1i))
         szkp_np = szkp.cpu().numpy()
         szkip_np = szkip.reshape(tc, n_indv, n_samples, k).cpu().numpy()

@@ -4,13 +4,28 @@ JAX package's `ops/sparse.py`).
 A block is `(row_ids [nnz], col_ids [nnz], vals [nnz])` with `col_ids`
 sorted, each in [0, ncols). These are the plain versions the CUDA
 kernels in `ops/kernels.py` are held against, and the path the CPU
-takes. Sums go through `index_add_`, so on a CUDA tensor their order is
-not fixed from run to run.
+takes. Their sums go through `index_add_`, so on a CUDA tensor their
+order is not fixed from run to run; `block_row_stats` (the streaming
+gene moments every card run forms) sums through `segment_add`, whose
+order is.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def segment_add(out: torch.Tensor, dim: int, index: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """`out.index_add_(dim, index, src)` in a fixed order of addition on
+    every device: a CUDA `index_add_` adds with float atomics, whose order
+    (and so whose rounding) changes from run to run; `index_put_` with
+    `accumulate=True` sorts the indices stably and adds the entries of one
+    index in the order of `src` (on the CPU it runs serially, in the same
+    order as `index_add_`). `dim` is 0 or 1."""
+    if dim == 0:
+        return out.index_put_((index,), src, accumulate=True)
+    lead = torch.arange(out.shape[0], device=out.device)[:, None]
+    return out.index_put_((lead, index[None, :]), src, accumulate=True)
 
 
 def col_ids_from_counts(col_counts: torch.Tensor) -> torch.Tensor:
@@ -84,12 +99,13 @@ def block_col_sums(col_ids: torch.Tensor, vals: torch.Tensor, *, ncols: int) -> 
 
 
 def block_row_stats(row_ids: torch.Tensor, vals: torch.Tensor, *, num_genes: int):
-    """Per-gene (sum, sum of squares, nnz count) of a block."""
+    """Per-gene (sum, sum of squares, nnz count) of a block, summed in a
+    fixed order (`segment_add`)."""
     r = row_ids.long()
     v = vals.float()
     z = lambda: torch.zeros(num_genes, dtype=torch.float32, device=v.device)  # noqa: E731
     return (
-        z().index_add_(0, r, v),
-        z().index_add_(0, r, v * v),
-        z().index_add_(0, r, (v != 0).float()),
+        segment_add(z(), 0, r, v),
+        segment_add(z(), 0, r, v * v),
+        segment_add(z(), 0, r, (v != 0).float()),
     )

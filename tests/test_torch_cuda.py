@@ -1283,6 +1283,78 @@ def test_faba_genes_on_the_card_machine_equals_the_planted_counts(dev, tmp_path)
         assert (got != sim[nm]).nnz == 0 and b.column_names() == sim["barcodes"]
 
 
+def test_cocoa_diff_cn_score_bit_equal_between_card_runs(dev, tmp_path):
+    """Two `cocoa diff` runs with permutations and the CNV side-channel give
+    the same cn_score bits: the first builds the match cache, the second
+    reuses it, as chip_smoke's phases 15 and 31 run them (the gene moments
+    behind the housekeeping weights and the statistics' segment sums take a
+    fixed order, `ops/sparse.py::segment_add`)."""
+    from legume_tpu_torch.cli.main import run_cocoa
+    from legume_tpu_torch.cocoa.sim import simulate_collider
+
+    sim = simulate_collider(n_genes=300, n_types=3, n_indv=12, cells_per_indv=150, seed=15)
+    counts = sp.csc_matrix(sim.counts)
+    genes, n = [f"g{i}" for i in range(300)], counts.shape[1]
+    stem = str(tmp_path / "c")
+    write = lambda path, lines: (tmp_path / path).write_text("\n".join(lines) + "\n")  # noqa: E731
+    write("c.indv.txt", [f"i{v:04d}" for v in sim.cell_indv])
+    write("c.types.txt", [f"t{v}" for v in sim.cell_type])
+    write("exposure.tsv", [f"i{i:04d}\t{int(x)}" for i, x in enumerate(sim.exposure)])
+    write("truth.tsv", ["gene_idx\tchr\tpos"] + [f"{i}\t{'chr1' if i < 150 else 'chr2'}\t"
+                                                 f"{i * 1000 + 500}" for i in range(300)])
+
+    def diff(out):
+        vec = SparseIoVec()
+        vec.push(MemoryBackend(counts, genes, [f"cell{j}" for j in range(n)]))
+        return run_cocoa(["diff", "--data-files", stem, "--out", out, "--indv", f"{stem}.indv.txt",
+                          "--exposure", str(tmp_path / "exposure.tsv"), "--topic-assignment",
+                          f"{stem}.types.txt", "--permutations", "12", "--cnv-ground-truth",
+                          str(tmp_path / "truth.tsv"), "--device", "cuda"], vec=vec)
+
+    a, b = diff(f"{stem}.a"), diff(f"{stem}.b")
+    assert b["timings"].get("match_cache_reused")
+    np.testing.assert_array_equal(a["cnv"].cn_score, b["cnv"].cn_score)
+    np.testing.assert_array_equal(a["cnv"].states, b["cnv"].states)
+    np.testing.assert_array_equal(a["effect"], b["effect"])
+
+
+def test_faba_all_on_the_card_machine_equals_the_ports_run(dev, tmp_path):
+    """`python -m legume_tpu_torch faba all` on a small planted pair there
+    writes the stores the port's `run_all` writes in this process, and its
+    gene and depth stores equal the planted counts (the stages run on the
+    host, as in the JAX package)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+    from legume_tpu_torch.faba.bam_sim import simulate_edit_pair
+    from legume_tpu_torch.faba.pipeline import run_all
+
+    t = simulate_edit_pair(str(tmp_path / "wt.bam"), str(tmp_path / "ct.bam"),
+                           str(tmp_path / "g.gff3"), str(tmp_path / "g.fa"), n_cells=80,
+                           n_genes=20, umis_per_cell=120, seed=4)
+    io = ["--bam", str(tmp_path / "wt.bam"), "--control-bam", str(tmp_path / "ct.bam"), "--gff",
+          str(tmp_path / "g.gff3"), "--genome", str(tmp_path / "g.fa")]
+    subprocess.run([sys.executable, "-m", "legume_tpu_torch", "faba", "all", *io, "--output",
+                    str(tmp_path / "cli"), "--depth-resolution-kb", "1"], check=True,
+                   cwd=Path(__file__).resolve().parents[1])
+    res = run_all(str(tmp_path / "wt.bam"), str(tmp_path / "g.gff3"), str(tmp_path / "api"),
+                  control_bam=str(tmp_path / "ct.bam"), genome=str(tmp_path / "g.fa"),
+                  depth_resolution_kb=1.0)
+    assert {"genes", "genes.ct", "depth", "depth.ct", "atoi", "m6a", "apa", "snp"} <= set(res.outputs)
+    for key, path in res.outputs.items():
+        if path.endswith(".zarr"):
+            a, b = open_sparse_matrix(path), open_sparse_matrix(path.replace("api", "cli"))
+            assert a.row_names() == b.row_names() and a.column_names() == b.column_names(), key
+            cols = np.arange(a.num_columns)
+            assert (a.read_columns_csc(cols) != b.read_columns_csc(cols)).nnz == 0, key
+    for arm, tag in (("wt", ""), ("control", ".ct")):
+        g = open_sparse_matrix(str(tmp_path / f"cli{tag}.genes.zarr"))
+        got = g.read_columns_csc(np.arange(g.num_columns))
+        assert (got != t[arm]["genes"]).nnz == 0 and g.column_names() == t[arm]["barcodes"]
+
+
 def _spatial_cells(n=3000, d=120, domains=4, seed=3):
     """Planted domains (vertical stripes) at tissue-scale coordinates (µm,
     millimetres from the origin), Poisson counts over domain programs."""
