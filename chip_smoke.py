@@ -288,8 +288,49 @@ Phases (any failure exits non-zero; nothing is caught):
    molecules starting there, exactly; the planted SNPs called and none
    among the editing calls; the edits' recall and precision and the
    poly(A) sites' recall at the bars of FABA_*; the process's seconds,
-   its wait, each stage's seconds and reads a second;
-40. print the script's total seconds, one JSON line of all kernels, then
+   its wait, each stage's seconds and reads a second; then, in the same
+   process, on the called C-to-T sites (their strand from the GFF's
+   gene): `faba pwm` from the reference and from each arm's reads,
+   `metagene --ncrna`, `pileup` of each arm and `inspect` (plus-strand
+   sites) and `docs`: the reference PWM shows the planted RAC, the
+   reads' PWM and the pileup the edit in the wild type and not in the
+   control, `inspect` the RAC under the matching reads, metagene places
+   every site (FABA_MOTIF_FREQ, FABA_EDIT_SHOWS, FABA_EDIT_ABSENT);
+40. `faba annotate` and `faba lineage` in processes of their own, the
+   first started after phase 4, the second before phase 17: `faba
+   lineage` through the port's CLI at its
+   defaults (200 centroids, 200 bootstrap draws and 500 permutations an
+   edge, PHATE on 2,000 landmarks) but `--latent-geometry euclidean` (the
+   planted coordinates are Euclidean; cosine puts a 2-D Y on the unit
+   circle) on a planted Y of LINEAGE_CELLS (100,000) cells written as
+   `--latent` / `--velocity` parquets (`tests/test_lineage_forest.py`'s
+   generator, scaled), held to that test's bars (one tree, at least two
+   lineages, pseudotime correlated with the planted axis above 0.95) and
+   a forest's; on LINEAGE_CPU_CELLS (2,000) of the cells the card
+   against `--device cpu`: labels, edges, calls and trees equal, every
+   number within LINEAGE_PT_ATOL; `faba annotate` at its defaults
+   (projection, both tracks) on a planted gem prefix
+   (`tests/test_faba_annotate.py`'s generator at ANNOTATE_CELLS, 10,000
+   cells): per-cell accuracy above 0.95 and the nascent program on the
+   velocity track; `faba plot` of the Y's lineage where matplotlib
+   imports (the card's machine has none: a line says it was skipped);
+41. after phase 34, in a process of its own beside phases 35-39: `faba
+   lineage --from` phase 33's `gem_raw` fit (100,000 cells summed into
+   the pseudobulks of `--raw`, H = 16) with `--markers` the simulated
+   factors' panel (its bootstrap cut to LINEAGE_MARKER_BOOT draws):
+   tables finite, every pseudobulk in one tree, the parents a forest;
+   `faba annotate --mode enrichment` on phase 2's `senna topic` run with
+   the same panel (a factor called); then `faba dyn-assoc --from` the
+   lineage run, lifted to the cells of phase 34's sites store (finite
+   statistics, p in [0, 1], every site given a branch); none of
+   the four kernels is on the paths of phases 39d-41, and each of their
+   launch counts must be 0;
+42. the model-stack parts no command reaches, on the card against the
+   CPU from the same inputs and parameters: the eight likelihoods of
+   `models/losses.py` at 4,096 x 2,000, `IafSoftmaxEncoder` (eval mode)
+   and `BipartiteDecoder` (each likelihood) forward and backward, and
+   `fit_archetypes` at 10,000 x 50 with k = 8 (ARCHETYPE_ITERS steps);
+43. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
 
 Phase 10 and phase 14's `--from` run before phase 8 (they need none of
@@ -297,9 +338,11 @@ its held-out cells). The simulations of phases 8, 13a, 15 and 19 run in a
 pool of four processes started after phase 4, phase 28 in a process
 started before phase 21, phase 32's BAM, index and counts and phase 39's
 pair and `faba all` in processes started before phase 17, phase 35's
-cells in a process started before phase 32 and phases 37-38's loci,
-cohort and multiome cells in processes started before phase 35, so the
-host makes them while the card runs the phases before them; each takes
+cells in a process started before phase 32, phases 37-38's loci,
+cohort and multiome cells in processes started before phase 35, and
+phase 40's annotate and lineage runs after phase 4 and before phase 17
+and phase 41's after phase 34, so the host makes them while the card
+runs the phases before them; each takes
 the same function, arguments and seed it would call itself. Each phase
 prints `{"mark": name, "at_s": seconds}` as it starts.
 
@@ -4043,6 +4086,11 @@ FABA_PEAK_WINDOW = 30  # run_apa's peak window: the distance that merges read en
 # poly(A) sites 0.97 (every called site within 5 bases of a planted one),
 # the edits' precision 1.0
 FABA_EDIT_RECALL, FABA_EDIT_PRECISION, FABA_SNP_RECALL, FABA_PAS_RECALL = 0.75, 0.95, 0.95, 0.9
+# phase 39d's bars: the RAC context's frequencies in the reference PWM; the
+# planted edit rates are 0.1-0.3, so at a called site T takes a tenth of
+# the column or more in the wild type (0.22 of the pileup's column at this
+# size) and sequencing errors alone (1e-3 a base) in the control
+FABA_MOTIF_FREQ, FABA_EDIT_SHOWS, FABA_EDIT_ABSENT = 0.9, 0.1, 0.01
 # The faba-all process: the pair written with the port's `write_bam`
 # (`faba/bam_sim.py::simulate_edit_pair`), its truth pickled, then `faba all`
 # through the port's CLI entry (`CLI_COUNTED`, as `python -m legume_tpu_torch`
@@ -4064,7 +4112,47 @@ p = subprocess.run([sys.executable, "-c", counted, *argv], capture_output=True, 
 all_s = time.time() - t
 if p.returncode:
     sys.exit(p.stderr[-3000:])
-print(json.dumps({"write_s": write_s, "all_s": all_s,
+# the small faba commands on the called C-to-T sites (phase 39d): their
+# strand from the gene that holds them
+import numpy as np, pandas as pd
+from legume_tpu_torch.cli.main import run_faba
+from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+from legume_tpu_torch.faba.genes import parse_gff_genes
+from legume_tpu_torch.ops import kernels as K
+model = parse_gff_genes(f"{work}/edit.gff3")
+rows = [(n.split(":")[0], int(n.split(":")[1].split("/")[0]))
+        for n in open_sparse_matrix(f"{work}/run.m6a.zarr").row_names()]
+strand = []
+for c, q in rows:
+    g = np.nonzero((model.chrom == model.chrom_names.index(c)) & (model.start <= q)
+                   & (model.end > q))[0]
+    strand.append("+" if model.strand[g[0]] > 0 else "-")
+sites = pd.DataFrame({"chrom": [c for c, _ in rows], "pos": [q for _, q in rows],
+                      "strand": strand})
+sites.to_parquet(f"{work}/m6a_sites.parquet")
+sites[sites.strand == "+"].to_parquet(f"{work}/m6a_plus.parquet")
+s, plus = f"{work}/m6a_sites.parquet", f"{work}/m6a_plus.parquet"
+small = {}
+for name, argv in (
+        ("pwm_reference", ["pwm", "-s", s, "-f", f"{work}/edit.fa", "-o", f"{work}/pwm_ref"]),
+        ("pwm_reads_wt", ["pwm", "-s", s, "-f", f"{work}/edit.fa", "-o", f"{work}/pwm_wt",
+                          "--source", "reads", "--bam", f"{work}/wt.bam"]),
+        ("pwm_reads_ct", ["pwm", "-s", s, "-f", f"{work}/edit.fa", "-o", f"{work}/pwm_ct",
+                          "--source", "reads", "--bam", f"{work}/ct.bam"]),
+        ("metagene", ["metagene", "-s", s, "-g", f"{work}/edit.gff3", "-o",
+                      f"{work}/metagene.tsv", "--ncrna"]),
+        ("pileup_wt", ["pileup", "--bam", f"{work}/wt.bam", "--sites", plus, "--output",
+                       f"{work}/pu_wt"]),
+        ("pileup_ct", ["pileup", "--bam", f"{work}/ct.bam", "--sites", plus, "--output",
+                       f"{work}/pu_ct"]),
+        ("inspect", ["inspect", "--bam", f"{work}/wt.bam", "--sites", plus, "--fasta",
+                     f"{work}/edit.fa", "--output", f"{work}/inspect"]),
+        ("docs", ["docs"])):
+    K.reset_launch_counts()
+    t = time.time()
+    run_faba(argv)
+    small[name] = {"run_s": time.time() - t, "launches": dict(K.launch_counts)}
+print(json.dumps({"write_s": write_s, "all_s": all_s, "sites": len(sites), "small": small,
                   "launches": json.loads(p.stdout.strip().splitlines()[-1])}))
 """
 
@@ -4181,7 +4269,450 @@ def faba_all_phase(work: str, started, card: str) -> dict:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"faba all unlike the planted truth: {failed} {figs}")
-    return {"faba_all": res["launches"]}
+    small_checks, small_figs = faba_small_checks(d, res["sites"])
+    print(json.dumps({"phase": "faba_small_commands", "sites": res["sites"],
+                      "runs": res["small"], "checks": small_checks, **small_figs,
+                      "card": card}), flush=True)
+    failed = [k for k, v in small_checks.items() if not v]
+    if failed:
+        raise AssertionError(f"faba pwm / metagene / pileup unlike the planted pair: {failed} "
+                             f"{small_figs}")
+    return {"faba_all": res["launches"],
+            **{f"faba_{name}": r["launches"] for name, r in res["small"].items()}}
+
+
+def faba_small_checks(d: str, n_sites: int) -> tuple[dict, dict]:
+    """Phase 39d on the called C-to-T sites: the reference PWM shows the
+    planted RAC (R at -2, A at -1, C at 0, each above FABA_MOTIF_FREQ); the
+    reads' PWM and the pileup show the C-to-T edit at the site in the wild
+    type (T above FABA_EDIT_SHOWS of the column) and not in the control
+    (below FABA_EDIT_ABSENT); `inspect` folds the matching reads into the
+    reference's RAC; metagene places every site."""
+    import pandas as pd
+
+    checks, figs = {}, {}
+    ref = pd.read_parquet(f"{d}/pwm_ref.pwm.parquet").set_index("offset")
+    figs["pwm_rac"] = [float(ref.loc[-2, ["A", "G"]].sum()), float(ref.loc[-1, "A"]),
+                       float(ref.loc[0, "C"])]
+    checks["pwm_rac"] = min(figs["pwm_rac"]) >= FABA_MOTIF_FREQ
+    for arm in ("wt", "ct"):
+        pwm = pd.read_parquet(f"{d}/pwm_{arm}.pwm.parquet").set_index("offset")
+        figs[f"pwm_reads_t_{arm}"] = float(pwm.loc[0, "T"])
+        pu = pd.read_parquet(f"{d}/pu_{arm}.pileup.parquet").set_index("offset")
+        col = pu.loc[0, ["A", "C", "G", "T", "ref_match"]].astype(float)
+        figs[f"pileup_t_{arm}"] = float(col["T"] / max(col.sum(), 1.0))
+    checks["edit_in_wt"] = min(figs["pwm_reads_t_wt"], figs["pileup_t_wt"]) >= FABA_EDIT_SHOWS
+    checks["no_edit_in_ct"] = max(figs["pwm_reads_t_ct"], figs["pileup_t_ct"]) <= FABA_EDIT_ABSENT
+    ins = pd.read_parquet(f"{d}/inspect.pileup.parquet").set_index("offset")[["A", "C", "G", "T"]]
+    figs["inspect_consensus"] = "".join(ins.loc[o].astype(float).idxmax() for o in (-2, -1, 0))
+    checks["inspect_rac"] = figs["inspect_consensus"][0] in "AG" \
+        and figs["inspect_consensus"][1:] == "AC"
+    mg = pd.read_csv(f"{d}/metagene.tsv", sep="\t")
+    figs["metagene_placed"] = float(mg["count"].sum())
+    checks["metagene_places_every_site"] = figs["metagene_placed"] == n_sites
+    return checks, figs
+
+
+# ---- slice 17: faba lineage / annotate / plot, the small faba commands, the
+# model-stack parts ------------------------------------------------------------
+
+# (a): the planted Y of tests/test_lineage_forest.py at LINEAGE_CELLS cells,
+# held to that test's bars; LINEAGE_CPU_CELLS of them on the card against
+# `--device cpu` (labels, edges, calls and trees equal, pseudotime within
+# LINEAGE_PT_ATOL); (b)'s marker bootstrap cut to LINEAGE_MARKER_BOOT draws
+# (the CLI's 200: each draw is a k-means of the 100,000 cells); (c) the
+# planted gem prefix of tests/test_faba_annotate.py at ANNOTATE_CELLS cells
+LINEAGE_CELLS, LINEAGE_CPU_CELLS, LINEAGE_MARKER_BOOT = 100_000, 2_000, 20
+LINEAGE_PT_CORR, LINEAGE_PT_ATOL = 0.95, 1e-5
+ANNOTATE_CELLS, ANNOTATE_ACCURACY, ANNOTATE_NASCENT = 10_000, 0.95, 0.8
+ARCHETYPE_SHAPE = (10_000, 50, 8)  # (f): cells, dimensions, archetypes
+# (f)'s bars, card against CPU: the likelihoods relative 1e-5 (of each
+# row's magnitude, at least 1); each forward output within 1e-5 and each
+# gradient within 1e-4 of its largest entry; fit_archetypes after
+# ARCHETYPE_ITERS steps within 1e-3 of its span
+RTOL_LIKELIHOOD, RTOL_FORWARD, RTOL_GRAD, ARCHETYPE_ITERS = 1e-5, 1e-5, 1e-4, 100
+# Port CLI commands in a process of their own, in order, each through
+# `run_faba` with its kernel counts zeroed just before: its seconds, what
+# it returned (its stage seconds, where it reports them) and its launches.
+FABA_RUNS = r"""
+import json, sys, time
+from legume_tpu_torch.cli.main import run_faba
+from legume_tpu_torch.ops import kernels as K
+out = {}
+for name, argv in json.loads(sys.argv[1]):
+    K.reset_launch_counts()
+    t = time.time()
+    timings = run_faba(argv)
+    out[name] = {"run_s": time.time() - t, "timings": timings, "launches": dict(K.launch_counts)}
+print(json.dumps(out))
+"""
+
+
+def y_trajectory(n: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """tests/test_lineage_forest.py's Y at `n` cells (its 300 / 200 / 200
+    split scaled): a trunk along x, two arms, velocity along the flow with
+    N(0, 0.3^2) noise. Returns (theta [n, 2], velocity [n, 2])."""
+    rng = np.random.default_rng(seed)
+    nt = n * 3 // 7
+    na = (n - nt) // 2
+    sizes = (nt, na, n - nt - na)
+
+    def seg(a, b, m):
+        t = rng.uniform(0, 1, m)[:, None]
+        return np.array(a) + t * (np.array(b) - np.array(a)) + rng.normal(0, 0.05, (m, 2))
+
+    theta = np.vstack([seg([0, 0], [1, 0], sizes[0]), seg([1, 0], [2, 1], sizes[1]),
+                       seg([1, 0], [2, -1], sizes[2])]).astype(np.float32)
+    flow = np.repeat(np.array([[1, 0], [0.7, 0.7], [0.7, -0.7]]), sizes, axis=0)
+    return theta, (flow + rng.normal(0, 0.3, (n, 2))).astype(np.float32)
+
+
+def _cell_table(path: str, mat: np.ndarray, names, cols) -> str:
+    import pandas as pd
+
+    pd.DataFrame(mat, columns=cols).assign(cell=list(names)).set_index("cell").reset_index() \
+        .to_parquet(path)
+    return path
+
+
+def planted_gem_prefix(prefix: str, n: int, seed: int = 0) -> tuple[str, np.ndarray]:
+    """tests/test_faba_annotate.py's gem prefix at `n` cells: two types
+    along two axes of an H = 4 co-embedded space, type A's velocity toward a
+    third axis (the Gamma program), 60 genes in three panels. Returns (the
+    marker TSV, the planted type of each cell)."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    h, nh = 4, n // 2
+    a, b, c = np.eye(h, dtype=np.float32)[:3]
+    cells = np.vstack([a + rng.normal(0, 0.15, (nh, h)), b + rng.normal(0, 0.15, (nh, h))])
+    vel = np.vstack([c + rng.normal(0, 0.1, (nh, h)), b + rng.normal(0, 0.1, (nh, h))])
+    spl = np.vstack([a + rng.normal(0, 0.1, (20, h)), b + rng.normal(0, 0.1, (20, h)),
+                     c + rng.normal(0, 0.1, (20, h))])
+    names, genes = [f"cell{i}" for i in range(2 * nh)], [f"g{i}" for i in range(60)]
+    cols = [f"h{j}" for j in range(h)]
+    _cell_table(f"{prefix}.cell_embedding.parquet", cells.astype(np.float32), names, cols)
+    _cell_table(f"{prefix}.velocity.parquet", vel.astype(np.float32), names, cols)
+    rows = [f"{g}/count/spliced" for g in genes] + [f"{g}/count/unspliced" for g in genes]
+    pd.DataFrame(np.vstack([spl, spl]).astype(np.float32), columns=cols).assign(feature=rows) \
+        .set_index("feature").reset_index().to_parquet(f"{prefix}.feature_embedding.parquet")
+    json.dump({"model_type": "embedding"}, open(f"{prefix}.gem.json", "w"))
+    markers = _write_lines(f"{prefix}.markers.tsv", [
+        f"g{i}\t{t}" for t, lo in (("Alpha", 0), ("Beta", 20), ("Gamma", 40))
+        for i in range(lo, lo + 20)])
+    return markers, np.array(["Alpha"] * nh + ["Beta"] * nh)
+
+
+def _start_faba_runs(runs: list) -> tuple:
+    proc = subprocess.Popen([sys.executable, "-c", FABA_RUNS, json.dumps(runs)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=Path(__file__).resolve().parent)
+    CHILDREN.append(proc)
+    return proc, time.time()
+
+
+def _faba_runs_result(started, what: str) -> tuple[dict, float]:
+    """(each run's line, the seconds the main process waited)."""
+    proc, _ = started
+    t0 = time.time()
+    out, err = proc.communicate(timeout=1200)
+    if proc.returncode != 0:
+        raise AssertionError(f"the {what} process failed: {err[-2500:]}")
+    return json.loads(out.strip().splitlines()[-1]), time.time() - t0
+
+
+def start_annotate_projection(work: str, dev, *, cells: int = ANNOTATE_CELLS) -> dict:
+    """Phase 40's `faba annotate` process (the CLI defaults) on the planted
+    gem prefix. Its 100 bootstrap Leidens on the host took 636 s beside
+    three other processes on the host of an NVIDIA H100 80GB HBM3
+    (700.00 W), so it starts after phase 4 and runs beside phases 5-39."""
+    d = f"{work}/lineage"
+    Path(d).mkdir(exist_ok=True)
+    markers, truth = planted_gem_prefix(f"{d}/gem", cells)
+    return {"dir": d, "markers": markers, "truth": truth, "annotate": _start_faba_runs([
+        ("faba_annotate_projection", ["annotate", "--from", f"{d}/gem", "--markers", markers,
+                                      "--out", f"{d}/ann", "--device", str(dev)])])}
+
+
+def start_lineage_y(work: str, dev, *, cells: int = LINEAGE_CELLS,
+                    cpu_cells: int = LINEAGE_CPU_CELLS) -> dict:
+    """Phase 40's `faba lineage` process: the Y (the CLI defaults but
+    `--latent-geometry euclidean`), then the subset on the card and on the
+    CPU."""
+    d = f"{work}/lineage"
+    Path(d).mkdir(exist_ok=True)
+    theta, vel = y_trajectory(cells)
+    names = [f"cell{i}" for i in range(cells)]
+    sub = np.random.default_rng(40).choice(cells, cpu_cells, replace=False)
+    sub.sort()
+    for tag, idx in (("y", slice(None)), ("sub", sub)):
+        _cell_table(f"{d}/{tag}.latent.parquet", theta[idx], np.asarray(names)[idx], ["h0", "h1"])
+        _cell_table(f"{d}/{tag}.velocity.parquet", vel[idx], np.asarray(names)[idx], ["v0", "v1"])
+
+    def lineage(tag, out, device):
+        return ["lineage", "--latent", f"{d}/{tag}.latent.parquet", "--velocity",
+                f"{d}/{tag}.velocity.parquet", "--latent-geometry", "euclidean", "--out",
+                f"{d}/{out}", "--device", device]
+
+    return {
+        "theta": theta, "sub": sub,
+        "lineage": _start_faba_runs([
+            ("faba_lineage", lineage("y", "y", str(dev))),
+            ("faba_lineage_subset", lineage("sub", "sub_card", str(dev))),
+            ("faba_lineage_subset_cpu", lineage("sub", "sub_cpu", "cpu"))]),
+    }
+
+
+def _forest_ok(prefix: str, n_cells: int) -> dict:
+    """Finite tables; every cell in exactly one tree; the selected edges'
+    parents a forest (each node one parent at most, no cycle, one root a
+    tree)."""
+    import pandas as pd
+
+    tables = {t: pd.read_parquet(f"{prefix}.{t}.parquet") for t in
+              ("nodes", "edges", "trees", "pseudotime", "cell_lineage_weights", "curves")}
+    finite = all(np.isfinite(tables[t].select_dtypes("number").to_numpy(np.float64)).all()
+                 for t in ("nodes", "curves", "cell_lineage_weights"))
+    trees = tables["trees"]
+    # each cell's node lies in exactly one tree; a tree too small for a
+    # curve leaves its cells' pseudotime and tree NaN, as in the JAX package
+    placed = tables["pseudotime"]["pseudotime"].notna()
+    one_tree = bool(len(tables["pseudotime"]) == n_cells
+                    and int(trees["n_cells"].sum()) == n_cells
+                    and tables["pseudotime"]["tree"][placed].notna().all())
+    sel = tables["edges"][tables["edges"]["selected"] > 0]
+    parent = {}
+    forest = True
+    for frm, to in zip(sel["directed_from"].astype(int), sel["directed_to"].astype(int)):
+        forest &= to not in parent
+        parent[to] = frm
+    for v in list(parent):
+        seen, x = set(), v
+        while x in parent and forest:
+            forest &= x not in seen
+            seen.add(x)
+            x = parent[x]
+    forest &= len(trees) == len(tables["nodes"]) - len(parent)
+    return {"tables_finite": bool(finite), "each_cell_one_tree": one_tree,
+            "parents_form_a_forest": bool(forest)}
+
+
+def slice17_phase(work: str, started: dict, K, dev, card: str) -> dict:
+    """Phase 40: collect the lineage and annotate processes and hold them;
+    `faba plot` of the Y's lineage where matplotlib imports."""
+    import pandas as pd
+
+    d = started["dir"]
+    runs, wait = _faba_runs_result(started["lineage"], "faba lineage")
+    ann, ann_wait = _faba_runs_result(started["annotate"], "faba annotate")
+    runs.update(ann)
+    theta = started["theta"]
+    pt = pd.read_parquet(f"{d}/y.pseudotime.parquet")
+    trees = pd.read_parquet(f"{d}/y.trees.parquet")
+    lineages = pd.read_parquet(f"{d}/y.lineages.parquet")
+    corr = float(np.corrcoef(theta[:, 0], np.nan_to_num(pt.pseudotime))[0, 1])
+    n_lin = int(lineages["lineage"].nunique())
+    y_line = {"phase": "faba_lineage", "cells": len(theta), **runs["faba_lineage"],
+              "trees": len(trees), "lineages": n_lin, "pseudotime_corr": corr,
+              "process_wait_s": wait, **_forest_ok(f"{d}/y", len(theta)), "card": card}
+    print(json.dumps(y_line), flush=True)
+    if not (len(trees) == 1 and n_lin >= 2 and corr > LINEAGE_PT_CORR
+            and y_line["tables_finite"] and y_line["each_cell_one_tree"]):
+        raise AssertionError(f"faba lineage on the planted Y below its bars: {y_line}")
+    # the subset on the card against --device cpu
+    same, gaps = {}, {}
+    for t in ("nodes", "edges", "trees", "lineages", "pseudotime", "cell_lineage_weights"):
+        a = pd.read_parquet(f"{d}/sub_card.{t}.parquet")
+        b = pd.read_parquet(f"{d}/sub_cpu.{t}.parquet")
+        num = [c for c in a.columns if a[c].dtype.kind == "f"]
+        same[t] = bool(a.drop(columns=num).equals(b.drop(columns=num)))
+        same[f"{t}_nan"] = bool((a[num].isna() == b[num].isna()).all().all())
+        gaps[t] = float(np.nanmax(np.abs(a[num].to_numpy(np.float64) - b[num].to_numpy(np.float64)),
+                                  initial=0.0)) if num else 0.0
+    sub_line = {"phase": "faba_lineage_card_vs_cpu", "cells": len(started["sub"]),
+                "card_s": runs["faba_lineage_subset"]["run_s"],
+                "cpu_s": runs["faba_lineage_subset_cpu"]["run_s"], "equal": same,
+                "max_abs_gap": gaps, "bar": LINEAGE_PT_ATOL, "card": card}
+    print(json.dumps(sub_line), flush=True)
+    if not (all(same.values()) and max(gaps.values()) <= LINEAGE_PT_ATOL):
+        raise AssertionError(f"faba lineage on the card unlike the CPU: {sub_line}")
+    # (c) projection mode on the planted gem prefix
+    got = pd.read_parquet(f"{d}/ann.spliced.annotation.parquet")["annotation"].to_numpy()
+    velo = pd.read_parquet(f"{d}/ann.velocity.annotation.parquet")["annotation"].to_numpy()
+    acc = float((got == started["truth"]).mean())
+    nascent = float((velo[started["truth"] == "Alpha"] == "Gamma").mean())
+    a_line = {"phase": "faba_annotate_projection", "cells": len(got),
+              **runs["faba_annotate_projection"], "accuracy": acc, "nascent_gamma": nascent,
+              "process_wait_s": ann_wait, "card": card}
+    print(json.dumps(a_line), flush=True)
+    if not (acc > ANNOTATE_ACCURACY and nascent > ANNOTATE_NASCENT):
+        raise AssertionError(f"faba annotate (projection) below its bars: {a_line}")
+    # (e) faba plot needs matplotlib
+    if importlib.util.find_spec("matplotlib") is None:
+        print(json.dumps({"phase": "faba_plot", "skipped": "matplotlib does not import here",
+                          "card": card}), flush=True)
+    else:
+        from legume_tpu_torch.cli.main import run_faba
+
+        K.reset_launch_counts()
+        t0 = time.time()
+        run_faba(["plot", "-f", f"{d}/y", "--latent", f"{d}/y.latent.parquet", "-o",
+                  f"{d}/y.plot.png", "--device", str(dev)])
+        runs["faba_plot"] = {"launches": dict(K.launch_counts)}
+        print(json.dumps({"phase": "faba_plot", "run_s": time.time() - t0,
+                          "bytes": Path(f"{d}/y.plot.png").stat().st_size, "card": card}),
+              flush=True)
+    return {name: r["launches"] for name, r in runs.items()}
+
+
+def start_lineage_from_gem(work: str, topic_out: str, gmt: str, dev) -> tuple:
+    """Phase 41's process: `faba lineage --from` phase 33's gem_raw fit (its
+    tables are over the pseudobulks `--raw` sums the cells into) with the
+    factors' panel, `faba annotate --mode enrichment` on phase 2's topic
+    run."""
+    d = f"{work}/lineage"
+    Path(d).mkdir(exist_ok=True)
+    return _start_faba_runs([
+        ("faba_lineage_from", ["lineage", "--from", f"{work}/gem_raw", "--markers", gmt,
+                               "--marker-n-boot", str(LINEAGE_MARKER_BOOT), "--out",
+                               f"{d}/gem", "--device", str(dev)]),
+        ("faba_annotate_enrichment", ["annotate", "--from", topic_out, "--mode", "enrichment",
+                                      "--markers", gmt, "--out", f"{d}/topic", "--device",
+                                      str(dev)]),
+    ])
+
+
+def lineage_from_gem_phase(work: str, started, n_cells: int, K, dev, card: str) -> dict:
+    """Phase 41: hold the process's outputs; then `faba dyn-assoc --from` the
+    lineage run on phase 34's sites store, its pseudobulks' pseudotime and
+    branch lifted to their cells (phase 33's partition), as phase 34 lifts
+    the DAG pseudotime."""
+    import pandas as pd
+
+    from legume_tpu_torch.cli.main import run_faba
+
+    d = f"{work}/lineage"
+    runs, wait = _faba_runs_result(started, "lineage --from")
+    pt = pd.read_parquet(f"{d}/gem.pseudotime.parquet")
+    forest = _forest_ok(f"{d}/gem", len(pt))
+    annot = pd.read_parquet(f"{d}/gem.trajectory_annotation.parquet")
+    line = {"phase": "faba_lineage_from_gem", "cells": n_cells, "pseudobulks": len(pt),
+            **runs["faba_lineage_from"], **forest, "node_types": {
+                str(k): int(v) for k, v in annot["cell_type"].value_counts().items()},
+            "marker_boot": LINEAGE_MARKER_BOOT, "process_wait_s": wait, "card": card}
+    print(json.dumps(line), flush=True)
+    if not all(forest.values()):
+        raise AssertionError(f"faba lineage --from gem_raw: {line}")
+    groups = np.load(f"{work}/gem_raw.partition.npz")["fine_groups"]
+    lifted = pt.set_index("cell").loc[[f"pb{g}" for g in groups]]
+    lifted.index = [f"cell{i}" for i in range(len(groups))]
+    lifted.rename_axis("cell").reset_index().to_parquet(f"{d}/gem_cells.pseudotime.parquet")
+    K.reset_launch_counts()
+    t0 = time.time()
+    run_faba(["dyn-assoc", "--backend", f"{work}/sites.zarr", "--from", f"{d}/gem_cells",
+              "--output", f"{d}/gem_assoc", "--device", str(dev)])
+    _sync(dev)
+    runs["faba_dyn_assoc_lineage"] = {"run_s": time.time() - t0,
+                                      "launches": dict(K.launch_counts)}
+    assoc = pd.read_parquet(f"{d}/gem_assoc.assoc.parquet")
+    stats = assoc[["log_fold_change", "z", "log_bf", "pvalue"]].to_numpy(np.float64)
+    a_line = {"phase": "faba_dyn_assoc_lineage", **runs["faba_dyn_assoc_lineage"],
+              "sites": len(assoc), "branches": int(assoc["branch"].nunique()),
+              "finite_p_in_unit": bool(np.isfinite(stats).all() and len(assoc)
+                                       and assoc.pvalue.between(0, 1).all()), "card": card}
+    print(json.dumps(a_line), flush=True)
+    if not (a_line["finite_p_in_unit"] and assoc["branch"].notna().all()):
+        raise AssertionError(f"faba dyn-assoc --from the lineage: {a_line}")
+    enr = pd.read_parquet(f"{d}/topic.enrichment.factors.parquet")
+    cells = pd.read_parquet(f"{d}/topic.enrichment.annotation.parquet")
+    e_line = {"phase": "faba_annotate_enrichment", **runs["faba_annotate_enrichment"],
+              "factor_calls": list(enr["call"]), "cells": len(cells),
+              "cells_called": int((cells["annotation"] != "unassigned").sum()), "card": card}
+    print(json.dumps(e_line), flush=True)
+    if not (len(cells) == n_cells and (enr["call"] != "unassigned").any()):
+        raise AssertionError(f"faba annotate --mode enrichment: {e_line}")
+    return {name: r["launches"] for name, r in runs.items()}
+
+
+def model_stack_phase(dev, card: str, *, shape=ARCHETYPE_SHAPE) -> None:
+    """Phase 42: the model-stack parts no command reaches, the card against
+    the CPU on the same inputs: the eight likelihoods; `IafSoftmaxEncoder`
+    (eval-mode forward, the parameters' gradients) and `BipartiteDecoder`
+    (each likelihood's scores, llik and gradients) from the same
+    parameters; `fit_archetypes` at `shape` from the same Dirichlet starts."""
+    from legume_tpu_torch.models import decoders, encoders, losses
+    from legume_tpu_torch.ops.archetypal import fit_archetypes
+
+    rng = np.random.default_rng(42)
+    n, d = 4096, 2000
+    x = rng.poisson(2.0, (n, d)).astype(np.float32)
+    x[rng.uniform(size=(n, d)) < 0.3] = 0.0
+    recon = rng.dirichlet(np.ones(d), n).astype(np.float32)
+    inputs = {
+        "gaussian_neg_log_prob": (rng.normal(0, 1, (n, 16)), rng.normal(0, 1, (n, 16)),
+                                  rng.normal(0, 0.5, (n, 16))),
+        "topic_log_likelihood": (x, np.log(recon)),
+        "topic_likelihood": (x, recon),
+        "poisson_log_likelihood": (x, rng.gamma(2.0, 1.0, (n, d))),
+        "nb_log_likelihood": (x, rng.gamma(2.0, 2.0, (n, d)), rng.normal(0, 1, d)),
+        "zi_topic_log_likelihood": (x, np.log(recon), rng.normal(0, 1, d)),
+        "dirichlet_log_likelihood": (x, rng.gamma(1.0, 1.0, (n, d)) + 0.05),
+        "gaussian_log_likelihood": (x, rng.normal(2, 1, (n, d))),
+    }
+    gaps = {}
+    for name, args in inputs.items():
+        got, want = (getattr(losses, name)(*(torch.from_numpy(np.asarray(a, np.float32)).to(where)
+                                             for a in args)).cpu().double()
+                     for where in (dev, "cpu"))
+        gaps[name] = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+
+    def run_module(make, call, where):
+        torch.manual_seed(0)
+        mod = make().to(where)
+        out = call(mod, where)
+        sum(o.double().sum() * (i + 1) for i, o in enumerate(out)).backward()
+        return ([o.detach().cpu().double() for o in out],
+                {k: p.grad.detach().cpu().double() for k, p in mod.named_parameters()})
+
+    xt = x[:512, :400]
+    lz = np.log(rng.dirichlet(np.ones(10), 512)).astype(np.float32)
+    modules = {
+        "iaf_encoder": (lambda: encoders.IafSoftmaxEncoder(400, 10, (128, 64), n_flows=2).eval(),
+                        lambda m, w: m(torch.from_numpy(xt).to(w), train=False)),
+        **{f"bipartite_{lik}": (lambda lik=lik: decoders.BipartiteDecoder(400, 10, lik),
+                                lambda m, w: m(torch.from_numpy(lz).to(w),
+                                               torch.from_numpy(xt).to(w)))
+           for lik in ("block", "symmetric", "poisson")},
+    }
+    for name, (make, call) in modules.items():
+        (go, gg), (wo, wg) = (run_module(make, call, w) for w in (dev, "cpu"))
+        gaps[name] = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                         for a, b in zip(go, wo))
+        gaps[f"{name}_grad"] = max(float((gg[k] - wg[k]).abs().max() / wg[k].abs().max().clamp(
+            min=1e-30)) for k in wg)
+    n_cells, dim, k = shape
+    corners = rng.normal(0, 3, (k, dim)).astype(np.float32)
+    xa = rng.dirichlet(np.ones(k) * 0.4, n_cells).astype(np.float32) @ corners
+    t0 = time.time()
+    z_card = fit_archetypes(xa, k, n_iter=ARCHETYPE_ITERS, seed=0, device=dev)
+    _sync(dev)
+    card_s = time.time() - t0
+    t0 = time.time()
+    z_cpu = fit_archetypes(xa, k, n_iter=ARCHETYPE_ITERS, seed=0, device="cpu")
+    cpu_s = time.time() - t0
+    gaps["fit_archetypes"] = float(np.abs(z_card[0] - z_cpu[0]).max() / np.ptp(z_cpu[0]))
+    bars = {**{nm: RTOL_LIKELIHOOD for nm in inputs},
+            **{nm: RTOL_FORWARD for nm in modules},
+            **{f"{nm}_grad": RTOL_GRAD for nm in modules}, "fit_archetypes": 1e-3}
+    line = {"phase": "model_stack_card_vs_cpu", "gaps": gaps, "bars": bars,
+            "archetypes": {"shape": list(shape), "iters": ARCHETYPE_ITERS, "card_s": card_s,
+                           "cpu_s": cpu_s, "a_rows_sum_to_1": bool(
+                               np.allclose(z_card[1].sum(1), 1.0, atol=1e-4))},
+            "card": card}
+    print(json.dumps(line), flush=True)
+    failed = [nm for nm, g in gaps.items() if not g <= bars[nm]]
+    if failed or not line["archetypes"]["a_rows_sum_to_1"]:
+        raise AssertionError(f"model stack on the card unlike the CPU: {failed} {line}")
 
 
 def mark(name: str, t_script: float) -> None:
@@ -4349,6 +4880,8 @@ def run(work: str, t_script: float) -> int:
         cwd=Path(__file__).resolve().parent,
     )
     print(probe.stdout.strip().splitlines()[-1], flush=True)
+    # phase 40's annotate process: its host Leidens run beside phases 5-39
+    slice17_started = start_annotate_projection(work, dev)
     # the later phases' simulations, on the host from here on (after the
     # first kernel timings and the set-up split, which they would disturb;
     # started before phase 4 they took bge's Leiden from 25.5 to 77.3 s)
@@ -4698,6 +5231,7 @@ def run(work: str, t_script: float) -> int:
     mark("17-20 vae, svd, joint, masked", t_script)
     bam_started = start_bam(work)  # phase 32's host half, meanwhile
     faba_all_started = start_faba_all(work)  # phase 39's host half, meanwhile
+    slice17_started.update(start_lineage_y(work, dev))  # phase 40's lineage, meanwhile
     slice10 = vae_phase(work, vec, hvec, bfile, K, dev, card)
     slice10.update(svd_phase(work, vec, kept["multiome"], K, dev, card, checks))
     slice10.update(joint_topic_phase(work, kept["multiome"], K, dev, card))
@@ -4731,6 +5265,8 @@ def run(work: str, t_script: float) -> int:
     gem_res = gem_phase(work, sim, store, K, dev, card, checks)
     slice13.update(gem_res["launches"])
     slice13.update(assoc_phase(work, gem_res["cell_pseudotime"], K, dev, card))
+    # phase 41's process, beside phases 35-39: it reads phases 2, 33 and 34
+    from_gem_started = start_lineage_from_gem(work, args.out, _factor_gmt(work, sim), dev)
 
     # ---- phases 35-36: pinto ----------------------------------------------------
     mark("35-36 pinto", t_script)
@@ -4748,7 +5284,22 @@ def run(work: str, t_script: float) -> int:
     mark("39 faba all", t_script)
     slice16 = faba_all_phase(work, faba_all_started, card)
 
-    # ---- phase 40: the kernels line, then the device line -----------------
+    # ---- phases 40-42: faba lineage / annotate / plot, the model stack -----------
+    mark("40-42 faba lineage, annotate, model stack", t_script)
+    slice17 = slice17_phase(work, slice17_started, K, dev, card)
+    slice17.update(lineage_from_gem_phase(work, from_gem_started, sim.counts.shape[1], K, dev,
+                                          card))
+    launched = {path: {k: v for k, v in counts.items() if v}
+                for path, counts in {**slice17, **{k: v for k, v in slice16.items()
+                                                   if k != "faba_all"}}.items()}
+    print(json.dumps({"phase": "slice17_launches", "expected": 0,
+                      "launched": {p: c for p, c in launched.items() if c}, "card": card}),
+          flush=True)
+    if any(launched.values()):
+        raise AssertionError(f"a kernel launched on a path that has none: {launched}")
+    model_stack_phase(dev, card)
+
+    # ---- phase 43: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
     # and `shapes` holds every checked shape, each with the run (`path`)
@@ -4770,7 +5321,13 @@ def run(work: str, t_script: float) -> int:
     # gem_encoder, gem_bam, assoc_bayes, assoc_gam; pinto_lc, pinto_cascade,
     # pinto_gene_network, pinto_prop, pinto_dsvd, pinto_cage, pinto_lc_etm,
     # pinto_lra, pinto_annotate; fagioli_pseudobulk, fit_qtl_sgvb,
-    # chickpea_p2g; faba_all).
+    # chickpea_p2g; faba_all, faba_pwm_reference, faba_pwm_reads_wt,
+    # faba_pwm_reads_ct, faba_metagene, faba_pileup_wt, faba_pileup_ct,
+    # faba_inspect, faba_docs; faba_lineage, faba_lineage_subset,
+    # faba_lineage_subset_cpu, faba_annotate_projection, faba_plot where
+    # matplotlib imports, faba_lineage_from, faba_dyn_assoc_lineage,
+    # faba_annotate_enrichment: none of the four kernels is on slice 17's
+    # paths, so each of its counts is 0, as the slice17_launches line says).
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
@@ -4790,7 +5347,7 @@ def run(work: str, t_script: float) -> int:
             **{f"launches_{path}": counts[name]
                for path, counts in {**slice9, **slice10, **slice11, **slice12,
                                     **slice13, **slice14, **slice15,
-                                    **slice16}.items()},
+                                    **slice16, **slice17}.items()},
             **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),

@@ -1,16 +1,14 @@
 """`faba` binary of the port: BAM feature extraction CLI (the JAX
-package's `cli/faba_cli.py` tree, every subcommand and flag). `index`,
-`genes`, `gem`, `gem-encoder` and `dyn-assoc` run; `gem`, `gem-encoder`
-and `dyn-assoc` take `--device` (default `cuda`). The other subcommands
-raise `NotImplementedError` (ROADMAP item 10c), as does `--data-parallel`
-(item 11)."""
+package's `cli/faba_cli.py` tree, every subcommand and flag). Every
+subcommand runs; `gem`, `gem-encoder`, `lineage`, `dyn-assoc`, `annotate`
+and `plot` take `--device` (default `cuda`), the others run on the host.
+`--data-parallel` raises `NotImplementedError` (ROADMAP item 11)."""
 
 from __future__ import annotations
 
 import argparse
 
 from .faba_cmds import HANDLERS, PARSER_MODULES, plot_cmds
-from .faba_cmds._common import not_ported
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -30,5 +28,12 @@ def build_parser() -> argparse.ArgumentParser:
 def run_faba(argv):
     args = build_parser().parse_args(argv)
     if args.cmd == "docs":
-        not_ported("docs")
+        from ..faba import docs as faba_docs
+
+        if args.topic is None:
+            for line in faba_docs.index_lines():
+                print(line)
+        else:
+            print(faba_docs.text(args.topic))
+        return
     return HANDLERS[args.cmd](args)

@@ -1,7 +1,5 @@
 """Dispatch table for the faba subcommand handlers (the port's copy of
-the JAX package's `cli/faba_cmds/__init__.py`): `index`, `genes`, `gem`,
-`gem-encoder` and `dyn-assoc` run; every other handler raises
-`NotImplementedError` naming ROADMAP item 10c."""
+the JAX package's `cli/faba_cmds/__init__.py`)."""
 
 from . import (
     annotate_cmds,

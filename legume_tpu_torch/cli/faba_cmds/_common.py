@@ -34,8 +34,3 @@ def _add_gene_qc_args(p):
     p.add_argument("--no-mito-cell-qc", action="store_true",
                    help="report MT%% only, drop no cells")
 
-
-def not_ported(cmd: str):
-    """The handler of a `faba` subcommand the port does not carry yet."""
-    raise NotImplementedError(
-        f"faba {cmd} is not ported yet (ROADMAP item 10c: the rest of faba)")

@@ -1,23 +1,23 @@
 """faba `gem`, `gem-encoder`, `lineage` and `dyn-assoc`: parsers +
 handlers (the port's copy of the JAX package's
 `cli/faba_cmds/gem_cmds.py`, flags and defaults unchanged, plus
-`--device` on `gem`, `gem-encoder` and `dyn-assoc`, default `cuda`).
+`--device` on `gem`, `gem-encoder`, `lineage` and `dyn-assoc`, default
+`cuda`).
 
 `gem --raw` projects the cells through K1 (`ops/random_projection.py`,
 one launch per `--block-size` columns), sorts them into pseudobulks and
 sums both tracks by the JAX package's dense one-hot product on the host.
-`lineage` is not ported yet (ROADMAP item 10c); `--data-parallel`
-raises `NotImplementedError` (item 11). `_cmd_gem` returns its stage
-seconds.
+`lineage` takes its k-means, kNN and layouts on `--device`
+(`faba/lineage_run.py`); `--data-parallel` raises `NotImplementedError`
+(item 11). `_cmd_gem` and `_cmd_lineage` return their stage seconds.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
-
-from ._common import not_ported
 
 
 def _no_data_parallel(args):
@@ -178,6 +178,7 @@ def add_parsers(sub):
     p.add_argument("--phate-knn", type=int, default=15)
     p.add_argument("--phate-t", type=int, default=0)
     p.add_argument("--phate-landmarks", type=int, default=2000)
+    p.add_argument("--device", default="cuda", help="torch device (default: cuda)")
 
     p = sub.add_parser(
         "dyn-assoc",
@@ -432,7 +433,64 @@ def _cmd_gem(args):
 
 
 def _cmd_lineage(args):
-    not_ported(args.cmd)
+    import pandas as pd
+
+    from ...faba.lineage_run import run_lineage
+
+    if args.frm is None and args.latent is None:
+        raise SystemExit("faba lineage: need --from PREFIX (or the "
+                         "legacy --latent/--velocity pair)")
+    theta = vel = cells = None
+    prefix = args.frm
+    if args.latent is not None:
+        zdf = pd.read_parquet(args.latent)
+        cells = zdf.iloc[:, 0].astype(str).tolist()
+        theta = zdf.iloc[:, 1:].to_numpy(np.float32)
+        if args.velocity is not None:
+            vel = pd.read_parquet(args.velocity).iloc[:, 1:].to_numpy(
+                np.float32)
+        prefix = prefix or os.path.splitext(args.latent)[0]
+    res = run_lineage(
+        prefix, args.out,
+        theta=theta, velocity=vel, cell_names=cells,
+        theta_from=args.theta_from,
+        latent_geometry=args.latent_geometry,
+        n_centroids=args.n_centroids, seed=args.seed,
+        kmeans_iter=args.kmeans_iter,
+        cluster_space=args.cluster_space,
+        no_edge_direction=args.no_edge_direction,
+        no_orient_velocity=args.no_orient_velocity,
+        edge_cand_knn=args.edge_cand_knn,
+        edge_direction_n_boot=args.edge_direction_n_boot,
+        edge_direction_n_perm=args.edge_direction_n_perm,
+        edge_alpha=args.edge_alpha,
+        edge_min_cells=args.edge_min_cells,
+        root_affinity=args.root_affinity,
+        root_type=args.root_type,
+        root_from_gem=args.root_from_gem,
+        root_node=args.root_node, root_cell=args.root_cell,
+        curve_bandwidth=args.curve_bandwidth,
+        curve_resolution=args.curve_resolution,
+        max_iter=args.max_iter, tol=args.tol,
+        markers=args.markers,
+        marker_num_perm=args.marker_num_perm,
+        marker_obo=args.marker_obo,
+        marker_label_cl=args.marker_label_cl,
+        no_bootstrap_markers=args.no_bootstrap_markers,
+        marker_n_boot=args.marker_n_boot,
+        marker_min_support=args.marker_min_support,
+        layout=args.layout, layout_space=args.layout_space,
+        layout_pcs=args.layout_pcs,
+        velocity_aware_layout=args.velocity_aware_layout,
+        phate_knn=args.phate_knn, phate_t=args.phate_t,
+        phate_landmarks=args.phate_landmarks, device=args.device,
+    )
+    print(
+        f"lineage: {res['n_trees']} tree(s), {res['n_lineages']} "
+        f"lineage(s), {res['edges_called']}/{res['edges_total']} edges "
+        f"oriented, roots {res['roots']}"
+    )
+    return res["timings"]
 
 
 def _cmd_dyn_assoc(args):

@@ -1,11 +1,12 @@
-"""faba `metagene, pwm`: the JAX package's parsers (its
-`cli/faba_cmds/motif_cmds.py`, flags and defaults unchanged), so that
-`faba --help` lists every subcommand. The handlers are not ported yet
-(ROADMAP item 10c) and raise `NotImplementedError`."""
+"""faba `pwm, metagene`: parsers + handlers (the port's copy of the JAX
+package's `cli/faba_cmds/motif_cmds.py`, flags and defaults unchanged).
+Host only: `faba/context.py` and `faba/metagene.py` are numpy."""
 
 from __future__ import annotations
 
-from ._common import not_ported
+import os
+
+import numpy as np
 
 
 def add_parsers(sub):
@@ -63,8 +64,109 @@ def add_parsers(sub):
 
 
 def _cmd_pwm(args):
-    not_ported(args.cmd)
+    import json as _json
+
+    import pandas as pd
+
+    from ...faba.context import pwm_at_sites, pwm_from_reads, read_fasta
+
+    df = pd.read_parquet(args.sites)
+    strand = df["strand"].to_numpy() if "strand" in df else None
+    strand = (
+        np.where(np.asarray(strand).astype(str) == "-", -1, 1)
+        if strand is not None and strand.dtype == object else strand
+    )
+    fasta = read_fasta(args.fasta)
+    if args.source == "reads":
+        if not args.bam:
+            raise SystemExit("--source reads needs --bam")
+        pwm = pwm_from_reads(
+            args.bam.split(","), fasta,
+            df["chrom"].astype(str).to_numpy(object),
+            df["pos"].to_numpy(np.int64),
+            flank=args.flank, strand=strand,
+        )
+    else:
+        pwm = pwm_at_sites(
+            fasta, df["chrom"].tolist(),
+            df["pos"].to_numpy(), flank=args.flank, strand=strand,
+        )
+    out = pd.DataFrame(pwm.freqs, columns=list("ACGT"))
+    out["offset"] = np.arange(-args.flank, args.flank + 1)
+    out["info_bits"] = pwm.info_bits
+    if args.output.endswith((".tsv", ".tsv.gz")):
+        out.to_csv(args.output, sep="\t", index=False)
+        out_path = args.output
+    else:
+        out_path = f"{args.output}.pwm.parquet"
+        out.to_parquet(out_path)
+    print(
+        _json.dumps(
+            {"consensus": pwm.consensus, "n_sites": pwm.n_sites,
+             "source": args.source, "out": out_path}
+        )
+    )
 
 
 def _cmd_metagene(args):
-    not_ported(args.cmd)
+    import pandas as pd
+
+    df = pd.read_parquet(args.sites)
+    if args.body:
+        from ...faba.context import metagene_profile
+        from ...faba.genes import parse_gff_genes
+
+        model = parse_gff_genes(args.gff, gene_type=args.gene_type)
+        chroms = sorted(set(df["chrom"].astype(str)))
+        cidx = {c: i for i, c in enumerate(chroms)}
+        prof = metagene_profile(
+            model, chroms,
+            df["chrom"].map(cidx).to_numpy(), df["pos"].to_numpy(),
+            bins=args.bins,
+        )
+        pd.DataFrame(
+            {"bin": prof["bin_centers"], "density": prof["density"],
+             "count": prof["counts"]}
+        ).to_parquet(f"{args.output}.metagene.parquet")
+        print(
+            f"wrote {args.output}.metagene.parquet "
+            f"({prof['n_assigned']}/{len(df)} sites in genes)"
+        )
+        return
+    import sys
+
+    from ...faba.metagene import (
+        ascii_histogram,
+        metagene_metaplotr,
+        parse_gff_transcripts,
+    )
+
+    models, ncrna = parse_gff_transcripts(
+        args.gff, gene_type=args.gene_type
+    )
+    res = metagene_metaplotr(
+        models, ncrna,
+        df["chrom"].astype(str).to_numpy(object),
+        df["pos"].to_numpy(np.int64),
+        bins=args.bins, isoform=args.isoform,
+        include_ncrna=args.ncrna,
+    )
+    out_df = pd.DataFrame(res["rows"]).rename(
+        columns={"feature": "#feature"})
+    out_df.to_csv(args.output, sep="\t", index=False)
+    base = args.output.removesuffix(".tsv").removesuffix(".gz")
+    out_df.to_parquet(f"{base}.metagene.parquet")
+    if args.distances:
+        pd.DataFrame(res["distances"]).to_csv(
+            args.distances, sep="\t", index=False)
+    if args.print_hist:
+        print(ascii_histogram(res["rows"],
+                              max_width=args.max_width),
+              file=sys.stderr)
+    m5, mc, m3 = res["median_sizes"]
+    print(
+        f"wrote {args.output} ({res['n_sites_placed']}/{len(df)} "
+        f"sites placed; median 5'UTR/CDS/3'UTR = "
+        f"{m5:.0f}/{mc:.0f}/{m3:.0f} nt; bins {res['region_bins']})"
+    )
+

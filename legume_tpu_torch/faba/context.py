@@ -13,7 +13,9 @@ output convention — and produce aggregate views:
   context around sites + per-position information content (bits).
 
 The port's copy of the JAX package's `faba/context.py` (numpy and scipy
-on the host, as there).
+on the host, as there). `pileup_at_sites` counts each position's coverage
+from the reads' sorted starts and ends, not base by base: the same
+counts, in seconds for a BAM of millions of reads.
 """
 
 from __future__ import annotations
@@ -123,16 +125,21 @@ def pileup_at_sites(
         for off in range(-flank, flank + 1):
             site_set.setdefault((int(r), int(p) + off), []).append(off + flank)
 
-    # coverage per (site, offset): reads spanning the position
-    order = np.argsort(reads.ref_id, kind="stable")
+    # coverage per (site, offset): reads spanning the position, counted as
+    # #(start <= p) - #(end <= p) over each reference's sorted read starts
+    # and ends (the JAX package walks every aligned base of every read)
     cov = np.zeros(w, np.int64)
-    for ri in order:
-        r, s, e = int(reads.ref_id[ri]), int(reads.pos[ri]), int(reads.end_pos[ri])
-        for p in range(s, e):
-            slots = site_set.get((r, p))
-            if slots:
-                for sl in slots:
-                    cov[sl] += 1
+    keys = np.asarray(list(site_set), np.int64).reshape(-1, 2)
+    ref_ids = np.asarray(reads.ref_id, np.int64)
+    for r in np.unique(keys[:, 0]):
+        mine = ref_ids == r
+        starts, ends = np.sort(reads.pos[mine]), np.sort(reads.end_pos[mine])
+        sel = np.nonzero(keys[:, 0] == r)[0]
+        depth = (np.searchsorted(starts, keys[sel, 1], "right")
+                 - np.searchsorted(ends, keys[sel, 1], "right"))
+        for k, n in zip(sel, depth):
+            for sl in site_set[(int(r), int(keys[k, 1]))]:
+                cov[sl] += n
     # mismatches: subtract from ref coverage, add to the read base
     mm_n = 0
     if reads.mm_pos is not None:

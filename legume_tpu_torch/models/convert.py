@@ -22,6 +22,14 @@ Dense models (`senna topic`, `vae`, `joint-topic`):
   object array, which its own `load_model` cannot read; this layout
   unflattens into a dict there.)
 
+The two modules no command builds, from their own variables (names
+without the model's `encoder/` level): `IafSoftmaxEncoder`'s `trunk/...`
+as above, `iaf{i}/w_ar` <-> `flows.{i}.w_ar`, `iaf{i}/{ctx, m, s}` and
+`h_proj` as Dense layers (kernel transposed; the autoregressive mask is
+a constant of the port's layer, not a parameter of either); the
+`BipartiteDecoder`'s `coupling [K, K]` and `feature [K, D]` as they are,
+by `iaf_params_from_jax` and `bipartite_params_from_jax`.
+
 Masked models (`masked-topic`, `masked-vae`, `masked-sbp`): `params/rho`,
 `alpha`, `log_phi`, `theta_readout/{kernel, bias}` and the indexed
 encoder's `Dense_0` (hidden), `BatchNorm_0`, `Dense_1` (mean), `Dense_2`
@@ -140,6 +148,61 @@ def params_to_jax(encoder_state: dict, decoder_states: list) -> dict[str, np.nda
         else:
             flat.update(_decoder_flat(f"params/decoder_{i}", state))
     return flat
+
+
+# ---- IAF encoder, bipartite decoder -------------------------------------------
+
+_IAF = re.compile(r"^(?:iaf(\d+)/(w_ar|ctx|m|s)|(h_proj))(?:/(kernel|bias))?$")
+
+
+def _dense_entry(layer: str, leaf: str, arr: torch.Tensor) -> tuple[str, torch.Tensor]:
+    return (f"{layer}.weight", arr.T.contiguous()) if leaf == "kernel" else (f"{layer}.bias", arr)
+
+
+def iaf_params_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """Flat `{"a/b/c": array}` of the JAX package's `IafSoftmaxEncoder`
+    (`flatten_dict(variables, sep="/")`) -> the port's state_dict."""
+    state: dict[str, torch.Tensor] = {}
+    for name, value in variables.items():
+        arr = _tensor(value)
+        kind, _, rest = name.partition("/")
+        if kind == "batch_stats" and rest.startswith("trunk/bn_z/"):
+            state["trunk.bn_z." + _BN_STAT[rest[len("trunk/bn_z/"):]]] = arr
+            continue
+        if kind != "params":
+            raise KeyError(f"unknown IAF encoder variable {name}")
+        if rest.startswith("trunk/"):
+            sub = rest[len("trunk/"):]
+            if sub.startswith("bn_z/"):
+                state["trunk.bn_z." + _BN_PARAM[sub[len("bn_z/"):]]] = arr
+                continue
+            m = _LINEAR.match(sub)
+            if m is None:
+                raise KeyError(f"unknown IAF encoder parameter {name}")
+            layer = f"fc.{m.group(2)}" if m.group(2) is not None else m.group(1)
+            key, t = _dense_entry(f"trunk.{layer}", m.group(3), arr)
+        else:
+            m = _IAF.match(rest)
+            if m is None or (m.group(2) == "w_ar") != (m.group(4) is None):
+                raise KeyError(f"unknown IAF encoder parameter {name}")
+            if m.group(2) == "w_ar":
+                key, t = f"flows.{m.group(1)}.w_ar", arr
+            else:
+                layer = "h_proj" if m.group(3) else f"flows.{m.group(1)}.{m.group(2)}"
+                key, t = _dense_entry(layer, m.group(4), arr)
+        state[key] = t
+    return state
+
+
+def bipartite_params_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """Flat `{"params/coupling": R, "params/feature": F}` of the JAX
+    package's `BipartiteDecoder` -> the port's state_dict."""
+    state = {}
+    for name, value in variables.items():
+        if name not in ("params/coupling", "params/feature"):
+            raise KeyError(f"unknown bipartite decoder parameter {name}")
+        state[name[len("params/"):]] = _tensor(value)
+    return state
 
 
 # ---- masked (indexed) models ------------------------------------------------

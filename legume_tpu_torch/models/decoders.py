@@ -3,7 +3,8 @@
 Every topic family shares a softmax dictionary: trainable logits `W [K, D]`,
 `log beta_kd = log_softmax_D(W)`. `gaussian-nb` (`senna vae`) decodes a
 Gaussian latent through a linear map instead, and `DeltaTopicDecoder`
-(`joint-topic --decoder delta`) chains per-modality shifts of one base. `forward_log` is the plain
+(`joint-topic --decoder delta`) chains per-modality shifts of one base;
+`BipartiteDecoder` scores z R F with three likelihoods. `forward_log` is the plain
 `exp(log z) @ exp(log beta)` product, as in the JAX package (no Pallas
 kernel there). The initialisers are flax's: the logits N(0, 1), `log_phi`
 0.693 (ln 2), `log_alpha` 0, `rho_a` -0.5, `rho_b` 0. Each module takes
@@ -205,3 +206,39 @@ class DeltaTopicDecoder(nn.Module):
     def get_dictionary(self) -> torch.Tensor:
         """Base-modality log dictionary [D, K]."""
         return torch.log_softmax(self.base, dim=-1).T
+
+
+class BipartiteDecoder(nn.Module):
+    """Bipartite block decoder: scores S = z R F with a learned feature
+    side F [K, D] and block coupling R [K, K], both initialised N(0, 0.1^2).
+    `likelihood` is 'block' (one log-softmax over the whole [N, D]
+    matrix), 'symmetric' (column plus row log-softmaxes) or 'poisson'
+    (scores are log-rates, clipped to [-20, 20] in the rate)."""
+
+    def __init__(self, n_features: int, n_topics: int, likelihood: str = "block",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if likelihood not in ("block", "symmetric", "poisson"):
+            raise ValueError(f"unknown bipartite likelihood {likelihood!r}")
+        self.likelihood = likelihood
+        self.coupling = nn.Parameter(0.1 * torch.randn(n_topics, n_topics, generator=generator))
+        self.feature = nn.Parameter(0.1 * torch.randn(n_topics, n_features, generator=generator))
+
+    def forward(self, log_z_nk, x_nd, feature_weights=None):
+        """(scores [N, D], llik [N])."""
+        scores = torch.exp(log_z_nk) @ self.coupling @ self.feature
+        wx = x_nd if feature_weights is None else x_nd * feature_weights
+        if self.likelihood == "block":
+            log_p = torch.log_softmax(scores.reshape(-1), dim=0).reshape(scores.shape)
+            llik = torch.sum(wx * log_p, dim=-1)
+        elif self.likelihood == "symmetric":
+            log_p = torch.log_softmax(scores, dim=0) + torch.log_softmax(scores, dim=1)
+            llik = torch.sum(wx * log_p, dim=-1)
+        else:
+            rate = torch.exp(torch.clamp(scores, -20.0, 20.0))
+            llik = torch.sum(wx * scores - rate, dim=-1)
+        return scores, llik
+
+    def get_dictionary(self) -> torch.Tensor:
+        """F as [D, K]."""
+        return self.feature.T

@@ -1,5 +1,4 @@
-"""The topic encoder (the port of `LogSoftmaxEncoder` from the JAX
-package's `models/encoders.py`).
+"""The encoders (the port of the JAX package's `models/encoders.py`).
 
 Contract: `forward(x, x0, train=, eps=) -> (log_z, kl)`. The trunk is
 Anscombe residual -> Linear+ReLU stack -> BatchNorm -> clamped Gaussian
@@ -168,3 +167,59 @@ class LogSoftmaxJointEncoder(nn.Module):
         params = self._modality_params(x_nd, x0_nd, train=train)
         mean = sum(m for m, _ in params)
         return mean, torch.logsumexp(torch.stack([v for _, v in params]), dim=0)
+
+
+class _IafLayer(nn.Module):
+    """One inverse-autoregressive-flow step (Kingma et al. 2016): masked
+    autoregressive (m, s) nets, z' = sigma * z + (1 - sigma) * m with
+    log-det sum log sigma. A strictly lower-triangular mask on one [K, K]
+    weight makes it autoregressive in z; `h` is the flow context."""
+
+    def __init__(self, n_latent: int, n_context: int, generator: torch.Generator | None = None):
+        super().__init__()
+        k = n_latent
+        self.register_buffer("mask", torch.tril(torch.ones(k, k), -1), persistent=False)
+        self.w_ar = nn.Parameter(0.05 * torch.randn(k, k, generator=generator))
+        self.ctx = dense(n_context, k, generator)
+        self.m = dense(k, k, generator)
+        self.s = dense(k, k, generator)
+
+    def forward(self, z, h):
+        hidden = torch.tanh(z @ (self.w_ar * self.mask) + self.ctx(h))
+        sigma = torch.sigmoid(self.s(hidden) + 2.0)  # bias toward identity at init
+        z_new = sigma * z + (1.0 - sigma) * self.m(hidden)
+        return z_new, torch.sum(torch.log(sigma + 1e-8), dim=-1)
+
+
+class IafSoftmaxEncoder(nn.Module):
+    """`LogSoftmaxEncoder` with an IAF posterior: a richer than Gaussian
+    q(z|x), its KL the Monte-Carlo estimate log q(z) - log p(z) with the
+    flows' log-det correction. Training draws eps from `generator`
+    (standard normal); evaluation takes eps = 0."""
+
+    def __init__(self, n_features: int, n_topics: int, layers: Sequence[int], n_flows: int = 2,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.n_topics = n_topics
+        self.layers = tuple(layers)
+        self.trunk = GaussianTrunk(n_features, n_topics, layers, generator)
+        self.flows = nn.ModuleList(_IafLayer(n_topics, self.layers[-1], generator)
+                                   for _ in range(n_flows))
+        self.h_proj = dense(n_topics, self.layers[-1], generator)
+
+    def forward(self, x_nd, x0_nd=None, *, train: bool, generator: torch.Generator | None = None):
+        z_mean, z_lnvar = self.trunk(x_nd, x0_nd, train=train)
+        if train:
+            eps = torch.randn(z_mean.shape, generator=generator, dtype=z_mean.dtype,
+                              device=z_mean.device)
+        else:
+            eps = torch.zeros_like(z_mean)
+        z = z_mean + torch.exp(0.5 * z_lnvar) * eps
+        log_2pi = math.log(2.0 * math.pi)
+        log_q = -0.5 * torch.sum(eps**2 + z_lnvar + log_2pi, dim=-1)
+        h = self.h_proj(z_mean)
+        for flow in self.flows:
+            z, log_det = flow(z, h)
+            log_q = log_q - log_det
+        log_p = -0.5 * torch.sum(z**2 + log_2pi, dim=-1)
+        return torch.log_softmax(z, dim=-1), log_q - log_p

@@ -1,5 +1,6 @@
 """Figures of `senna plot`, `senna plot-topic`, `senna plot-strand`,
-`pinto p` and `pinto interfaces` (the port's copy of the functions of
+`pinto p`, `pinto interfaces`, `faba pileup --miami` and `faba plot` (the
+port's copy of the functions of
 the JAX package's `utils/plot.py` that these commands use).
 
 matplotlib's Agg/SVG/PDF backends draw the reference's artifact kinds:
@@ -397,4 +398,196 @@ def lr_overlay(
     ax.set_yticks([])
     fig.tight_layout()
     fig.savefig(out, bbox_inches="tight")
+    plt.close(fig)
+
+
+def miami_pileup(
+    site_pos: np.ndarray,  # [S] bp of modification sites in the region
+    site_val: np.ndarray,  # [S] per-site stat (up panel)
+    depth_pos: np.ndarray,  # [B] bp
+    depth: np.ndarray,  # [B] or [F, B] read depth; 2D = one facet per row
+    gene_rows: list,  # [(name, start, end, strand)] model track
+    out: str,
+    *,
+    title: str = "",
+    facet_names: list | None = None,  # len F (2D depth): panel titles
+    fig_width: float = 8.0,
+    dpi: int = 150,
+    palette: str = "auto",  # per-facet qualitative colors (PileupArgs)
+    raster_threshold: int = 300,  # rasterize the dot layer past this
+    formats: list | None = None,  # extra formats when `out` is a prefix
+):
+    """Faceted Miami pileup (faba pileup figure mode): epi sites up, a
+    gene-model track in the middle, mirrored read depth down. A 2D
+    depth renders one panel per cell type (--cell-membership).
+
+    `out` with an extension writes that one file; without one it is a
+    PREFIX and `formats` (default ['svg', 'pdf'], PileupArgs
+    --format/--svg/--png/--no-pdf) selects `{out}.miami.{fmt}` files.
+    `raster_threshold` rasterizes the per-site dot layer once a panel
+    exceeds that many sites (bounded SVG/PDF size; axes stay vector)."""
+    plt = _mpl()
+    depth = np.atleast_2d(np.asarray(depth, float))
+    n_facets = depth.shape[0]
+    fig, axes = plt.subplots(
+        n_facets, 1, figsize=(fig_width, 3.2 * n_facets), dpi=dpi,
+        squeeze=False, sharex=True,
+    )
+    if palette and palette != "auto":
+        cmap = plt.get_cmap(palette)
+        facet_colors = [cmap(f % cmap.N) for f in range(n_facets)]
+    else:
+        facet_colors = ["steelblue"] * n_facets
+    rasterize = len(site_pos) > max(int(raster_threshold), 0)
+    dmax = max(float(depth.max()), 1.0)
+    smax = max(float(np.max(site_val)) if len(site_val) else 1.0, 1e-9)
+    for f in range(n_facets):
+        ax = axes[f, 0]
+        if len(site_pos):
+            ax.vlines(site_pos, 0, site_val, color="crimson", lw=1.2,
+                      rasterized=rasterize)
+            ax.scatter(site_pos, site_val, s=8, color="crimson", zorder=3,
+                       rasterized=rasterize)
+        if len(depth_pos):
+            ax.fill_between(
+                depth_pos, 0, -depth[f] / dmax * smax * 0.8,
+                color=facet_colors[f], alpha=0.7, lw=0,
+            )
+        for name, start, end, strand in gene_rows:
+            ax.plot([start, end], [0, 0], color="black", lw=3,
+                    solid_capstyle="butt")
+            mid = (start + end) / 2
+            arrow = ">" if strand >= 0 else "<"
+            ax.annotate(
+                f"{arrow} {name}", (mid, 0), textcoords="offset points",
+                xytext=(0, -14), ha="center", fontsize=7,
+            )
+        ax.axhline(0, color="black", lw=0.5)
+        ax.set_yticks([])
+        panel = (
+            facet_names[f] if facet_names and f < len(facet_names) else None
+        )
+        ax.set_title(panel or (title if f == 0 else ""), fontsize=9)
+    axes[-1, 0].set_xlabel("position (bp)")
+    if facet_names and title:
+        fig.suptitle(title, fontsize=10)
+    fig.tight_layout()
+    import os as _os
+
+    written = []
+    # single-file mode only for KNOWN figure extensions — a dotted
+    # prefix like "run.v2" is a prefix, not a ".v2 file" (ADVICE r4)
+    ext = _os.path.splitext(out)[1].lower()
+    if ext in (".svg", ".pdf", ".png"):  # explicit single file
+        fig.savefig(out)
+        written.append(out)
+    else:
+        for fmt in (formats or ["svg", "pdf"]):
+            path = f"{out}.miami.{fmt}"
+            fig.savefig(path)
+            written.append(path)
+    plt.close(fig)
+    return written
+
+
+def trajectory_figure(
+    coords: np.ndarray,       # [N, 2] cell layout
+    node_xy: np.ndarray,      # [M, 2] tree node positions in layout space
+    edges: np.ndarray,        # [E, 2] node index pairs
+    root_node: int,
+    out: str,
+    *,
+    color: np.ndarray | None = None,    # continuous per-cell (pseudotime)
+    labels: np.ndarray | None = None,   # discrete per-cell (annotation)
+    title: str = "",
+    point_size: float = 4.0,
+    alpha: float = 0.8,
+    width: float = 6.5,
+    height: float = 5.5,
+    dpi: int = 150,
+    label_font_size: float = 8.0,
+    # Slingshot curves in layout space (plot/mod.rs backbone=curves):
+    # list of [R, 2] point arrays + optional per-curve stroke weights
+    curves: list | None = None,
+    curve_weights: np.ndarray | None = None,
+    # velocity field arrows [G, 4] = (x, y, dx, dy)
+    arrows: np.ndarray | None = None,
+    velocity_scale: float = 0.5,
+    # (node_index, text) annotations at trajectory nodes
+    node_labels: list | None = None,
+    also_svg: bool = False,
+):
+    """Annotated trajectory over a 2D embedding (faba plot).
+
+    Reference role: `faba/src/plot/mod.rs` — cells as a scatter layer,
+    principal curves / MST edges + nodes as a dark overlay, the root
+    starred, the gridded velocity field on top, node cell-type labels,
+    legend (discrete labels) or colorbar (pseudotime) on the side. One
+    matplotlib figure instead of the reference's SVG layer stack; the
+    artifact kinds (pdf/png/svg by extension) match.
+    """
+    plt = _mpl()
+    fig, ax = plt.subplots(figsize=(width, height), dpi=dpi)
+    if labels is not None:
+        labels = np.asarray(labels)
+        uniq = np.unique(labels)
+        for i, lab in enumerate(uniq):
+            m = labels == lab
+            ax.scatter(coords[m, 0], coords[m, 1], s=point_size,
+                       color=PALETTE[i % len(PALETTE)], label=str(lab),
+                       linewidths=0, alpha=alpha)
+        if len(uniq) <= 15:
+            ax.legend(markerscale=4, fontsize=7, frameon=False,
+                      loc="center left", bbox_to_anchor=(1.0, 0.5))
+    else:
+        c = np.asarray(color, np.float32) if color is not None else None
+        sc = ax.scatter(coords[:, 0], coords[:, 1], s=point_size, c=c,
+                        cmap="viridis", linewidths=0, alpha=alpha)
+        if c is not None:
+            fig.colorbar(sc, ax=ax, shrink=0.8, label="pseudotime")
+    if curves:
+        # stroke width scales with cell usage (plot/mod.rs curve_width)
+        w = (np.sqrt(np.asarray(curve_weights, np.float64))
+             if curve_weights is not None
+             else np.ones(len(curves)))
+        w = 1.0 + 2.5 * w / max(w.max(), 1e-9)
+        for li, pts in enumerate(curves):
+            pts = np.asarray(pts)
+            ax.plot(pts[:, 0], pts[:, 1], color="#222222",
+                    lw=float(w[li]), zorder=3)
+    else:
+        for a, b in np.asarray(edges, np.int64).reshape(-1, 2):
+            ax.plot([node_xy[a, 0], node_xy[b, 0]],
+                    [node_xy[a, 1], node_xy[b, 1]],
+                    color="#222222", lw=1.4, zorder=3)
+    ax.scatter(node_xy[:, 0], node_xy[:, 1], s=18, color="#222222",
+               zorder=4, linewidths=0)
+    ax.scatter([node_xy[root_node, 0]], [node_xy[root_node, 1]], s=220,
+               marker="*", color="#E15759", edgecolors="black",
+               linewidths=0.8, zorder=5)
+    if arrows is not None and len(arrows):
+        arrows = np.asarray(arrows, np.float64)
+        ax.quiver(
+            arrows[:, 0], arrows[:, 1],
+            arrows[:, 2] * velocity_scale, arrows[:, 3] * velocity_scale,
+            angles="xy", scale_units="xy", scale=1.0,
+            width=0.003, color="#333333", alpha=0.85, zorder=6,
+        )
+    if node_labels:
+        for ni, text in node_labels:
+            ax.annotate(
+                str(text), node_xy[int(ni)], fontsize=label_font_size,
+                fontweight="bold", zorder=7,
+                xytext=(3, 3), textcoords="offset points",
+                bbox=dict(boxstyle="round,pad=0.15", fc="white",
+                          ec="none", alpha=0.7),
+            )
+    ax.set_title(title)
+    ax.set_xticks([])
+    ax.set_yticks([])
+    fig.tight_layout()
+    fig.savefig(out, bbox_inches="tight")
+    if also_svg and not str(out).endswith(".svg"):
+        fig.savefig(str(out).rsplit(".", 1)[0] + ".svg",
+                    bbox_inches="tight")
     plt.close(fig)

@@ -32,6 +32,7 @@ from legume_tpu_torch.cli.main import run_chickpea as t_chickpea
 from legume_tpu_torch.cli.main import run_sim as t_sim
 from legume_tpu_torch.data import open_sparse_matrix
 from legume_tpu_torch.ops import knockoff as tko
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -1528,3 +1528,113 @@ def test_chickpea_pseudobulk_partitions_on_the_card_match_the_cpu(dev, tmp_path)
                   f"{out}.genes.gff", "--out", str(tmp_path / "p"), "--pseudobulk",
                   "--cis-window", "20000", "--rank", "200", "--steps", "300", "--device", "cuda"])
     assert kernels.launch_counts["project_normed"] > 0 and kernels.launch_counts["collapse"] > 0
+
+
+def _y_trajectory(rng, n_trunk=300, n_arm=200):
+    """The planted Y of `tests/test_lineage_forest.py`: a trunk along x and
+    two arms, velocity along the flow plus noise."""
+    def seg(a, b, n):
+        t = rng.uniform(0, 1, n)[:, None]
+        return np.array(a) + t * (np.array(b) - np.array(a)) + rng.normal(0, 0.05, (n, 2))
+
+    theta = np.vstack([seg([0, 0], [1, 0], n_trunk), seg([1, 0], [2, 1], n_arm),
+                       seg([1, 0], [2, -1], n_arm)]).astype(np.float32)
+    vel = (np.vstack([np.tile([1, 0], (n_trunk, 1)), np.tile([0.7, 0.7], (n_arm, 1)),
+                      np.tile([0.7, -0.7], (n_arm, 1))])
+           + rng.normal(0, 0.3, theta.shape)).astype(np.float32)
+    return theta, vel
+
+
+def test_faba_lineage_on_the_card_matches_the_cpu(dev, tmp_path):
+    """`faba lineage` on the Y (k-means, PHATE on 80 landmarks, the
+    velocity grid's kNN on the card): labels, edges, calls, trees and
+    pseudotime equal the CPU run's; the layout within 1e-4."""
+    import pandas as pd
+
+    from legume_tpu_torch.cli.main import run_faba
+
+    theta, vel = _y_trajectory(np.random.default_rng(0))
+    cells = [f"c{i}" for i in range(len(theta))]
+    for mat, name in ((theta, "latent"), (vel, "velocity")):
+        pd.DataFrame(mat, columns=["a", "b"]).assign(cell=cells).set_index("cell") \
+            .reset_index().to_parquet(tmp_path / f"fit.{name}.parquet")
+    argv = ["lineage", "--from", str(tmp_path / "fit"), "--n-centroids", "15", "--seed", "1",
+            "--latent-geometry", "euclidean", "--phate-landmarks", "80",
+            "--edge-direction-n-boot", "80", "--edge-direction-n-perm", "150"]
+    for d in ("cuda", "cpu"):
+        run_faba(argv + ["--out", str(tmp_path / d), "--device", d])
+    for table in ("nodes", "edges", "trees", "lineages", "pseudotime", "curves",
+                  "cell_lineage_weights"):
+        a = pd.read_parquet(tmp_path / f"cuda.{table}.parquet")
+        b = pd.read_parquet(tmp_path / f"cpu.{table}.parquet")
+        num = [c for c in a.columns if a[c].dtype.kind == "f"]
+        pd.testing.assert_frame_equal(a.drop(columns=num), b.drop(columns=num))
+        np.testing.assert_allclose(a[num].to_numpy(), b[num].to_numpy(), rtol=0, atol=1e-5,
+                                   equal_nan=True, err_msg=table)
+    for table in ("cells_2d", "nodes_2d", "curves_2d"):
+        a = pd.read_parquet(tmp_path / f"cuda.{table}.parquet")
+        b = pd.read_parquet(tmp_path / f"cpu.{table}.parquet")
+        np.testing.assert_allclose(a[["x", "y"]].to_numpy(), b[["x", "y"]].to_numpy(), rtol=0,
+                                   atol=1e-4, err_msg=table)
+    pt = pd.read_parquet(tmp_path / "cuda.pseudotime.parquet")
+    assert np.corrcoef(theta[:, 0], np.nan_to_num(pt.pseudotime))[0, 1] > 0.95
+
+
+def test_fit_archetypes_on_the_card_matches_the_cpu(dev):
+    """The same Dirichlet starts, 100 projected-gradient steps on the card
+    and the CPU: archetypes within 1e-3 of their span, both factors on
+    the simplex."""
+    from legume_tpu_torch.ops.archetypal import fit_archetypes
+
+    rng = np.random.default_rng(3)
+    corners = rng.normal(0, 3, (5, 20)).astype(np.float32)
+    x = rng.dirichlet(np.ones(5) * 0.4, 2000).astype(np.float32) @ corners
+    got = fit_archetypes(x, 5, n_iter=100, seed=0, device=dev)
+    want = fit_archetypes(x, 5, n_iter=100, seed=0, device="cpu")
+    scale = float(np.ptp(want[0]))
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-3 * scale)
+    for m in got[1:]:
+        np.testing.assert_allclose(m.sum(1), 1.0, atol=1e-4)
+
+
+def test_faba_annotate_projection_on_the_card_is_bit_equal(dev, tmp_path):
+    """Two card runs of `faba annotate` (projection, both tracks; the cell
+    kNN graph on the card) write the same tables, bit for bit, and call
+    the planted types."""
+    import json
+
+    import pandas as pd
+
+    from legume_tpu_torch.cli.main import run_faba
+
+    rng = np.random.default_rng(0)
+    h, nh = 4, 300
+    a, b, c = np.eye(h, dtype=np.float32)[:3]
+    cells = np.vstack([a + rng.normal(0, 0.15, (nh, h)), b + rng.normal(0, 0.15, (nh, h))])
+    vel = np.vstack([c + rng.normal(0, 0.1, (nh, h)), b + rng.normal(0, 0.1, (nh, h))])
+    spl = np.vstack([a + rng.normal(0, 0.1, (20, h)), b + rng.normal(0, 0.1, (20, h)),
+                     c + rng.normal(0, 0.1, (20, h))])
+    genes, names = [f"g{i}" for i in range(60)], [f"c{i}" for i in range(2 * nh)]
+    pre = str(tmp_path / "fit")
+    cols = [f"h{j}" for j in range(h)]
+    pd.DataFrame(cells.astype(np.float32), columns=cols).assign(cell=names).set_index("cell") \
+        .reset_index().to_parquet(f"{pre}.cell_embedding.parquet")
+    pd.DataFrame(vel.astype(np.float32), columns=cols).assign(cell=names).set_index("cell") \
+        .reset_index().to_parquet(f"{pre}.velocity.parquet")
+    rows = [f"{g}/count/spliced" for g in genes] + [f"{g}/count/unspliced" for g in genes]
+    pd.DataFrame(np.vstack([spl, spl]).astype(np.float32), columns=cols).assign(feature=rows) \
+        .set_index("feature").reset_index().to_parquet(f"{pre}.feature_embedding.parquet")
+    json.dump({"model_type": "embedding"}, open(f"{pre}.gem.json", "w"))
+    (tmp_path / "m.tsv").write_text("".join(
+        [f"g{i}\t{t}\n" for t, lo in (("Alpha", 0), ("Beta", 20), ("Gamma", 40))
+         for i in range(lo, lo + 20)]))
+    for run in ("r1", "r2"):
+        run_faba(["annotate", "--from", pre, "--markers", str(tmp_path / "m.tsv"),
+                  "--out", str(tmp_path / run), "--n-boot", "20", "--device", "cuda"])
+    for table in ("spliced.annotation", "spliced.clusters", "spliced.qmatrix",
+                  "velocity.annotation", "velocity.clusters"):
+        pd.testing.assert_frame_equal(pd.read_parquet(tmp_path / f"r1.{table}.parquet"),
+                                      pd.read_parquet(tmp_path / f"r2.{table}.parquet"),
+                                      check_exact=True)
+    ann = pd.read_parquet(tmp_path / "r1.spliced.annotation.parquet")["annotation"].to_numpy()
+    assert (ann == np.array(["Alpha"] * nh + ["Beta"] * nh)).mean() > 0.95

@@ -239,24 +239,9 @@ def test_faba_parser_carries_jax_flags_and_defaults(monkeypatch):
     assert list(got) == list(want)
     for cmd in want:
         flags = dict(got[cmd])
-        if cmd in ("gem", "gem-encoder", "dyn-assoc"):
+        if cmd in ("gem", "gem-encoder", "lineage", "dyn-assoc", "annotate", "plot"):
             assert flags.pop(("--device",))[1] == "cuda"
         assert flags == want[cmd], cmd
-
-
-UNPORTED = [["pwm", "-s", "s", "-f", "f", "-o", "o"], ["metagene"], ["pileup"], ["inspect"],
-            ["lineage", "--from", "x"], ["annotate"], ["plot"], ["docs"]]
-
-
-@pytest.mark.parametrize("argv", UNPORTED, ids=[a[0] for a in UNPORTED])
-def test_unported_subcommands_raise_naming_their_item(argv, monkeypatch):
-    def parsed(self, args=None, namespace=None):
-        ns = argparse.Namespace(cmd=argv[0], data_parallel=False)
-        return ns
-
-    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parsed)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10c"):
-        t_faba(argv)
 
 
 def test_data_parallel_raises(sim, tmp_path):

@@ -42,6 +42,7 @@ from legume_tpu_torch.fagioli import qtl as tqtl
 from legume_tpu_torch.fagioli import sim as tsim
 from legume_tpu_torch.fagioli import sumstat as tss
 from legume_tpu_torch.utils import running_stats as trs
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _same(a, b):

@@ -35,6 +35,7 @@ from legume_tpu_torch.models import sgvb as T
 from legume_tpu_torch.models.convert import sgvb_params_from_jax, sgvb_params_to_jax
 from legume_tpu_torch.ops import sparse_regression as tsr
 from legume_tpu_torch.utils import prng
+from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
 
 FAMILIES = ["gaussian", "spike-slab", "susie", "susie-no-null", "bisusie", "ml-susie", "ash"]
 PV = [0.01, 0.1, 1.0]
