@@ -330,7 +330,21 @@ Phases (any failure exits non-zero; nothing is caught):
    `models/losses.py` at 4,096 x 2,000, `IafSoftmaxEncoder` (eval mode)
    and `BipartiteDecoder` (each likelihood) forward and backward, and
    `fit_archetypes` at 10,000 x 50 with k = 8 (ARCHETYPE_ITERS steps);
-43. print the script's total seconds, one JSON line of all kernels, then
+43. data parallelism (`parallel/`, `--data-parallel`), in processes
+   started right after phase 21 and joined here: (a) phase 21's `senna
+   topic` argv plus `--data-parallel` through `python -m
+   legume_tpu_torch` as a world of one over NCCL, its latent,
+   dictionary, llik trace and partitions bit-equal to phase 21's; (b) the
+   same as two ranks sharing the card over gloo, the partitions at every
+   level equal to phase 21's, the proportions within 0.05 (the dominant
+   topic agreeing for more than 95% of cells) and the llik trace within
+   rtol 2e-2, atol 1e-2, each rank's cell range (disjoint, covering every
+   cell), its K1 and K3 launches and seconds, and only rank 0's files; (c)
+   after (a), in one more process, `senna svd --save-adjusted` and `senna
+   vae` with phases 18 and 17's arguments plus `--data-parallel` on
+   x.zarr as worlds of one over NCCL, every output bit-equal to theirs
+   (svd launching K2, vae K1 and K3);
+44. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
 
 Phase 10 and phase 14's `--from` run before phase 8 (they need none of
@@ -4715,6 +4729,223 @@ def model_stack_phase(dev, card: str, *, shape=ARCHETYPE_SHAPE) -> None:
         raise AssertionError(f"model stack on the card unlike the CPU: {failed} {line}")
 
 
+# Phase 43: one port CLI command a rank, through `python -m legume_tpu_torch`
+# (`runpy`), each under its own process-group switches (`LEGUME_COORDINATOR`
+# etc.); after each, one JSON line: the rank, its seconds, its launches and
+# the cell range its `load_and_collapse` logged (distributed runs only).
+DP_RUNNER = r"""
+import json, logging, os, runpy, sys, time
+from legume_tpu_torch.ops import kernels as K
+
+class Ranges(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.cells = None
+    def emit(self, record):
+        if record.getMessage().startswith("distributed load_and_collapse"):
+            self.cells = list(record.args[2:4])
+
+ranges = Ranges()
+logging.getLogger("legume_tpu_torch.senna.topic").addHandler(ranges)
+for name, env, argv in json.loads(sys.argv[1]):
+    os.environ.update(env)
+    K.reset_launch_counts()
+    ranges.cells = None
+    t = time.time()
+    sys.argv = ["legume_tpu_torch", *argv]
+    try:
+        runpy.run_module("legume_tpu_torch", run_name="__main__")
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+    print(json.dumps({"dp_run": name, "rank": int(env["LEGUME_PROCESS_ID"]),
+                      "world": int(env["LEGUME_NUM_PROCESSES"]), "rc": rc,
+                      "seconds": time.time() - t, "cells": ranges.cells,
+                      "launches": dict(K.launch_counts)}), flush=True)
+    if rc:
+        sys.exit(rc)
+"""
+# (a), then (c) in a process of its own once (a) has ended
+DP_CHAIN = r"""
+import json, subprocess, sys
+for job in json.loads(sys.argv[2]):
+    p = subprocess.run([sys.executable, "-c", sys.argv[1], json.dumps(job)])
+    if p.returncode:
+        sys.exit(p.returncode)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _world(size: int, rank: int, port: int) -> dict:
+    return {"LEGUME_COORDINATOR": f"127.0.0.1:{port}", "LEGUME_NUM_PROCESSES": str(size),
+            "LEGUME_PROCESS_ID": str(rank)}
+
+
+def start_data_parallel(work: str, store: str, bfile: str, device: str = "cuda") -> dict:
+    """Phase 43's processes, started right after phase 21: the (a) -> (c)
+    chain and the two ranks of (b), each in a working directory of its own
+    (the topic prefix is relative, so a rank that writes nothing leaves its
+    directory empty). `device="cpu"` rehearses the phase on a CPU host."""
+    data = ["--data-files", store, "--batch-files", bfile]
+    topic = ["senna", "topic", *data, "--epochs", "1", "--device", device, "--data-parallel"]
+    one = [["a", _world(1, 0, _free_port()), topic + ["--out", "topic_dp"]]]
+    c = [["svd", _world(1, 0, _free_port()),
+          ["senna", "svd", *data, "--out", f"{work}/svd_dp", "--device", device,
+           "--save-adjusted", "--data-parallel"]],
+         ["vae", _world(1, 0, _free_port()),
+          ["senna", "vae", *data, "--out", f"{work}/vae_dp", "--epochs", "5", "--device",
+           device, "--data-parallel"]]]
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    dirs = {k: Path(f"{work}/dp_{k}") for k in ("a", "rank0", "rank1")}
+    for d in dirs.values():
+        d.mkdir()
+    started = {"t": time.time(), "dirs": dirs}
+    started["chain"] = subprocess.Popen(
+        [sys.executable, "-c", DP_CHAIN, DP_RUNNER, json.dumps([one, c])], cwd=dirs["a"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    port = _free_port()
+    started["ranks"] = [subprocess.Popen(
+        [sys.executable, "-c", DP_RUNNER, json.dumps([["b", _world(2, r, port), topic
+                                                       + ["--out", "topic_dp"]]])],
+        cwd=dirs[f"rank{r}"], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    CHILDREN.extend([started["chain"], *started["ranks"]])
+    return started
+
+
+def _dp_lines(proc, what: str) -> tuple[list, float]:
+    t0 = time.time()
+    out, err = proc.communicate(timeout=1200)
+    if proc.returncode != 0:
+        raise AssertionError(f"data-parallel {what} failed: {err[-3000:]}")
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith('{"dp_run"')], \
+        time.time() - t0
+
+
+def _tables_equal(a: str, b: str, names) -> dict:
+    """Per table of two output prefixes: every column bit-equal."""
+    from legume_tpu_torch.utils.output import read_table
+
+    out = {}
+    for name in names:
+        x, y = read_table(f"{a}.{name}.parquet"), read_table(f"{b}.{name}.parquet")
+        out[name] = list(x) == list(y) and all(np.array_equal(x[k], y[k]) for k in x)
+    return out
+
+
+def _partitions_equal(a: str, b: str) -> bool:
+    with np.load(f"{a}.partition.npz") as x, np.load(f"{b}.partition.npz") as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            np.array_equal(x[k], y[k]) for k in x.files)
+
+
+def _proportions(prefix: str) -> np.ndarray:
+    from legume_tpu_torch.utils.output import read_table
+
+    t = read_table(f"{prefix}.latent.parquet")
+    return np.exp(np.column_stack([v for k, v in t.items() if k != "cell"]).astype(np.float64))
+
+
+def data_parallel_phase(work: str, started: dict, n_cells: int, card: str) -> dict:
+    """Phase 43: join `start_data_parallel`'s processes and hold their
+    outputs against phases 21, 18 and 17 (see the module's docstring).
+    Returns each run's launches (rank by rank for (b))."""
+    from legume_tpu_torch.data.sparse_io import open_sparse_matrix
+    from legume_tpu_torch.utils.output import read_table
+
+    ref = f"{work}/topic_zarr"
+    ranks, waits = [], []
+    for r, proc in enumerate(started["ranks"]):
+        lines, wait = _dp_lines(proc, f"rank {r} of (b)")
+        ranks.extend(lines)
+        waits.append(wait)
+    chain, chain_wait = _dp_lines(started["chain"], "(a) / (c)")
+    runs = {ln["dp_run"]: ln for ln in chain}
+    need = {"project_normed", "collapse"}
+
+    # (a) a world of one over NCCL: phase 21's outputs, bit for bit
+    a = str(started["dirs"]["a"] / "topic_dp")
+    a_eq = _tables_equal(ref, a, ("latent", "dictionary", "log_likelihood"))
+    a_eq["partition"] = _partitions_equal(ref, a)
+    line_a = {"phase": "data_parallel_world_of_one", "run_s": runs["a"]["seconds"],
+              "launches": runs["a"]["launches"], "bit_equal_to_phase21": a_eq,
+              "wait_s": chain_wait, "card": card}
+    print(json.dumps(line_a), flush=True)
+
+    # (b) two ranks sharing the card over gloo
+    b = str(started["dirs"]["rank0"] / "topic_dp")
+    rank1_files = sorted(p.name for p in started["dirs"]["rank1"].iterdir())
+    z1, z2 = _proportions(ref), _proportions(b)
+    l1 = np.asarray(read_table(f"{ref}.log_likelihood.parquet")["llik"], np.float64)
+    l2 = np.asarray(read_table(f"{b}.log_likelihood.parquet")["llik"], np.float64)
+    cells = sorted(tuple(ln["cells"]) for ln in ranks)
+    ranges_ok = (len(cells) == 2 and cells[0][0] == 0 and cells[0][1] == cells[1][0]
+                 and cells[1][1] == n_cells)
+    gaps = {
+        "partitions_equal": _partitions_equal(ref, b),
+        "proportions_max_abs_gap": float(np.abs(z1 - z2).max()),
+        "dominant_topic_agreement": float((z1.argmax(1) == z2.argmax(1)).mean()),
+        "llik_max_abs_gap": float(np.abs(l1 - l2).max()),
+        "llik_within_bar": bool(np.allclose(l2, l1, rtol=2e-2, atol=1e-2)),
+    }
+    line_b = {"phase": "data_parallel_two_ranks", "backend": "gloo",
+              "ranks": [{k: ln[k] for k in ("rank", "cells", "seconds", "launches")}
+                        for ln in ranks],
+              "cell_ranges_cover": ranges_ok, "rank1_files": rank1_files,
+              "wait_s": waits, **gaps, "card": card}
+    print(json.dumps(line_b), flush=True)
+
+    # (c) svd and vae as worlds of one over NCCL: phases 18 and 17's outputs
+    c_eq = {"svd": _tables_equal(f"{work}/svd", f"{work}/svd_dp",
+                                 ("latent", "dictionary", "singular_values")),
+            "vae": _tables_equal(f"{work}/vae", f"{work}/vae_dp",
+                                 ("latent", "loadings", "log_likelihood"))}
+    adj, adj_dp = (open_sparse_matrix(f"{work}/{p}.adjusted.zarr") for p in ("svd", "svd_dp"))
+    cols = np.arange(adj.num_columns)
+    x, y = adj.read_columns_csc(cols), adj_dp.read_columns_csc(cols)
+    c_eq["svd"]["adjusted"] = bool(x.shape == y.shape and np.array_equal(x.indptr, y.indptr)
+                                   and np.array_equal(x.indices, y.indices)
+                                   and np.array_equal(x.data, y.data))
+    line_c = {"phase": "data_parallel_svd_vae", "svd_s": runs["svd"]["seconds"],
+              "vae_s": runs["vae"]["seconds"], "launches": {k: runs[k]["launches"]
+                                                            for k in ("svd", "vae")},
+              "bit_equal_to_phases_18_17": c_eq, "process_s": time.time() - started["t"],
+              "card": card}
+    print(json.dumps(line_c), flush=True)
+
+    failed = []
+    if not all(a_eq.values()):
+        failed.append(f"(a) unlike phase 21: {a_eq}")
+    if any(runs["a"]["launches"][k] == 0 for k in need):
+        failed.append(f"(a) skipped a kernel: {runs['a']['launches']}")
+    if not (gaps["partitions_equal"] and gaps["proportions_max_abs_gap"] <= 0.05
+            and gaps["dominant_topic_agreement"] > 0.95 and gaps["llik_within_bar"]):
+        failed.append(f"(b) outside its bars: {gaps}")
+    if not ranges_ok or rank1_files:
+        failed.append(f"(b) cell ranges {cells} of {n_cells}, rank 1 wrote {rank1_files}")
+    if any(ln["launches"][k] == 0 for ln in ranks for k in need):
+        failed.append(f"(b) a rank skipped a kernel: {[ln['launches'] for ln in ranks]}")
+    if not all(v for d in c_eq.values() for v in d.values()):
+        failed.append(f"(c) unlike phases 18 / 17: {c_eq}")
+    if runs["svd"]["launches"]["project_raw"] == 0 or any(
+            runs["vae"]["launches"][k] == 0 for k in need):
+        failed.append(f"(c) skipped a kernel: {line_c['launches']}")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return {"topic_dp1": runs["a"]["launches"], "svd_dp1": runs["svd"]["launches"],
+            "vae_dp1": runs["vae"]["launches"],
+            **{f"topic_dp2_rank{ln['rank']}": ln["launches"] for ln in ranks}}
+
+
 def mark(name: str, t_script: float) -> None:
     """The script's seconds when a phase starts: the line the per-phase
     wall times of `PERF.md` section 5 are read from."""
@@ -5241,6 +5472,7 @@ def run(work: str, t_script: float) -> int:
     mark("21-27 stores .. fne", t_script)
     beans_sim = start_beans_sim(work, sim)  # phase 28, on the host meanwhile
     slice11, store = store_phase(work, sim, res, K, dev, card)
+    dp_started = start_data_parallel(work, store, f"{work}/x.batch.txt")  # phase 43, meanwhile
     slice11.update(annotation_phase(work, sim, res, args.out, store, K, dev, card))
     slice11.update(deconvolve_phase(work, sim, vec, res, K, dev, card, checks))
     slice11.update(impute_probe_phase(work, vec, hvec, res, args.out, K, dev, card))
@@ -5299,7 +5531,11 @@ def run(work: str, t_script: float) -> int:
         raise AssertionError(f"a kernel launched on a path that has none: {launched}")
     model_stack_phase(dev, card)
 
-    # ---- phase 43: the kernels line, then the device line -----------------
+    # ---- phase 43: data parallelism (started after phase 21) ----------------------
+    mark("43 data-parallel join", t_script)
+    slice18 = data_parallel_phase(work, dp_started, sim.counts.shape[1], card)
+
+    # ---- phase 44: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
     # e2e launches; `max_abs_err` is the largest over its checked shapes,
     # and `shapes` holds every checked shape, each with the run (`path`)
@@ -5327,7 +5563,9 @@ def run(work: str, t_script: float) -> int:
     # faba_lineage_subset_cpu, faba_annotate_projection, faba_plot where
     # matplotlib imports, faba_lineage_from, faba_dyn_assoc_lineage,
     # faba_annotate_enrichment: none of the four kernels is on slice 17's
-    # paths, so each of its counts is 0, as the slice17_launches line says).
+    # paths, so each of its counts is 0, as the slice17_launches line says;
+    # topic_dp1, topic_dp2_rank0, topic_dp2_rank1, svd_dp1, vae_dp1: phase
+    # 43's runs, the two ranks of (b) each on its own).
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),
@@ -5347,7 +5585,7 @@ def run(work: str, t_script: float) -> int:
             **{f"launches_{path}": counts[name]
                for path, counts in {**slice9, **slice10, **slice11, **slice12,
                                     **slice13, **slice14, **slice15,
-                                    **slice16, **slice17}.items()},
+                                    **slice16, **slice17, **slice18}.items()},
             **({"launches_clustering": claunches[name]} if name == "collapse" else {}),
             **({"launches_axis": blaunches["nce_epoch_axis"]} if name == "nce_epoch" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in checks[name]),

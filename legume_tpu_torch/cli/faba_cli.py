@@ -2,7 +2,7 @@
 package's `cli/faba_cli.py` tree, every subcommand and flag). Every
 subcommand runs; `gem`, `gem-encoder`, `lineage`, `dyn-assoc`, `annotate`
 and `plot` take `--device` (default `cuda`), the others run on the host.
-`--data-parallel` raises `NotImplementedError` (ROADMAP item 11)."""
+`--data-parallel` raises `NotImplementedError` (`ROADMAP.md` §1 item 4)."""
 
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ one launch per `--block-size` columns), sorts them into pseudobulks and
 sums both tracks by the JAX package's dense one-hot product on the host.
 `lineage` takes its k-means, kNN and layouts on `--device`
 (`faba/lineage_run.py`); `--data-parallel` raises `NotImplementedError`
-(item 11). `_cmd_gem` and `_cmd_lineage` return their stage seconds.
+(`ROADMAP.md` §1 item 4). `_cmd_gem` and `_cmd_lineage` return their stage seconds.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import numpy as np
 def _no_data_parallel(args):
     if getattr(args, "data_parallel", False):
         raise NotImplementedError(f"faba {args.cmd} port does not support --data-parallel yet "
-                                  "(ROADMAP item 11)")
+                                  "(ROADMAP.md §1 item 4)")
 
 
 def add_parsers(sub):

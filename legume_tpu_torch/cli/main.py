@@ -32,6 +32,14 @@ for `joint-topic` and `joint-svd`); the command then reads them instead
 of `--data-files` (`vecs=[query, calibration]` for `probe --model` and
 `[query, reference]` for `impute --model`). A first Ctrl-C ends a
 trainer's epochs and lets the command write its partial outputs.
+
+Data parallelism runs one process per GPU: with `LEGUME_COORDINATOR`
+(host:port), `LEGUME_NUM_PROCESSES` and `LEGUME_PROCESS_ID` set, or
+`LEGUME_DISTRIBUTED=1` under torchrun, `main` starts the process group
+before it dispatches (`parallel/multihost.py`) and destroys it at exit.
+`senna topic`, `vae` and `svd` run over it (`--data-parallel`); every
+other `--data-parallel` raises `NotImplementedError` (`ROADMAP.md` §1
+item 4).
 """
 
 from __future__ import annotations
@@ -469,12 +477,38 @@ def run_cocoa(argv, *, vec=None):
     ), vec=vec, device=a.device)
 
 
+def _device_arg(argv) -> str:
+    """The value of `--device` in `argv` (the commands' default, cuda,
+    when it is not given): the device a rank's process group is for."""
+    for i, arg in enumerate(argv):
+        if arg == "--device" and i + 1 < len(argv):
+            return argv[i + 1]
+        if arg.startswith("--device="):
+            return arg.split("=", 1)[1]
+    return "cuda"
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     logging.basicConfig(level=logging.INFO, format="[%(levelname)s %(name)s] %(message)s")
+    import torch.distributed as dist
+
+    from ..parallel.multihost import maybe_initialize_distributed, shutdown_distributed
     from ..utils.stop import install_sigint_handler
 
     install_sigint_handler()  # a first Ctrl-C ends training with partial outputs
+    # data parallelism: the process group starts before any CUDA context
+    # (a caller that started one keeps it)
+    started = not dist.is_initialized() and maybe_initialize_distributed(
+        device=_device_arg(argv))
+    try:
+        return _dispatch(argv)
+    finally:
+        if started:
+            shutdown_distributed()
+
+
+def _dispatch(argv) -> int:
     binaries = {"senna": run_senna, "cocoa": run_cocoa, "data-beans": run_beans,
                 "data-beans-sim": run_sim, "faba": run_faba, "pinto": run_pinto,
                 "fagioli": run_fagioli, "chickpea": run_chickpea}

@@ -82,7 +82,8 @@ def check_supported(args: BgeArgs):
     """Options the port does not carry yet raise instead of running
     something else."""
     if args.data_parallel:
-        raise NotImplementedError("senna bge port does not support --data-parallel yet")
+        raise NotImplementedError("senna bge port does not support --data-parallel yet "
+                                  "(ROADMAP.md §1 item 4)")
 
 
 def multiome_vec(backends, bridge_weight: float = 1.0, batch_files=None) -> SparseIoVec:

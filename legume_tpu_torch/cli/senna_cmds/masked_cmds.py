@@ -148,7 +148,8 @@ def run_masked(args, *, vec=None) -> dict:
     """One masked command from its parsed arguments; `vec` overrides
     `--data-files` (with `--batch-files`, their labels are registered on it)."""
     if args.data_parallel:
-        raise NotImplementedError(f"senna {args.cmd} port does not support --data-parallel yet")
+        raise NotImplementedError(f"senna {args.cmd} port does not support --data-parallel yet "
+                                  "(ROADMAP.md §1 item 4)")
     device = torch.device(args.device)
     timings: dict[str, float] = {}
     t_all = time.time()

@@ -62,7 +62,8 @@ def build_match_cache(
     (the JAX package masks the other cells out of a search over all N:
     the same neighbours, without the I x N^2 distance plane)."""
     if mesh is not None:
-        raise NotImplementedError("the query-sharded match cache (--data-parallel) is not ported")
+        raise NotImplementedError("the query-sharded match cache (--data-parallel) is not ported "
+                                  "(ROADMAP.md §1 item 4)")
     n = proj_nk.shape[0]
     m = max(n_indv - 1, 1) * knn
     idx = np.zeros((n, m), np.int32)
@@ -270,7 +271,8 @@ def collect_cocoa_stat_multi(
     T N P K floats, so T runs in chunks of `t_chunk` rows (default: what
     fits in `W_BUDGET` bytes), each re-reading the data once."""
     if mesh is not None:
-        raise NotImplementedError("the exposure-sharded replay (--data-parallel) is not ported")
+        raise NotImplementedError("the exposure-sharded replay (--data-parallel) is not ported "
+                                  "(ROADMAP.md §1 item 4)")
     n, k = cell_topic_nk.shape
     d = data.num_rows
     t_total, n_indv = exposures_ti.shape

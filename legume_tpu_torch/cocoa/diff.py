@@ -84,7 +84,8 @@ class CocoaDiffArgs:
 
 def check_supported(args: CocoaDiffArgs):
     if args.data_parallel:
-        raise NotImplementedError("cocoa diff port does not support --data-parallel yet")
+        raise NotImplementedError("cocoa diff port does not support --data-parallel yet "
+                                  "(ROADMAP.md §1 item 4)")
 
 
 def assign_pseudobulk(cell_indv: np.ndarray, proj_nk: np.ndarray, n_samples: int, seed: int,

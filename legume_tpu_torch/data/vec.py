@@ -133,6 +133,13 @@ class SparseIoVec:
         """View over the kept columns (the QC keep mask)."""
         return ColumnSubsetVec(self, np.asarray(keep))
 
+    def column_nnz(self) -> np.ndarray:
+        """Per-column nnz over the whole stack (metadata only; it plans
+        the nnz-balanced split of the columns over ranks)."""
+        from ..parallel.multihost import column_nnz as _nnz
+
+        return np.concatenate([_nnz(b) for b in self._backends])
+
 
 class ColumnSubsetVec:
     """Column-subset view of a `SparseIoVec`: the keep mask (bool) or
@@ -170,3 +177,15 @@ class ColumnSubsetVec:
 
     def batch_names(self):
         return self._base.batch_names()
+
+    def column_nnz(self) -> np.ndarray:
+        from ..parallel.multihost import column_nnz as _nnz
+
+        return _nnz(self._base)[self._idx]
+
+    def subset_columns(self, keep: np.ndarray) -> "ColumnSubsetVec":
+        """Compose subsets (the QC mask, then a rank's column range): the
+        indices flatten onto the base, so reads stay one hop."""
+        keep = np.asarray(keep)
+        idx = np.nonzero(keep)[0] if keep.dtype == bool else keep
+        return ColumnSubsetVec(self._base, self._idx[idx.astype(np.int64)])

@@ -160,7 +160,8 @@ def fit_gem(
     velocity-kNN lineage over the rows, runs a second pass with a
     velocity-drift residual and lifts pseudotime + fate."""
     if mesh is not None:
-        raise NotImplementedError("fit_gem's data-parallel mesh is not ported (ROADMAP item 11)")
+        raise NotImplementedError("fit_gem's data-parallel mesh is not ported "
+                                  "(ROADMAP.md §1 item 4)")
     p, d = spliced_pd.shape
     dev = torch.device(device)
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dtype)  # noqa: E731
@@ -400,7 +401,7 @@ def fit_gem_encoder(
     the encoder's input and scores the spliced multinomial everywhere."""
     if mesh is not None:
         raise NotImplementedError("fit_gem_encoder's data-parallel mesh is not ported "
-                                  "(ROADMAP item 11)")
+                                  "(ROADMAP.md §1 item 4)")
     p, d = spliced_pd.shape
     dev = torch.device(device)
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dtype)  # noqa: E731

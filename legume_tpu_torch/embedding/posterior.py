@@ -40,7 +40,8 @@ from .nce import _log_sigmoid
 
 def _no_mesh(mesh):
     if mesh is not None:
-        raise NotImplementedError("the anchor-axis mesh of the posterior samplers is not ported")
+        raise NotImplementedError("the anchor-axis mesh of the posterior samplers is not ported "
+                                  "(ROADMAP.md §1 item 4)")
 
 
 def _t(x, device) -> torch.Tensor:

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..ops.transforms import anscombe_residual
+from ..parallel.mesh import row_moments
 from . import losses
 
 CLAMP = 8.0
@@ -46,21 +47,31 @@ class FlaxBatchNorm(nn.Module):
     training normalises by the biased batch variance mean(x^2) - mean(x)^2
     and moves the running statistics by `r = 0.9 r + 0.1 batch` with that
     same biased variance; evaluation reads the running statistics.
-    `torch.nn.BatchNorm1d` would store the unbiased variance instead."""
+    `torch.nn.BatchNorm1d` would store the unbiased variance instead.
+
+    Under a data-parallel mesh (`mesh`, set by the trainer) each rank holds
+    its share of the minibatch, and training normalises by the statistics
+    of the whole minibatch, as XLA forms them over the sharded batch
+    (`parallel/mesh.py::row_moments`), so every rank moves its running
+    statistics alike. A world of one takes the plain path."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-4):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, *, train: bool) -> torch.Tensor:
-        if train:
+        if train and self.mesh is not None:
+            mean, var = row_moments(x, self.mesh)
+        elif train:
             mean = x.mean(dim=0)
             var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+        if train:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
@@ -71,11 +82,15 @@ class FlaxBatchNorm(nn.Module):
 
 
 class GaussianTrunk(nn.Module):
-    """Anscombe residual -> ReLU stack -> BatchNorm -> clamped heads."""
+    """Anscombe residual -> ReLU stack -> BatchNorm -> clamped heads.
+    Under a data-parallel `mesh` (set by the trainer) the residual's
+    per-gene clip scale in training is that of the whole minibatch, as
+    the BatchNorm statistics are."""
 
     def __init__(self, n_features: int, n_latent: int, layers: Sequence[int],
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.mesh = None
         dims = [n_features, *layers]
         self.fc = nn.ModuleList(dense(a, b, generator) for a, b in zip(dims[:-1], dims[1:]))
         self.bn_z = FlaxBatchNorm(dims[-1])
@@ -83,7 +98,7 @@ class GaussianTrunk(nn.Module):
         self.z_lnvar = dense(dims[-1], n_latent, generator)
 
     def forward(self, x_nd, x0_nd=None, *, train: bool):
-        h = anscombe_residual(x_nd, x0_nd)
+        h = anscombe_residual(x_nd, x0_nd, mesh=self.mesh if train else None)
         for layer in self.fc:
             h = torch.relu(layer(h))
         h = self.bn_z(h, train=train)

@@ -23,6 +23,18 @@ also its target.
 Random streams (init, minibatch order, reparameterisation noise) come
 from explicit torch generators; they cannot match the JAX package's
 draws, so training is held to the JAX trainer by its ELBO band.
+
+Under a data-parallel `mesh` (`parallel/mesh.py`, one rank a GPU) every
+rank holds every level's rows, draws the same global permutation and the
+same noise, and takes its share (`data_sharding`) of the rows of each
+minibatch; the loss keeps the whole minibatch's normaliser, the anchor
+penalty counts on rank 0 only, the encoder's batch statistics (its input
+clip scale, BatchNorm) are the whole minibatch's, and the gradients are
+summed across ranks before the clip, so every rank takes the same clip,
+skip and AdamW step from rank 0's parameters. The rows need no padding
+to the world (the JAX package's `row_multiple`): a minibatch that does
+not divide by it gives uneven shares. A world of one runs the plain
+trainer's operations.
 """
 
 from __future__ import annotations
@@ -33,7 +45,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh, data_sharding, replicate
 from ..utils.stop import stop_requested
+from .encoders import FlaxBatchNorm, GaussianTrunk
 from .losses import smooth_topics
 
 
@@ -120,8 +134,10 @@ class MixedTrainer:
         anchor_penalty: float = 0.0,
         decoder_weights: Sequence[float] | None = None,
         target_slices: Sequence[tuple[int, int]] | None = None,
+        mesh: Mesh | None = None,
         device="cuda",
     ):
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = torch.device(device)
         self.encoder = encoder.to(self.device)
         self.decoders = torch.nn.ModuleList(
@@ -145,9 +161,24 @@ class MixedTrainer:
             self.params, lr=config.learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=config.weight_decay,
         )
+        if self.mesh is not None:
+            for m in self.encoder.modules():
+                if isinstance(m, (FlaxBatchNorm, GaussianTrunk)):
+                    m.mesh = self.mesh  # their batch statistics span the ranks
+            self._replicate()
 
-    def minibatch_loss(self, level: int, xb, nb, yb, wb, eps):
-        """(loss, sum llik, sum kl, sum counts) over the real rows."""
+    def _replicate(self):
+        """Rank 0's parameters and BatchNorm statistics on every rank."""
+        if self.mesh is None:
+            return
+        with torch.no_grad():
+            for t in [*self.params, *self.encoder.buffers(), *self.decoders.buffers()]:
+                replicate(self.mesh, t)
+
+    def minibatch_loss(self, level: int, xb, nb, yb, wb, eps, *, w_total=None, anchor=True):
+        """(loss, sum llik, sum kl, sum counts) over the real rows. A rank's
+        share of a minibatch passes the whole minibatch's weight sum as
+        `w_total`, and `anchor=False` on all ranks but one."""
         log_z, kl = self.encoder(xb, nb, train=True, eps=eps)
         log_z = smooth_topics(log_z, self.config.topic_smoothing)
         decs = self.level_decoders(level)
@@ -159,8 +190,9 @@ class MixedTrainer:
                        for dec, dw, (a, b) in zip(decs, weights, sl))
         else:
             llik = decs[0](log_z, yb, fw)[1]
-        loss = torch.sum((kl - llik) * wb) / torch.clamp(wb.sum(), min=1.0)
-        if self.anchor_weights is not None and self.anchor_penalty > 0:
+        norm = wb.sum() if w_total is None else w_total
+        loss = torch.sum((kl - llik) * wb) / torch.clamp(norm, min=1.0)
+        if anchor and self.anchor_weights is not None and self.anchor_penalty > 0:
             for dec in (d for d in decs if hasattr(d, "log_beta_kd")):
                 ce = -torch.mean(torch.sum(self.anchor_weights[level] * dec.log_beta_kd(), dim=-1))
                 loss = loss + self.anchor_penalty * ce
@@ -171,8 +203,22 @@ class MixedTrainer:
         dec = self.decoders[level]
         return list(dec) if isinstance(dec, torch.nn.ModuleList) else [dec]
 
+    def _sum_grads(self):
+        """The gradients summed across ranks (one flat all_reduce)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1) for p in self.params])
+        torch.distributed.all_reduce(flat, group=self.mesh.group)
+        off = 0
+        for p in self.params:
+            p.grad.copy_(flat[off : off + p.numel()].view_as(p))
+            off += p.numel()
+
     def _clip_and_step(self):
         """Global-norm clip with the non-finite skip, then AdamW."""
+        if self.mesh is not None:
+            self._sum_grads()
         clip_grads_nonfinite_(self.params, self.config.grad_clip)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=False)
@@ -185,13 +231,18 @@ class MixedTrainer:
         k = self.encoder.n_topics
         draws = getattr(self.encoder, "n_draws", None)
         eps_shape = (mb, k) if draws is None else (draws, mb, k)
+        a, b = (0, mb) if self.mesh is None else data_sharding(self.mesh, mb)
         for lb in range(0, p_pad, mb):
-            idx = perm[lb : lb + mb]
+            batch = perm[lb : lb + mb]
+            idx = batch[a:b]
             xb = x[idx]
             nb = None if null is None else null[idx]
             yb = xb if y is None else y[idx]
-            eps = torch.randn(*eps_shape, generator=gen, device=self.device)
-            loss, llik, kl, cnt = self.minibatch_loss(level, xb, nb, yb, w[idx], eps)
+            eps = torch.randn(*eps_shape, generator=gen, device=self.device)[..., a:b, :]
+            w_total = None if self.mesh is None else w[batch].sum()
+            loss, llik, kl, cnt = self.minibatch_loss(
+                level, xb, nb, yb, w[idx], eps, w_total=w_total,
+                anchor=self.mesh is None or self.mesh.primary)
             loss.backward()
             self._clip_and_step()
             sums += torch.stack([llik.detach(), kl.detach(), cnt.detach()])
@@ -203,7 +254,7 @@ class MixedTrainer:
         takes the saved value, a parameter the states lack keeps its
         init, and the BatchNorm running statistics start fresh, as the
         JAX package overlays `params` only. The optimizer state starts
-        fresh too."""
+        fresh too. Under a mesh, rank 0's result goes to every rank."""
 
         def overlay(module, state, where):
             for name, p in module.named_parameters():
@@ -221,6 +272,7 @@ class MixedTrainer:
                 for fam, (dec, st) in enumerate(zip(self.level_decoders(level), states)):
                     overlay(dec, st, f"decoder_{level}/{fam}")
         self.optimizer.state.clear()
+        self._replicate()
 
     def train(
         self, level_data: Sequence[LevelData], gen: torch.Generator,
@@ -234,13 +286,14 @@ class MixedTrainer:
             with torch.no_grad():
                 for dec, logits in zip(self.decoders, init_dictionaries):
                     dec.dictionary.copy_(torch.as_tensor(logits, device=self.device))
+            self._replicate()
         padded = [_pad_level(lvl, cfg.minibatch_size, self.device) for lvl in level_data]
         n_tot = sum(lvl.n for lvl in level_data)
         scores = TrainScores()
         self.encoder.train()
         done = 0
         while done < cfg.epochs:
-            if stop_requested():
+            if self._stop():
                 # graceful SIGINT: stop at an epoch-chunk boundary, as the
                 # JAX trainer does, and let the caller write partial outputs
                 break
@@ -249,12 +302,24 @@ class MixedTrainer:
             for level, (x, null, y, w) in enumerate(padded):
                 for e in range(chunk):
                     sums[e] += self._epoch(level, x, null, y, w, gen)
+            if self.mesh is not None:
+                torch.distributed.all_reduce(sums, group=self.mesh.group)
             s = sums.cpu().numpy().astype(np.float64)
             scores.llik.extend((s[:, 0] / np.maximum(s[:, 2], 1.0)).tolist())
             scores.kl.extend((s[:, 1] / max(n_tot, 1)).tolist())
             done += chunk
         self.encoder.eval()
         return scores
+
+    def _stop(self) -> bool:
+        """A Ctrl-C on any rank stops every rank at the same chunk boundary."""
+        stop = stop_requested()
+        if self.mesh is None:
+            return stop
+        flag = torch.tensor([float(stop)], device=self.device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
+                                     group=self.mesh.group)
+        return bool(flag.item())
 
     @torch.no_grad()
     def encode(self, x: np.ndarray, null: np.ndarray | None = None) -> np.ndarray:

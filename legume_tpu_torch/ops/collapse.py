@@ -151,6 +151,7 @@ def collect_matched_stats(
     cell_block: int = MATCHED_CELL_BLOCK,
     gene_chunk: int = 4096,
     stat: CollapsedStat | None = None,
+    query_range: tuple[int, int] | None = None,
     device="cuda",
 ) -> CollapsedStat:
     """Counterfactual matched sufficient statistics. For each cell j, pool
@@ -161,7 +162,11 @@ def collect_matched_stats(
         residual_sum_ds[:, s] += y_j / (y_hat_j * scale_j) on the support
             where both are positive, y_j elsewhere,
         scale_j = sum(y_j) / sum(y_hat_j).
-    """
+
+    `query_range=(lb, ub)` takes the query cells of one rank's column
+    range only (their partners are read wherever they lie); the ranks'
+    partial planes sum afterwards. Every sum runs in a fixed order
+    (`segment_add`), so two card runs give the same planes."""
     from .knn import matched_neighbors_across_batches
 
     d = data.num_rows
@@ -175,9 +180,9 @@ def collect_matched_stats(
     imputed = torch.zeros(d, num_groups, dtype=torch.float32, device=device)
     residual = torch.zeros(d, num_groups, dtype=torch.float32, device=device)
 
-    n = data.num_columns
-    for lb in range(0, n, cell_block):
-        ub = min(lb + cell_block, n)
+    q_lb, q_ub = query_range if query_range is not None else (0, data.num_columns)
+    for lb in range(q_lb, q_ub, cell_block):
+        ub = min(lb + cell_block, q_ub)
         c = ub - lb
         y0_rows, y0_ptr, y0_vals_w, y0_cols, seg_group = matched_block(
             data, groups, m_idx, m_dist, m_valid, lb, ub, device=device
@@ -195,8 +200,8 @@ def collect_matched_stats(
         y_cols = sparse_ops.col_ids_from_ptr(y_ptr)
         xsum = sparse_ops.block_col_sums(y_cols, y_vals, ncols=c)
         pair_query = torch.div(y0_cols, m, rounding_mode="floor")
-        dsum = torch.zeros(c, dtype=torch.float32, device=device).index_add_(
-            0, pair_query, y0_vals_w
+        dsum = sparse_ops.segment_add(
+            torch.zeros(c, dtype=torch.float32, device=device), 0, pair_query, y0_vals_w
         )
         scale = torch.where(dsum > 0, xsum / torch.clamp(dsum, min=1e-30), 1.0)
 
@@ -212,7 +217,7 @@ def collect_matched_stats(
                 y_dense,
             )
             res_chunk = torch.zeros(num_groups, g_ub - g_lb, dtype=torch.float32, device=device)
-            res_chunk.index_add_(0, qgrp, adj)
+            sparse_ops.segment_add(res_chunk, 0, qgrp, adj)
             residual[g_lb:g_ub] += res_chunk.T
 
     stat.imputed_sum_ds += imputed.cpu().numpy()

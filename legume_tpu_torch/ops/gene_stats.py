@@ -102,6 +102,22 @@ def streaming_gene_stats(data, *, block_size: int = 8192, device="cuda") -> Gene
     return GeneStreamStats(mean=mean, var=np.maximum(var, 0.0), pi=pi, n_cells=n)
 
 
+def reduce_gene_stats(local: GeneStreamStats, reduce_sums) -> GeneStreamStats:
+    """Merge per-rank gene moments: rebuild the raw sums (s1 = mean n,
+    s2 = (var + mean^2) n, cnt = pi n), sum them with the caller's
+    collective (`DistContext.reduce_sums`) and derive the global moments
+    again: the exact merge, not an average of averages."""
+    n = max(local.n_cells, 1)
+    s1 = local.mean * n
+    s2 = (local.var + local.mean * local.mean) * n
+    cnt = local.pi * n
+    s1, s2, cnt, ntot = reduce_sums(s1, s2, cnt, np.asarray([float(local.n_cells)], np.float64))
+    n_glob = max(float(ntot[0]), 1.0)
+    mean = s1 / n_glob
+    var = np.maximum(s2 / n_glob - mean * mean, 0.0)
+    return GeneStreamStats(mean=mean, var=var, pi=cnt / n_glob, n_cells=int(round(float(ntot[0]))))
+
+
 def select_hvg_by_stats(means, vars_, n_genes: int) -> np.ndarray:
     """Top-N gene indices by excess dispersion, ascending."""
     d = len(means)

@@ -64,9 +64,13 @@ def project_columns(
     batch_membership: np.ndarray | None = None,
     row_weights: np.ndarray | None = None,
     seed: int = DEFAULT_PROJECTION_SEED,
+    raw: bool = False,
     device="cuda",
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Returns `(basis_dk [D, K], proj_kn [K, N])` as numpy."""
+    """Returns `(basis_dk [D, K], proj_kn [K, N])` as numpy. `raw=True`
+    returns `(basis_dk, proj_nk [N, K])` before the batch centering and
+    the standardisation: a rank projects its own cells raw, and
+    `finish_projection` runs on the cells of every rank gathered."""
     basis_np = projection_basis(data.num_rows, target_dim, seed, row_weights)
     basis = torch.from_numpy(basis_np).to(device)
     pieces = [
@@ -78,6 +82,8 @@ def project_columns(
         if pieces
         else np.zeros((0, target_dim), np.float32)
     )
+    if raw:
+        return basis_np, proj_nk
     return finish_projection(basis_np, proj_nk, batch_membership, device=device)
 
 

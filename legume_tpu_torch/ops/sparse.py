@@ -6,8 +6,9 @@ sorted, each in [0, ncols). These are the plain versions the CUDA
 kernels in `ops/kernels.py` are held against, and the path the CPU
 takes. Their sums go through `index_add_`, so on a CUDA tensor their
 order is not fixed from run to run; `block_row_stats` (the streaming
-gene moments every card run forms) sums through `segment_add`, whose
-order is.
+gene moments every card run forms) and `block_col_sums` (the library
+sizes of the matched statistics) sum through `segment_add`, whose order
+is.
 """
 
 from __future__ import annotations
@@ -93,9 +94,9 @@ def densify_block(
 
 
 def block_col_sums(col_ids: torch.Tensor, vals: torch.Tensor, *, ncols: int) -> torch.Tensor:
-    """Per-cell library sizes of a block [ncols]."""
+    """Per-cell library sizes of a block [ncols], summed in a fixed order."""
     out = torch.zeros(ncols, dtype=torch.float32, device=vals.device)
-    return out.index_add_(0, col_ids.long(), vals.float())
+    return segment_add(out, 0, col_ids.long(), vals.float())
 
 
 def block_row_stats(row_ids: torch.Tensor, vals: torch.Tensor, *, num_genes: int):

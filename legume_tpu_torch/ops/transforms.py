@@ -39,10 +39,18 @@ def anscombe_lite(values, values_null=None, values_mean=None) -> torch.Tensor:
     return anscombe(count_rate_clean(values, values_null, values_mean))
 
 
-def anscombe_residual(y_nf, x0_nf=None, mu_f=None) -> torch.Tensor:
-    """Full encoder-input transform of [N, D] counts."""
+def anscombe_residual(y_nf, x0_nf=None, mu_f=None, *, mesh=None) -> torch.Tensor:
+    """Full encoder-input transform of [N, D] counts. The clip scale is a
+    statistic of the N rows; with a data-parallel `mesh` of more than one
+    rank, of the rows of every rank (`parallel/mesh.py::row_moments`)."""
     a = anscombe(count_rate_clean(y_nf, x0_nf, mu_f))
     r = a - a.mean(dim=-1, keepdim=True)
-    std_1f = torch.sqrt(r.var(dim=0, keepdim=True, correction=0) + EPS)
+    if mesh is not None:
+        from ..parallel.mesh import row_moments
+
+        var = row_moments(r, mesh)[1][None, :]
+    else:
+        var = r.var(dim=0, keepdim=True, correction=0)
+    std_1f = torch.sqrt(var + EPS)
     scale_1f = TANH_K * std_1f
     return scale_1f * torch.tanh(r / scale_1f)

@@ -434,7 +434,7 @@ def run_lc(args: PintoLcArgs, *, vec=None) -> LinkCommunityResult:
 
     if args.data_parallel:
         raise NotImplementedError(
-            "pinto --data-parallel is not ported yet (ROADMAP item 11: multi-GPU)")
+            "pinto --data-parallel is not ported yet (ROADMAP.md §1 item 4)")
     t_run = time.perf_counter()
     dev = args.device
     if vec is None:

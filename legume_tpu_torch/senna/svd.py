@@ -7,6 +7,11 @@ small and dense on the device; then every cell streams through it:
 (`kernels.project(normed=False)`) on the card. The JAX package forms
 that product outside Pallas (`ops/sparse.py::project_block`); it is
 exactly K2's. Runs on the card unless the caller passes `device="cpu"`.
+
+`--data-parallel` (or any world of more than one rank) projects each
+rank's contiguous range of blocks through K2 on its own device, and the
+factors gather in rank order; every rank fits the same basis, and rank 0
+writes the outputs. A world of one is the plain run.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from ..ops import kernels
 from ..ops import random_projection as rp
 from ..ops import sparse as sparse_ops
 from ..ops.rsvd import rsvd
+from ..parallel.mesh import Mesh, make_mesh, world
+from ..parallel.multihost import DistContext, block_bounds
 from ..utils.manifest import RunManifest
 from ..utils.output import matrix_columns, write_table
 from ..utils.prng import DEFAULT_PROJECTION_SEED, key_from_seed
@@ -82,6 +89,18 @@ def project_cells(vec, basis_dk: np.ndarray, *, block_size: int, column_sum_norm
     return torch.cat(pieces).cpu().numpy()
 
 
+def project_cells_sharded(mesh: Mesh, vec, basis_dk: np.ndarray, *, block_size: int,
+                          column_sum_norm: float = 0.0, device="cuda") -> np.ndarray:
+    """`project_cells` with each rank taking its share of the blocks
+    (`block_bounds`), the [N, K] factors gathered in rank order: each cell
+    lies in the block of the one-rank run, so its factors are the same."""
+    ctx = DistContext(mesh.rank, mesh.size, mesh.host_group)
+    bounds = block_bounds(vec.num_columns, block_size, mesh.size)
+    local = project_cells(ctx.local_view(vec, bounds), basis_dk, block_size=block_size,
+                          column_sum_norm=column_sum_norm, device=device)
+    return ctx.allgather_rows(local, bounds)
+
+
 def adjusted_csc(vec, plane_dp: np.ndarray, groups: np.ndarray, *, block_size: int = 8192,
                  device="cuda") -> sp.csc_matrix:
     """Batch-adjusted counts: per cell j in pseudobulk group p,
@@ -98,8 +117,9 @@ def adjusted_csc(vec, plane_dp: np.ndarray, groups: np.ndarray, *, block_size: i
         x = torch.from_numpy(csc.data.astype(np.float32)).to(device)
         cols = torch.from_numpy(np.repeat(np.arange(ub - lb), np.diff(csc.indptr))).to(device)
         mu = plane[torch.from_numpy(csc.indices.astype(np.int64)).to(device), grp[lb + cols]]
-        mu_sum = torch.zeros(ub - lb, dtype=torch.float64, device=device).index_add_(0, cols, mu.double())
-        x_sum = torch.zeros_like(mu_sum).index_add_(0, cols, x.double())
+        mu_sum = sparse_ops.segment_add(torch.zeros(ub - lb, dtype=torch.float64, device=device),
+                                        0, cols, mu.double())
+        x_sum = sparse_ops.segment_add(torch.zeros_like(mu_sum), 0, cols, x.double())
         lam = torch.where(mu_sum > 0, x_sum / torch.where(mu_sum > 0, mu_sum, 1.0), 1.0).float()
         denom = mu * lam[cols]
         data = torch.where(denom > 0, x / torch.clamp(denom, min=1e-30), x)
@@ -110,9 +130,8 @@ def adjusted_csc(vec, plane_dp: np.ndarray, groups: np.ndarray, *, block_size: i
 
 def fit_svd(args: SvdArgs, *, vec=None, device="cuda") -> dict:
     """End-to-end `senna svd`; `vec` overrides `args.data_files`."""
-    if args.data_parallel:
-        raise NotImplementedError("senna svd port does not support --data-parallel yet")
     device = torch.device(device)
+    mesh = make_mesh(device) if args.data_parallel or world()[1] > 1 else None
     timings: dict[str, float] = {}
     t_all = time.time()
     if vec is None:
@@ -158,9 +177,18 @@ def fit_svd(args: SvdArgs, *, vec=None, device="cuda") -> dict:
     timings["basis_s"] = time.time() - t0
 
     t0 = time.time()
-    factors = project_cells(vec, u, block_size=args.block_size,
-                            column_sum_norm=args.column_sum_norm, device=device)
+    if mesh is None or mesh.size == 1:
+        factors = project_cells(vec, u, block_size=args.block_size,
+                                column_sum_norm=args.column_sum_norm, device=device)
+    else:
+        factors = project_cells_sharded(mesh, vec, u, block_size=args.block_size,
+                                        column_sum_norm=args.column_sum_norm, device=device)
     timings["project_s"] = time.time() - t0
+    result = {"factors": factors, "basis": u, "singular_values": np.asarray(s), "levels": levels,
+              "pb_dp": pb_dp, "timings": timings}
+    if mesh is not None and not mesh.primary:  # rank 0 writes the outputs
+        torch.distributed.barrier()
+        return result
 
     outputs = {}
     if args.save_adjusted:
@@ -203,8 +231,9 @@ def fit_svd(args: SvdArgs, *, vec=None, device="cuda") -> dict:
         outputs={key: outputs[key] for key in ("latent", "dictionary")},
         params=dataclasses.asdict(args), timings=timings, engine="legume-tpu-torch",
     ).save(args.out)
-    return {"factors": factors, "basis": u, "singular_values": np.asarray(s), "levels": levels,
-            "pb_dp": pb_dp, "timings": timings}
+    if mesh is not None and mesh.size > 1:
+        torch.distributed.barrier()
+    return result
 
 
 def fit_joint_svd(

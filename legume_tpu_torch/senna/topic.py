@@ -22,6 +22,15 @@ Pipeline:
 
 Every entry point runs on the card unless the caller passes
 `device="cpu"`.
+
+Under a process group of more than one rank (`parallel/multihost.py`,
+one rank a GPU) every streaming pass runs over the rank's own
+nnz-balanced cell range, through K1 and K3 on its own device, and the
+global statistics merge explicitly (`DistContext`): the raw projection
+and the QC fields gather before the global centring, sort and keep mask,
+the statistic planes and gene moments sum; the trainer shares each
+minibatch over the ranks (`--data-parallel`, or any such world), each
+rank encodes its own cells, and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from ..models.train import LevelData, MixedTrainer, TrainConfig
 from ..ops import collapse as clp
 from ..ops import random_projection as rp
 from ..ops import sparse as sparse_ops
+from ..parallel.mesh import make_mesh
+from ..parallel.multihost import DistContext, block_bounds
 from ..utils import prng
 from ..utils.manifest import ArtifactScale, RunManifest, manifest_path
 from ..utils.output import matrix_columns, write_table
@@ -116,8 +127,6 @@ def check_supported(args: TopicArgs):
     """Options the port does not carry yet raise instead of running
     something else; an unknown decoder family is an error."""
     names = decoder_names(args.decoder)
-    if args.data_parallel:
-        raise NotImplementedError("senna topic port does not support --data-parallel yet")
     unknown = [n for n in names if n not in DECODERS]
     if not names or unknown:
         raise ValueError(f"unknown decoder {unknown or args.decoder!r}; choose from {sorted(DECODERS)}")
@@ -245,37 +254,62 @@ def refine_hierarchy_maps(
 
 def load_and_collapse(
     vec, args: TopicArgs, *, partition: dict | None = None, timings: dict | None = None,
-    device="cuda",
+    dist: DistContext | None = None, device="cuda",
 ) -> CollapsedLevels:
     """Projection + binary sort + partition refinement + multilevel
     collapse. `partition` (a prior run's `{out}.partition.npz`, through
     `--from`) supplies `fine_groups` and `level_maps` and skips the sort
     and the refinement; the projection still runs (the matched statistics
-    need the cells' coordinates)."""
+    need the cells' coordinates). `dist` runs every streaming pass over
+    this rank's column range only: the raw projections gather before the
+    global centring and sort, the statistic planes sum across ranks."""
+    from ..ops.gene_stats import reduce_gene_stats, streaming_gene_stats
+
     timings = timings if timings is not None else {}
     batches = vec.batch_membership()
     num_batches = vec.num_batches if not args.ignore_batch else 1
     d = vec.num_rows
+    view, lb, ub = vec, 0, vec.num_columns
+    if dist is not None:
+        bounds = dist.column_bounds(vec)
+        lb, ub = dist.local_range(bounds)
+        view = dist.local_view(vec, bounds)
+        log.info("distributed load_and_collapse: process %d/%d owns cells [%d, %d)",
+                 dist.process_index, dist.process_count, lb, ub)
 
     row_weights = None
     t0 = time.time()
     if args.hvg_genes and args.hvg_genes < d:
         from ..ops.gene_stats import hvg_row_weights
 
-        row_weights = hvg_row_weights(vec, args.hvg_genes, block_size=args.block_size, device=device)
+        stats = None
+        if dist is not None:
+            stats = reduce_gene_stats(
+                streaming_gene_stats(view, block_size=args.block_size, device=device),
+                dist.reduce_sums)
+        row_weights = hvg_row_weights(vec, args.hvg_genes, block_size=args.block_size,
+                                      stats=stats, device=device)
         log.info("hvg: projection sketch gated to %d genes", int(row_weights.sum()))
     timings["hvg_s"] = time.time() - t0
 
     t0 = time.time()
-    basis, proj_kn = rp.project_columns(
-        vec,
-        max(args.proj_dim, args.n_latent_topics),
-        block_size=args.block_size,
-        batch_membership=batches if num_batches > 1 else None,
-        row_weights=row_weights,
-        seed=args.seed,
-        device=device,
-    )
+    target_dim = max(args.proj_dim, args.n_latent_topics)
+    centring = batches if num_batches > 1 else None
+    if dist is None:
+        basis, proj_kn = rp.project_columns(
+            vec, target_dim, block_size=args.block_size, batch_membership=centring,
+            row_weights=row_weights, seed=args.seed, device=device,
+        )
+    else:
+        # each rank projects its cells raw (the basis is the seed's, the
+        # same on every rank); the global centring and standardisation run
+        # on the gathered cells
+        basis, raw_local = rp.project_columns(
+            view, target_dim, block_size=args.block_size, row_weights=row_weights,
+            seed=args.seed, raw=True, device=device,
+        )
+        basis, proj_kn = rp.finish_projection(
+            basis, dist.allgather_rows(raw_local, bounds), centring, device=device)
     timings["projection_s"] = time.time() - t0
 
     level_dims = compute_level_sort_dims(args.sort_dim, args.num_levels)
@@ -315,14 +349,23 @@ def load_and_collapse(
         if stats_fine is None:
             groups_l, s_l = fine_groups, s_fine
             stat_l = clp.collect_basic_stats(
-                vec, groups_l, s_l, num_batches=num_batches, batches=batches,
+                view, groups_l[lb:ub], s_l, num_batches=num_batches, batches=batches[lb:ub],
                 block_size=args.block_size, device=device,
             )
+            if dist is not None:
+                stat_l = dist.reduce_stat(stat_l)
             if num_batches > 1:
-                stat_l = clp.collect_matched_stats(
+                # a rank takes its own queries (their partners are read
+                # wherever they lie); the partial planes sum across ranks
+                part = clp.collect_matched_stats(
                     vec, groups_l, s_l, batches, num_batches, proj_kn.T.copy(),
-                    knn=args.knn_cells, stat=stat_l, device=device,
+                    knn=args.knn_cells, query_range=(lb, ub), device=device,
                 )
+                imputed, residual = (
+                    (part.imputed_sum_ds, part.residual_sum_ds) if dist is None
+                    else dist.reduce_sums(part.imputed_sum_ds, part.residual_sum_ds))
+                stat_l.imputed_sum_ds += imputed
+                stat_l.residual_sum_ds += residual
             stats_fine = stat_l
         else:
             f2c = level_maps[li]
@@ -392,20 +435,32 @@ def _inherit_run(args: TopicArgs) -> tuple[TopicArgs, dict | None]:
     return args, partition
 
 
-def _apply_qc(vec, args: TopicArgs, device) -> tuple[object, str]:
-    """`--qc`: per-cell statistics, the keep mask, the `{out}.qc` table,
-    and the view over the kept cells."""
-    from ..data.qc import compute_cell_qc
+def _apply_qc(vec, args: TopicArgs, device, dist: DistContext | None = None):
+    """`--qc`: per-cell statistics, the keep mask, the `{out}.qc` table
+    (rank 0's path; None on the other ranks, which write nothing), and the
+    view over the kept cells. Under `dist` each rank scans its own cells
+    and the per-cell fields gather, so every rank forms the same mask."""
+    from ..data.qc import CellQcStats, compute_cell_qc
 
-    stats = compute_cell_qc(vec, block_size=args.block_size, device=device)
+    if dist is None:
+        stats = compute_cell_qc(vec, block_size=args.block_size, device=device)
+    else:
+        qb = dist.column_bounds(vec)
+        local = compute_cell_qc(dist.local_view(vec, qb), block_size=args.block_size,
+                                device=device)
+        stats = CellQcStats(total=dist.allgather_rows(local.total, qb),
+                            n_genes=dist.allgather_rows(local.n_genes, qb),
+                            mito_frac=dist.allgather_rows(local.mito_frac, qb))
     keep = stats.keep_mask(
         min_total=args.qc_min_total, min_genes=args.qc_min_genes,
         max_mito_frac=args.qc_max_mito_frac,
     )
-    path = write_table(f"{args.out}.qc", {
-        "cell": np.asarray(vec.column_names()), "total": stats.total, "n_genes": stats.n_genes,
-        "mito_frac": stats.mito_frac, "keep": keep,
-    })
+    path = None
+    if dist is None or dist.primary:
+        path = write_table(f"{args.out}.qc", {
+            "cell": np.asarray(vec.column_names()), "total": stats.total,
+            "n_genes": stats.n_genes, "mito_frac": stats.mito_frac, "keep": keep,
+        })
     log.info("qc: keeping %d/%d cells", int(keep.sum()), vec.num_columns)
     return vec.subset_columns(keep), path
 
@@ -422,6 +477,11 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
     """End-to-end `senna topic`. `vec` overrides `args.data_files`."""
     check_supported(args)
     device = torch.device(device)
+    dist = DistContext.detect()
+    primary = dist is None or dist.primary
+    if dist is not None:
+        log.info("topic fit distributed over %d ranks (this is %d)",
+                 dist.process_count, dist.process_index)
     timings: dict[str, float] = {}
     t_all = time.time()
     partition = None
@@ -447,10 +507,13 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
     written = {}
     if args.qc:
         t0 = time.time()
-        vec, written["qc"] = _apply_qc(vec, args, device)
+        vec, qc_path = _apply_qc(vec, args, device, dist)
+        if qc_path is not None:
+            written["qc"] = qc_path
         timings["qc_s"] = time.time() - t0
 
-    levels = load_and_collapse(vec, args, partition=partition, timings=timings, device=device)
+    levels = load_and_collapse(vec, args, partition=partition, timings=timings, dist=dist,
+                               device=device)
     n_levels = len(levels.collapsed)
     keys = prng.split(prng.key(args.seed & 0x7FFFFFFF), 1 + n_levels)
     key = keys[0]
@@ -501,9 +564,16 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
     feature_weights = [None] * n_levels
     t0 = time.time()
     if args.gene_weighting == "nb-fisher":
-        from ..ops.gene_stats import nb_fisher_weights
+        from ..ops.gene_stats import nb_fisher_weights, reduce_gene_stats, streaming_gene_stats
 
-        fw = nb_fisher_weights(vec, block_size=args.block_size, device=device)
+        fw_stats = None
+        if dist is not None:
+            fb = dist.column_bounds(vec)
+            fw_stats = reduce_gene_stats(
+                streaming_gene_stats(dist.local_view(vec, fb), block_size=args.block_size,
+                                     device=device),
+                dist.reduce_sums)
+        fw = nb_fisher_weights(vec, block_size=args.block_size, stats=fw_stats, device=device)
         for i, fc in enumerate(coarsenings):
             if fc is None:
                 feature_weights[i] = fw
@@ -537,10 +607,11 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
         topic_smoothing=args.topic_smoothing,
         grad_clip=args.grad_clip,
     )
+    mesh = make_mesh(device) if args.data_parallel or dist is not None else None
     trainer = MixedTrainer(
         encoder, decoders, cfg, feature_weights=feature_weights,
         anchor_weights=anchor_weights, anchor_penalty=args.anchor_penalty,
-        decoder_weights=args.decoder_weights, device=device,
+        decoder_weights=args.decoder_weights, mesh=mesh, device=device,
     )
     timings["train_setup_s"] = time.time() - t0
     init_dictionaries = None
@@ -570,15 +641,40 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
 
     log_beta = full_log_dict(finest_decs[0])
     t0 = time.time()
-    z = evaluate_latent_by_encoder(
-        vec, trainer.encoder, finest, levels.groups_per_level[0],
+    eval_kwargs = dict(
         block_size=args.minibatch_size * 8, adj_method=args.adj_method,
         refine_log_dict=torch.from_numpy(np.ascontiguousarray(log_beta, np.float32))
         if args.amort_refine_steps > 0 else None,
         refine_steps=args.amort_refine_steps, refine_lr=args.amort_refine_lr,
         refine_reg=args.amort_refine_reg, device=device,
     )
+    if dist is None:
+        z = evaluate_latent_by_encoder(vec, trainer.encoder, finest, levels.groups_per_level[0],
+                                       **eval_kwargs)
+    else:
+        # each rank encodes its own whole blocks of the one-rank run (the
+        # encoder's clip scale is a statistic of the block's cells), and
+        # the latents gather in rank order
+        eb = block_bounds(vec.num_columns, eval_kwargs["block_size"], dist.process_count)
+        elb, eub = dist.local_range(eb)
+        z_local = evaluate_latent_by_encoder(
+            dist.local_view(vec, eb), trainer.encoder, finest,
+            levels.groups_per_level[0][elb:eub], **eval_kwargs)
+        z = dist.allgather_rows(z_local, eb)
     timings["cell_eval_s"] = time.time() - t0
+    result = {
+        "scores": scores,
+        "trainer": trainer,
+        "levels": levels,
+        "level_data": level_data,
+        "coarsenings": coarsenings,
+        "latent": z,
+        "log_beta": log_beta,
+        "timings": timings,
+    }
+    if not primary:  # rank 0 writes the outputs; the others wait for it
+        dist.barrier()
+        return result
 
     # ---- outputs -------------------------------------------------------
     t0 = time.time()
@@ -661,17 +757,9 @@ def fit_topic_model(args: TopicArgs, *, vec: SparseIoVec | None = None, device="
                              ArtifactScale.detect(log_beta, axis=0))
     manifest.record_artifact("partition", part_path, "cell_pb_partition", ArtifactScale.SIGNED)
     manifest.save(args.out)
-
-    return {
-        "scores": scores,
-        "trainer": trainer,
-        "levels": levels,
-        "level_data": level_data,
-        "coarsenings": coarsenings,
-        "latent": z,
-        "log_beta": log_beta,
-        "timings": timings,
-    }
+    if dist is not None:
+        dist.barrier()
+    return result
 
 
 def write_nuisance_tables(out: str, names, decoders, coarsening, gene_names) -> dict:

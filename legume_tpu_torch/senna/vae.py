@@ -7,7 +7,9 @@ a linear gene-axis softmax with NB noise, so the dictionary read is a
 factor-loading matrix. Outputs: `{out}.latent` (columns `z{k}`),
 `{out}.loadings`, `{out}.log_likelihood`, `{out}.model.{npz,json}` (model
 type `vae`) and `{out}.senna.json`. Runs on the card unless the caller
-passes `device="cpu"`.
+passes `device="cpu"`. `--data-parallel` (or any world of more than one
+rank) shares each minibatch over the ranks (`models/train.py`); rank 0
+writes the outputs. A world of one is the plain run.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..models.convert import params_from_jax
 from ..models.decoders import GaussianNbDecoder
 from ..models.encoders import GaussianEncoder
 from ..models.train import MixedTrainer, TrainConfig
+from ..parallel.mesh import make_mesh, world
 from ..utils import prng
 from ..utils.manifest import RunManifest, manifest_path
 from ..utils.output import matrix_columns, write_table
@@ -86,9 +89,8 @@ def _warm_state(args: VaeArgs, d: int):
 
 def fit_vae(args: VaeArgs, *, vec=None, device="cuda") -> dict:
     """End-to-end `senna vae`; `vec` overrides `args.data_files`."""
-    if args.data_parallel:
-        raise NotImplementedError("senna vae port does not support --data-parallel yet")
     device = torch.device(device)
+    mesh = make_mesh(device) if args.data_parallel or world()[1] > 1 else None
     timings: dict[str, float] = {}
     t_all = time.time()
     if args.from_run:
@@ -134,7 +136,7 @@ def fit_vae(args: VaeArgs, *, vec=None, device="cuda") -> dict:
         TrainConfig(epochs=args.epochs, minibatch_size=args.minibatch_size,
                     learning_rate=args.learning_rate, grad_clip=args.grad_clip,
                     topic_smoothing=0.0),  # a Gaussian latent: no simplex smoothing
-        device=device,
+        mesh=mesh, device=device,
     )
     if warm is not None:
         trainer.warm_start(*warm)
@@ -154,6 +156,11 @@ def fit_vae(args: VaeArgs, *, vec=None, device="cuda") -> dict:
     gene_names = np.asarray(vec.row_names())
     with torch.no_grad():
         loadings = trainer.decoders[0].get_dictionary().cpu().numpy()
+    result = {"latent": z, "loadings": loadings, "scores": scores, "trainer": trainer,
+              "levels": levels, "level_data": level_data, "timings": timings}
+    if mesh is not None and not mesh.primary:  # rank 0 writes the outputs
+        torch.distributed.barrier()
+        return result
     outputs = {
         "latent": write_table(f"{args.out}.latent",
                               matrix_columns(z, "z", "cell", vec.column_names())),
@@ -171,5 +178,6 @@ def fit_vae(args: VaeArgs, *, vec=None, device="cuda") -> dict:
         params=dataclasses.asdict(args), timings=timings, engine="legume-tpu-torch",
     ).save(args.out)
     log.info("vae: wrote %s", outputs["latent"])
-    return {"latent": z, "loadings": loadings, "scores": scores, "trainer": trainer,
-            "levels": levels, "level_data": level_data, "timings": timings}
+    if mesh is not None and mesh.size > 1:
+        torch.distributed.barrier()
+    return result

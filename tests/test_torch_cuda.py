@@ -1638,3 +1638,92 @@ def test_faba_annotate_projection_on_the_card_is_bit_equal(dev, tmp_path):
                                       check_exact=True)
     ann = pd.read_parquet(tmp_path / "r1.spliced.annotation.parquet")["annotation"].to_numpy()
     assert (ann == np.array(["Alpha"] * nh + ["Beta"] * nh)).mean() > 0.95
+
+
+def _dp_run(argv, cwd, env_extra, timeout=600):
+    """`python -m legume_tpu_torch` in `cwd` under the process-group
+    switches `env_extra`; returns the process (started)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parents[1]), **env_extra}
+    return subprocess.Popen([sys.executable, "-m", "legume_tpu_torch", *argv], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _dp_wait(procs, timeout=600):
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+
+
+def test_topic_data_parallel_on_the_card(dev, tmp_path):
+    """`senna topic --data-parallel` on the JAX package's two-process test
+    data and flags (`tests/torch_dp.py`): (a) a world of one over NCCL
+    writes the plain run's latent, dictionary, llik trace, QC table and
+    partition bit for bit; (b) two ranks sharing the card over gloo give
+    the same QC keep mask and partition, proportions within 0.05 (the
+    dominant topic agreeing for more than 95% of cells) and the llik trace
+    within rtol 2e-2, atol 1e-2, and only rank 0 writes (chip_smoke.py's
+    phase 43 at a small size)."""
+    import socket
+    import sys
+    from pathlib import Path
+
+    from legume_tpu_torch.utils.output import read_table
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_dp import TOPIC_ARGV, two_batch_store
+
+    argv = ["senna", "topic", "--data-files", *two_batch_store(tmp_path), "--out", "t",
+            *TOPIC_ARGV]
+
+    def world(size, rank, port):
+        return {"LEGUME_COORDINATOR": f"127.0.0.1:{port}", "LEGUME_NUM_PROCESSES": str(size),
+                "LEGUME_PROCESS_ID": str(rank)}
+
+    def port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    for d in ("plain", "a", "b0", "b1"):
+        (tmp_path / d).mkdir()
+    p2 = port()
+    _dp_wait([_dp_run(argv, tmp_path / "plain", {}),
+              _dp_run(argv + ["--data-parallel"], tmp_path / "a", world(1, 0, port())),
+              *[_dp_run(argv + ["--data-parallel"], tmp_path / f"b{r}", world(2, r, p2))
+                for r in range(2)]])
+    plain, a, b = (str(tmp_path / d / "t") for d in ("plain", "a", "b0"))
+    for name in ("latent", "dictionary", "log_likelihood", "qc"):
+        x, y = read_table(f"{plain}.{name}.parquet"), read_table(f"{a}.{name}.parquet")
+        assert list(x) == list(y)
+        for k in x:
+            np.testing.assert_array_equal(y[k], x[k])
+    np.testing.assert_array_equal(read_table(f"{b}.qc.parquet")["keep"],
+                                  read_table(f"{plain}.qc.parquet")["keep"])
+    for other in (a, b):
+        with np.load(f"{plain}.partition.npz") as x, np.load(f"{other}.partition.npz") as y:
+            assert sorted(x.files) == sorted(y.files)
+            for k in x.files:
+                np.testing.assert_array_equal(y[k], x[k])
+    assert list((tmp_path / "b1").iterdir()) == []
+
+    def props(prefix):
+        t = read_table(f"{prefix}.latent.parquet")
+        return np.exp(np.column_stack([v for k, v in t.items() if k != "cell"]))
+
+    z1, z2 = props(plain), props(b)
+    np.testing.assert_allclose(z2, z1, atol=0.05)
+    assert (z1.argmax(1) == z2.argmax(1)).mean() > 0.95
+    np.testing.assert_allclose(read_table(f"{b}.log_likelihood.parquet")["llik"],
+                               read_table(f"{plain}.log_likelihood.parquet")["llik"],
+                               rtol=2e-2, atol=1e-2)

@@ -245,5 +245,5 @@ def test_faba_parser_carries_jax_flags_and_defaults(monkeypatch):
 
 
 def test_data_parallel_raises(sim, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 4"):
         t_faba(["gem", "--spliced", "x", "--unspliced", "y", "--output", "o", "--data-parallel"])

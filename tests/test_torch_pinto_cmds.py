@@ -133,7 +133,7 @@ def test_lc_cli_matches_jax(files, variant):
 
 
 def test_lc_data_parallel_raises(files):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 4"):
         t_pinto(["lc", "--data-files", files["store"], "--coords", files["coords"], "--out",
                  str(files["tmp"] / "dp"), "--data-parallel", "--device", "cpu"])
 

@@ -14,6 +14,7 @@ from legume_tpu_torch.cli.main import main as port_cli
 from legume_tpu_torch.data.sim import simulate_multimodal, simulate_topic
 from legume_tpu_torch.senna import svd as tsvd
 from legume_tpu_torch.utils.output import read_table
+from torch_cpu import one_thread
 
 COMMON = dict(n_factors=6, block_size=128, sort_dim=6, iter_opt=10)
 
@@ -135,5 +136,13 @@ def test_svd_cli_cnv_and_data_parallel(runs, tmp_path):
     assert list(cnv) == ["pseudobulk", "bin", "state", "log_ratio"]
     assert set(np.unique(cnv["state"])) <= {0, 1, 2}
     assert list(read_table(out + ".latent.parquet")) == ["cell", "f0", "f1", "f2", "f3"]
-    with pytest.raises(NotImplementedError, match="--data-parallel"):
-        port_cli(argv + ["--data-parallel"])
+    # --data-parallel without a process group is a world of one: the plain
+    # run's outputs, bit for bit (two ranks: tests/test_torch_multiprocess.py)
+    with one_thread():
+        assert port_cli(argv + ["--out", out + "_1t"]) == 0
+        assert port_cli(argv + ["--data-parallel", "--out", out + "_dp"]) == 0
+    for name in ("latent", "dictionary", "singular_values", "cnv"):
+        plain, dp = (read_table(f"{o}.{name}.parquet") for o in (out + "_1t", out + "_dp"))
+        assert list(plain) == list(dp)
+        for col in plain:
+            np.testing.assert_array_equal(dp[col], plain[col])

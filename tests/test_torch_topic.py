@@ -15,6 +15,8 @@ from legume_tpu.senna import topic as jtopic
 from legume_tpu_torch.cli.main import main as port_cli
 from legume_tpu_torch.data.sim import simulate_topic
 from legume_tpu_torch.senna import topic as ttopic
+from legume_tpu_torch.utils.output import read_table
+from torch_cpu import one_thread
 
 EPOCHS = 8
 COMMON = dict(n_latent_topics=4, encoder_layers=(32, 16), epochs=EPOCHS, block_size=256)
@@ -119,10 +121,18 @@ def test_cli_runs_and_rejects_unported_options(runs, tmp_path):
     assert port_cli(argv + ["--decoder", "multinomial", "--out", out + "_mn",
                             "--preload-data"]) == 0
     assert json.loads((tmp_path / "cli_mn.model.json").read_text())["decoder"] == "multinomial"
-    # what stays off: data parallelism (the CNV side channel runs:
-    # tests/test_torch_cnv.py); the vae decoder runs (tests/test_torch_vae.py)
-    with pytest.raises(NotImplementedError, match="--data-parallel"):
-        port_cli(argv + ["--data-parallel"])
+    # --data-parallel without a process group is a world of one: the plain
+    # run's outputs, bit for bit (two ranks: tests/test_torch_multiprocess.py;
+    # the CNV side channel: tests/test_torch_cnv.py; the vae decoder:
+    # tests/test_torch_vae.py)
+    with one_thread():
+        assert port_cli(argv + ["--out", out + "_1t", "--preload-data"]) == 0
+        assert port_cli(argv + ["--data-parallel", "--out", out + "_dp", "--preload-data"]) == 0
+    for name in ("latent", "dictionary", "log_likelihood", "pb_latent"):
+        plain, dp = (read_table(f"{o}.{name}.parquet") for o in (out + "_1t", out + "_dp"))
+        assert list(plain) == list(dp)
+        for col in plain:
+            np.testing.assert_array_equal(dp[col], plain[col])
     assert port_cli(argv + ["--decoder", "gaussian-nb", "--out", out + "_gnb",
                             "--preload-data"]) == 0
     assert json.loads((tmp_path / "cli_gnb.model.json").read_text())["decoder"] == "gaussian-nb"

@@ -31,6 +31,7 @@ from legume_tpu_torch.senna import predict as tpred
 from legume_tpu_torch.senna import topic as ttopic
 from legume_tpu_torch.senna import vae as tvae
 from legume_tpu_torch.utils.output import read_table
+from torch_cpu import one_thread
 
 D, H, LAYERS, MB = 30, 4, (12, 8), 10
 FIT = dict(n_latent=4, encoder_layers=(16, 8), epochs=6, minibatch_size=40, block_size=128,
@@ -166,8 +167,17 @@ def test_vae_cli_from_init_from_and_data_parallel(runs, tmp_path):
     with pytest.raises(ValueError, match="architecture mismatch"):
         port_cli(base + ["--data-files", runs["path"], "-k", "5",
                          "--init-from", str(runs["tmp"] / "jax0")])
-    with pytest.raises(NotImplementedError, match="--data-parallel"):
-        port_cli(base + ["--data-files", runs["path"], "--data-parallel"])
+    # --data-parallel without a process group is a world of one: the plain
+    # run's outputs, bit for bit (two ranks: tests/test_torch_multiprocess.py)
+    plain = base + ["--data-files", runs["path"]]
+    with one_thread():
+        assert port_cli(plain) == 0
+        assert port_cli(plain[:3] + [out + "_dp"] + plain[4:] + ["--data-parallel"]) == 0
+    for name in ("latent", "loadings", "log_likelihood"):
+        a, b = (read_table(f"{o}.{name}.parquet") for o in (out, out + "_dp"))
+        assert list(a) == list(b)
+        for col in a:
+            np.testing.assert_array_equal(b[col], a[col])
 
 
 def test_topic_gaussian_nb_model_loads_in_both(runs, tmp_path):

@@ -10,6 +10,8 @@ one thread, against 8.7 s alone on eight. Importing `one_torch_thread` into a te
 that module's torch work on one thread; the count is restored after it.
 """
 
+import contextlib
+
 import pytest
 import torch
 
@@ -20,3 +22,16 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one thread inside the block: two runs of a command are
+    bit-equal there (on several threads its CPU sums may part in the last
+    bits from run to run)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
