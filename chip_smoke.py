@@ -343,7 +343,23 @@ Phases (any failure exits non-zero; nothing is caught):
    after (a), in one more process, `senna svd --save-adjusted` and `senna
    vae` with phases 18 and 17's arguments plus `--data-parallel` on
    x.zarr as worlds of one over NCCL, every output bit-equal to theirs
-   (svd launching K2, vae K1 and K3);
+   (svd launching K2, vae K1 and K3); (d) after those, in the same
+   process, `senna bge` and `bge --posterior` (phases 5 and 13b, on phase
+   5's cells written to a store), `senna masked-topic` (phase 20, on
+   x.zarr) and `cocoa diff` (phase 15, its cells written to a store, so
+   the match cache is built again), in a process started after phase 33
+   `faba gem --raw`, `--posterior 4` and `gem-encoder` (phase 33's
+   inputs), and in one started after phase 35 `pinto lc` (its cells
+   written to a store), each with its phase's argv plus `--data-parallel`
+   as a world of one over NCCL: every output table bit-equal to its
+   phase's and every kernel launched as often; (e) `senna bge` after (b)
+   in (b)'s rank processes and `pinto lc` in two more started after phase
+   35, each as two ranks sharing the card over gloo: bge's cell and
+   feature embeddings within rtol 5e-3, atol 5e-5 of phase 5's and each
+   rank's K4 launches 1,000 full and 100 axis a block, lc's planted-domain
+   completeness within 0.02 of phase 35's and above 0.85 with K2 and K3
+   launched on each rank; each rank's pseudobulk rows or edges (disjoint,
+   covering all) and seconds, and only rank 0's files;
 44. print the script's total seconds, one JSON line of all kernels, then
    the device line last.
 
@@ -4732,7 +4748,9 @@ def model_stack_phase(dev, card: str, *, shape=ARCHETYPE_SHAPE) -> None:
 # Phase 43: one port CLI command a rank, through `python -m legume_tpu_torch`
 # (`runpy`), each under its own process-group switches (`LEGUME_COORDINATOR`
 # etc.); after each, one JSON line: the rank, its seconds, its launches and
-# the cell range its `load_and_collapse` logged (distributed runs only).
+# the range of cells, pseudobulk rows or edges it logged (distributed runs
+# only: `load_and_collapse`'s cells, bge's rows and lc's edges, the last two
+# with the total).
 DP_RUNNER = r"""
 import json, logging, os, runpy, sys, time
 from legume_tpu_torch.ops import kernels as K
@@ -4742,11 +4760,14 @@ class Ranges(logging.Handler):
         super().__init__()
         self.cells = None
     def emit(self, record):
-        if record.getMessage().startswith("distributed load_and_collapse"):
+        msg = record.getMessage()
+        if msg.startswith("distributed load_and_collapse"):
             self.cells = list(record.args[2:4])
+        elif msg.startswith(("lc: rank", "bge: rank")):  # [lb, ub) of all
+            self.cells = list(record.args[1:4])
 
 ranges = Ranges()
-logging.getLogger("legume_tpu_torch.senna.topic").addHandler(ranges)
+logging.getLogger("legume_tpu_torch").addHandler(ranges)
 for name, env, argv in json.loads(sys.argv[1]):
     os.environ.update(env)
     K.reset_launch_counts()
@@ -4788,11 +4809,14 @@ def _world(size: int, rank: int, port: int) -> dict:
             "LEGUME_PROCESS_ID": str(rank)}
 
 
-def start_data_parallel(work: str, store: str, bfile: str, device: str = "cuda") -> dict:
+def start_data_parallel(work: str, store: str, bfile: str, device: str = "cuda", *,
+                        more=(), more_ranks=None) -> dict:
     """Phase 43's processes, started right after phase 21: the (a) -> (c)
     chain and the two ranks of (b), each in a working directory of its own
     (the topic prefix is relative, so a rank that writes nothing leaves its
-    directory empty). `device="cpu"` rehearses the phase on a CPU host."""
+    directory empty). `more` runs after (c) in its process (slice 19's
+    worlds of one, (d)); `more_ranks(r)` after (b) in rank r's ((e)).
+    `device="cpu"` rehearses the phase on a CPU host."""
     data = ["--data-files", store, "--batch-files", bfile]
     topic = ["senna", "topic", *data, "--epochs", "1", "--device", device, "--data-parallel"]
     one = [["a", _world(1, 0, _free_port()), topic + ["--out", "topic_dp"]]]
@@ -4801,7 +4825,7 @@ def start_data_parallel(work: str, store: str, bfile: str, device: str = "cuda")
            "--save-adjusted", "--data-parallel"]],
          ["vae", _world(1, 0, _free_port()),
           ["senna", "vae", *data, "--out", f"{work}/vae_dp", "--epochs", "5", "--device",
-           device, "--data-parallel"]]]
+           device, "--data-parallel"]]] + list(more)
     import os
 
     env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
@@ -4815,7 +4839,8 @@ def start_data_parallel(work: str, store: str, bfile: str, device: str = "cuda")
     port = _free_port()
     started["ranks"] = [subprocess.Popen(
         [sys.executable, "-c", DP_RUNNER, json.dumps([["b", _world(2, r, port), topic
-                                                       + ["--out", "topic_dp"]]])],
+                                                       + ["--out", "topic_dp"]]]
+                                                     + (more_ranks(r) if more_ranks else []))],
         cwd=dirs[f"rank{r}"], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for r in range(2)]
     CHILDREN.extend([started["chain"], *started["ranks"]])
@@ -4855,18 +4880,22 @@ def _proportions(prefix: str) -> np.ndarray:
     return np.exp(np.column_stack([v for k, v in t.items() if k != "cell"]).astype(np.float64))
 
 
-def data_parallel_phase(work: str, started: dict, n_cells: int, card: str) -> dict:
+def data_parallel_phase(work: str, started: dict, n_cells: int, card: str,
+                        slice19: dict | None = None) -> dict:
     """Phase 43: join `start_data_parallel`'s processes and hold their
-    outputs against phases 21, 18 and 17 (see the module's docstring).
-    Returns each run's launches (rank by rank for (b))."""
+    outputs against phases 21, 18 and 17 (see the module's docstring),
+    then, with `slice19` (`start_gem_dp`'s and `start_lc_dp`'s processes
+    and the phases' launches), slice 19's runs (`slice19_phase`).
+    Returns each run's launches (rank by rank for (b) and (e))."""
     from legume_tpu_torch.data.sparse_io import open_sparse_matrix
     from legume_tpu_torch.utils.output import read_table
 
     ref = f"{work}/topic_zarr"
-    ranks, waits = [], []
+    ranks, waits, e_bge = [], [], []
     for r, proc in enumerate(started["ranks"]):
         lines, wait = _dp_lines(proc, f"rank {r} of (b)")
-        ranks.extend(lines)
+        ranks.extend(ln for ln in lines if ln["dp_run"] == "b")
+        e_bge.extend(ln for ln in lines if ln["dp_run"] == "e_bge")
         waits.append(wait)
     chain, chain_wait = _dp_lines(started["chain"], "(a) / (c)")
     runs = {ln["dp_run"]: ln for ln in chain}
@@ -4939,11 +4968,263 @@ def data_parallel_phase(work: str, started: dict, n_cells: int, card: str) -> di
     if runs["svd"]["launches"]["project_raw"] == 0 or any(
             runs["vae"]["launches"][k] == 0 for k in need):
         failed.append(f"(c) skipped a kernel: {line_c['launches']}")
+    out = {"topic_dp1": runs["a"]["launches"], "svd_dp1": runs["svd"]["launches"],
+           "vae_dp1": runs["vae"]["launches"],
+           **{f"topic_dp2_rank{ln['rank']}": ln["launches"] for ln in ranks}}
+    if slice19 is not None:  # joined and checked whatever slice 18's runs gave
+        chain_d = {k: v for k, v in runs.items() if k in DP_TABLES}
+        try:
+            out.update(slice19_phase(work, chain_d, e_bge, slice19["gem"], slice19["lc"],
+                                     slice19["refs"], card))
+        except AssertionError as e:
+            failed.append(str(e))
     if failed:
         raise AssertionError("; ".join(failed))
-    return {"topic_dp1": runs["a"]["launches"], "svd_dp1": runs["svd"]["launches"],
-            "vae_dp1": runs["vae"]["launches"],
-            **{f"topic_dp2_rank{ln['rank']}": ln["launches"] for ln in ranks}}
+    return out
+
+
+# Slice 19's runs of phase 43. (d): each command of its phase through `python
+# -m legume_tpu_torch ... --data-parallel` as a world of one over NCCL, on
+# the phase's input (written to a store where the phase held it in memory),
+# every output table bit-equal to the phase's and every kernel launched as
+# often. (e): `senna bge` and `pinto lc` as two ranks sharing the card over
+# gloo. Each entry: the phase's output prefix, the tables compared, the
+# command's argv but `--out` (`--output` for faba) and the device switches.
+DP_TABLES = {
+    "cocoa": ("effect", "pvalue", "shared", "residual", "cnv.states", "cnv.cn_score"),
+    "bge": ("latent", "feature_embedding", "dictionary", "topic_latent"),
+    "bge_posterior": ("latent", "feature_embedding", "feature_posterior"),
+    "masked_topic": ("latent", "loss"),
+    "gem_raw": ("gene_embedding", "velocity", "gene_velocity", "latent", "feature_embedding"),
+    "gem_posterior": ("gene_embedding", "velocity", "latent", "delta_posterior"),
+    "gem_encoder": ("gene_embedding", "velocity", "latent"),
+    "pinto_lc": ("propensity", "edges", "score_trace", "gene_community", "consensus"),
+}
+DP_COUNTS = ("project_normed", "project_raw", "collapse", "nce_epoch", "nce_epoch_axis",
+             "collapse_gather")
+
+
+def _dp_job(name: str, argv: list, out: str, device: str, *, size: int = 1, rank: int = 0,
+            port: int | None = None) -> list:
+    flag = "--output" if argv[0] == "faba" else "--out"
+    return [name, _world(size, rank, port or _free_port()),
+            argv + [flag, out, "--device", device, "--data-parallel"]]
+
+
+def start_slice19_inputs(work: str, sim, cocoa_vec) -> dict:
+    """The stores (d) and (e) read that their phases held in memory: phase
+    5's cells and phase 15's, written once on a thread of the main process
+    beside phases 17-20 (`slice19_inputs` joins it)."""
+    import threading
+
+    from legume_tpu_torch.data.sparse_io import create_sparse_from_csc
+
+    out = {"bge": f"{work}/bge_cells.zarr", "cocoa": f"{work}/collider_cells.zarr"}
+
+    def write():
+        t0 = time.time()
+        csc = sim.counts.tocsc()[:, :BGE_CELLS]
+        create_sparse_from_csc(csc, out["bge"], sim.row_names, sim.col_names[:BGE_CELLS])
+        n = cocoa_vec.num_columns
+        create_sparse_from_csc(cocoa_vec.read_columns_csc(np.arange(n)), out["cocoa"],
+                               cocoa_vec.row_names(), cocoa_vec.column_names())
+        out["write_s"] = time.time() - t0
+
+    out["thread"] = threading.Thread(target=write)
+    out["thread"].start()
+    return out
+
+
+def slice19_inputs(started: dict) -> dict:
+    """`start_slice19_inputs`' stores, once written (its seconds, and the
+    main process's wait for them)."""
+    t0 = time.time()
+    started["thread"].join()
+    if "write_s" not in started:
+        raise AssertionError("slice 19's stores were not written")
+    return {**started, "wait_s": time.time() - t0}
+
+
+def slice19_jobs_at_21(work: str, stores: dict, x_store: str, device: str = "cuda"):
+    """(d)'s runs that follow (c) in its process (`cocoa diff`, `senna bge`,
+    `bge --posterior`, `senna masked-topic`), and (e)'s `senna bge` for
+    rank r's process after (b)."""
+    bge = ["senna", "bge", "--data-files", stores["bge"]]
+    more = [
+        _dp_job("bge", bge, f"{work}/bge_dp", device),
+        _dp_job("bge_posterior", bge + ["--posterior", str(POSTERIOR_SWEEPS), "--skip-etm"],
+                f"{work}/bge_post_dp", device),
+        _dp_job("masked_topic", ["senna", "masked-topic", "--data-files", x_store, "--epochs", "5",
+                                 "--batch-files", f"{work}/train.batch.txt",
+                                 "--eval-mask-fraction", "0.1"],
+                f"{work}/masked_topic_dp", device),
+        _dp_job("cocoa", ["cocoa", "diff", "--data-files", stores["cocoa"], "--indv",
+                          f"{work}/collider.indv.txt", "--exposure", f"{work}/exposure.tsv",
+                          "--topic-assignment", f"{work}/collider.types.txt", "--permutations",
+                          "12", "--cnv-ground-truth", f"{work}/truth.tsv", "--cnv-ref-iters",
+                          str(COCOA_REF_ITERS)], f"{work}/collider_dp.de", device),
+    ]
+    port = _free_port()
+    return more, lambda r: [_dp_job("e_bge", bge, "bge_dp2", device, size=2, rank=r, port=port)]
+
+
+def _runner(jobs: list, cwd: Path, env: dict):
+    proc = subprocess.Popen([sys.executable, "-c", DP_RUNNER, json.dumps(jobs)], cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+def _dp_env() -> dict:
+    import os
+
+    return {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+
+
+def start_gem_dp(work: str, store: str, device: str = "cuda") -> dict:
+    """(d)'s `faba gem --raw`, `--posterior 4` and `gem-encoder` with phase
+    33's inputs, in one process started after phase 33."""
+    pb_in = ["--spliced", f"{work}/pb_s.zarr", "--unspliced", f"{work}/pb_u.zarr"]
+    jobs = [
+        _dp_job("gem_raw", ["faba", "gem", "--spliced", store, "--unspliced",
+                            f"{work}/unspliced.zarr", "--raw"], f"{work}/gem_raw_dp", device),
+        _dp_job("gem_posterior", ["faba", "gem", "--posterior", "4"] + pb_in,
+                f"{work}/gem_posterior_dp", device),
+        _dp_job("gem_encoder", ["faba", "gem-encoder"] + pb_in, f"{work}/gem_encoder_dp", device),
+    ]
+    d = Path(f"{work}/dp_gem")
+    d.mkdir()
+    return {"t": time.time(), "proc": _runner(jobs, d, _dp_env())}
+
+
+def start_lc_dp(work: str, kept: dict, device: str = "cuda") -> dict:
+    """(d)'s and (e)'s `pinto lc` on phase 35's cells, written to a store
+    (the phase held them in memory), started after phase 35: the world of
+    one in a process of its own, the two ranks in one each."""
+    from legume_tpu_torch.data.sparse_io import create_sparse_from_csc
+
+    t0 = time.time()
+    d = f"{work}/pinto"
+    create_sparse_from_csc(kept["csc"], f"{d}/cells.zarr", kept["genes"], kept["cells"])
+    write_s = time.time() - t0
+    lc = ["pinto", "lc", "--data-files", f"{d}/cells.zarr", "--coords", f"{d}/xy.tsv"]
+    dirs = {k: Path(f"{work}/dp_lc_{k}") for k in ("one", "rank0", "rank1")}
+    for p in dirs.values():
+        p.mkdir()
+    env, port = _dp_env(), _free_port()
+    started = {"t": time.time(), "write_s": write_s, "dirs": dirs,
+               "one": _runner([_dp_job("pinto_lc", lc, f"{d}/lc_dp", device)], dirs["one"], env)}
+    started["ranks"] = [_runner([_dp_job("e_lc", lc, "lc_dp2", device, size=2, rank=r,
+                                         port=port)], dirs[f"rank{r}"], env) for r in range(2)]
+    return started
+
+
+def _counts_equal(a: dict, b: dict) -> bool:
+    return all(a.get(k, 0) == b.get(k, 0) for k in DP_COUNTS)
+
+
+def _covers(ranges: list) -> bool:
+    """Two ranks' `[lb, ub, total]` ranges: disjoint, in order, covering all."""
+    r = sorted(tuple(x) for x in ranges)
+    return (len(r) == 2 and r[0][0] == 0 and r[0][1] == r[1][0] and r[1][1] == r[0][2]
+            == r[1][2])
+
+
+def slice19_phase(work: str, chain: dict, rank_lines: list, gem: dict, lc: dict, refs: dict,
+                  card: str) -> dict:
+    """Join slice 19's runs and hold them to their phases: (d) bit-equal
+    tables and equal launches, (e) the bars of the module's docstring.
+    `chain` maps (d)'s names at phase 21 to their lines, `rank_lines` are
+    the (e) bge lines of (b)'s rank processes, `refs` each phase's launches
+    (and phase 35's planted domains). Returns each run's launches."""
+    from legume_tpu_torch.utils.output import read_table
+
+    gem_lines, gem_wait = _dp_lines(gem["proc"], "gem (d)")
+    lc_one, lc_wait = _dp_lines(lc["one"], "lc (d)")
+    lc_ranks = []
+    for r, proc in enumerate(lc["ranks"]):
+        lc_ranks.extend(_dp_lines(proc, f"lc (e) rank {r}")[0])
+    runs = {**chain, **{ln["dp_run"]: ln for ln in gem_lines + lc_one}}
+    phase_out = {"cocoa": f"{work}/collider.de", "bge": f"{work}/bge",
+                 "bge_posterior": f"{work}/bge_post", "masked_topic": f"{work}/masked_topic",
+                 "gem_raw": f"{work}/gem_raw", "gem_posterior": f"{work}/gem_posterior",
+                 "gem_encoder": f"{work}/gem_encoder", "pinto_lc": f"{work}/pinto/lc"}
+    dp_out = {"cocoa": f"{work}/collider_dp.de", "bge_posterior": f"{work}/bge_post_dp",
+              "pinto_lc": f"{work}/pinto/lc_dp"}
+    failed, launches = [], {}
+    for name, tables in DP_TABLES.items():
+        ref, got = phase_out[name], dp_out.get(name, f"{work}/{name}_dp")
+        eq = _tables_equal(ref, got, tables)
+        if name == "masked_topic":
+            eq["eval"] = (json.loads(Path(f"{ref}.eval.json").read_text())
+                          == json.loads(Path(f"{got}.eval.json").read_text()))
+        if name == "gem_raw":
+            eq["partition"] = _partitions_equal(ref, got)
+        ln = runs[name]
+        same = _counts_equal(ln["launches"], refs[name])
+        launches[f"{name}_dp1"] = ln["launches"]
+        print(json.dumps({"phase": "data_parallel_world_of_one", "run": name,
+                          "run_s": ln["seconds"], "launches": ln["launches"],
+                          "phase_launches": {k: refs[name].get(k, 0) for k in DP_COUNTS},
+                          "launches_equal": same, "bit_equal_to_phase": eq, "card": card}),
+              flush=True)
+        if not (all(eq.values()) and same):
+            failed.append(f"(d) {name}: {eq}, launches {ln['launches']} vs {refs[name]}")
+
+    # (e) senna bge: two ranks against phase 5's run
+    ref = f"{work}/bge"
+    got = str(Path(work) / "dp_rank0" / "bge_dp2")
+    n_blocks = -(-BGE_CELLS // 2048)
+    gaps, within = {}, {}
+    for name in ("latent", "feature_embedding"):
+        a, b = (np.column_stack([v for v in read_table(f"{p}.{name}.parquet").values()][1:])
+                .astype(np.float64) for p in (got, ref))
+        gaps[name] = float(np.abs(a - b).max())
+        within[name] = bool(np.allclose(a, b, rtol=5e-3, atol=5e-5))
+    k4_ok = all(ln["launches"]["nce_epoch"] == 1000 + n_blocks * 100
+                and ln["launches"]["nce_epoch_axis"] == n_blocks * 100 for ln in rank_lines)
+    rank1 = sorted(p.name for p in (Path(work) / "dp_rank1").iterdir())
+    line = {"phase": "data_parallel_two_ranks", "run": "bge", "backend": "gloo",
+            "ranks": [{k: ln[k] for k in ("rank", "cells", "seconds", "launches")}
+                      for ln in rank_lines],
+            "pb_rows_cover": _covers([ln["cells"] for ln in rank_lines]),
+            "max_abs_gap": gaps, "within_rtol_5e-3_atol_5e-5": within,
+            "k4_launches_per_rank_ok": k4_ok, "rank1_files": rank1, "card": card}
+    print(json.dumps(line), flush=True)
+    if not (all(within.values()) and k4_ok and line["pb_rows_cover"] and not rank1):
+        failed.append(f"(e) bge: {line}")
+    for ln in rank_lines:
+        launches[f"bge_dp2_rank{ln['rank']}"] = ln["launches"]
+
+    # (e) pinto lc: two ranks against phase 35's run
+    domain = refs["pinto_domain"]
+
+    def comp(prefix):
+        t = read_table(f"{prefix}.propensity.parquet")
+        prop = np.column_stack([v for k, v in t.items() if k.startswith("c") and k != "cell"])
+        return completeness(prop.argmax(1), domain)
+
+    c_ref, c_two = comp(phase_out["pinto_lc"]), comp(str(lc["dirs"]["rank0"] / "lc_dp2"))
+    lc_rank1 = sorted(p.name for p in lc["dirs"]["rank1"].iterdir())
+    kernels_ok = all(ln["launches"]["project_raw"] > 0 and ln["launches"]["collapse"] > 0
+                     for ln in lc_ranks)
+    line = {"phase": "data_parallel_two_ranks", "run": "pinto_lc", "backend": "gloo",
+            "ranks": [{k: ln[k] for k in ("rank", "cells", "seconds", "launches")}
+                      for ln in lc_ranks],
+            "edges_cover": _covers([ln["cells"] for ln in lc_ranks]),
+            "completeness": c_two, "phase35_completeness": c_ref,
+            "k2_k3_launched_on_each_rank": kernels_ok, "rank1_files": lc_rank1,
+            "store_write_s": lc["write_s"], "wait_s": {"gem": gem_wait, "lc": lc_wait},
+            "card": card}
+    print(json.dumps(line), flush=True)
+    if not (abs(c_two - c_ref) <= 0.02 and c_two > 0.85 and kernels_ok and line["edges_cover"]
+            and not lc_rank1):
+        failed.append(f"(e) pinto lc: {line}")
+    for ln in lc_ranks:
+        launches[f"pinto_lc_dp2_rank{ln['rank']}"] = ln["launches"]
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return launches
 
 
 def mark(name: str, t_script: float) -> None:
@@ -5457,6 +5738,7 @@ def run(work: str, t_script: float) -> int:
     rest_runs_phase(work, dev, card)
     slice9.update(cocoa_phase(work, K, dev, card, checks, kept))
     slice9["topic_cnv"] = topic_cnv_phase(work, vec, K, dev, card)
+    s19_writes = start_slice19_inputs(work, sim, kept["cocoa"]["vec"])  # phase 43's, meanwhile
 
     # ---- phases 17-20: vae, svd / joint-svd, joint-topic, masked models ----
     mark("17-20 vae, svd, joint, masked", t_script)
@@ -5472,7 +5754,14 @@ def run(work: str, t_script: float) -> int:
     mark("21-27 stores .. fne", t_script)
     beans_sim = start_beans_sim(work, sim)  # phase 28, on the host meanwhile
     slice11, store = store_phase(work, sim, res, K, dev, card)
-    dp_started = start_data_parallel(work, store, f"{work}/x.batch.txt")  # phase 43, meanwhile
+    # phase 43's processes, meanwhile: slice 18's runs, then slice 19's (d)
+    # runs after (c) and (e)'s bge after (b) on phases 5 and 15's cells
+    s19_stores = slice19_inputs(s19_writes)
+    print(json.dumps({"phase": "slice19_stores", "write_s": s19_stores["write_s"],
+                      "main_process_wait_s": s19_stores["wait_s"], "card": card}), flush=True)
+    more, more_ranks = slice19_jobs_at_21(work, s19_stores, store)
+    dp_started = start_data_parallel(work, store, f"{work}/x.batch.txt", more=more,
+                                     more_ranks=more_ranks)
     slice11.update(annotation_phase(work, sim, res, args.out, store, K, dev, card))
     slice11.update(deconvolve_phase(work, sim, vec, res, K, dev, card, checks))
     slice11.update(impute_probe_phase(work, vec, hvec, res, args.out, K, dev, card))
@@ -5496,6 +5785,7 @@ def run(work: str, t_script: float) -> int:
     slice13 = bam_phase(work, bam_started, card)
     gem_res = gem_phase(work, sim, store, K, dev, card, checks)
     slice13.update(gem_res["launches"])
+    gem_dp = start_gem_dp(work, store)  # phase 43's (d) gem runs, meanwhile
     slice13.update(assoc_phase(work, gem_res["cell_pseudotime"], K, dev, card))
     # phase 41's process, beside phases 35-39: it reads phases 2, 33 and 34
     from_gem_started = start_lineage_from_gem(work, args.out, _factor_gmt(work, sim), dev)
@@ -5505,6 +5795,7 @@ def run(work: str, t_script: float) -> int:
     genetics = start_genetics_sims(work)  # phases 37-38's inputs, on the host meanwhile
     pinto = pinto_phase(work, pinto_started, K, dev, card, checks)
     slice14 = pinto["launches"]
+    lc_dp = start_lc_dp(work, pinto["kept"])  # phase 43's (d) and (e) lc runs, meanwhile
     slice14.update(pinto_commands_phase(work, pinto["kept"], K, dev, card, checks))
 
     # ---- phases 37-38: fagioli, chickpea ------------------------------------------
@@ -5533,7 +5824,12 @@ def run(work: str, t_script: float) -> int:
 
     # ---- phase 43: data parallelism (started after phase 21) ----------------------
     mark("43 data-parallel join", t_script)
-    slice18 = data_parallel_phase(work, dp_started, sim.counts.shape[1], card)
+    refs = {"bge": blaunches, "bge_posterior": slice9["posterior"], "cocoa": slice9["diff"],
+            "masked_topic": slice10["masked_topic"], **{k: slice13[k] for k in (
+                "gem_raw", "gem_posterior", "gem_encoder")},
+            "pinto_lc": slice14["pinto_lc"], "pinto_domain": pinto["kept"]["domain"]}
+    slice18 = data_parallel_phase(work, dp_started, sim.counts.shape[1], card,
+                                  {"gem": gem_dp, "lc": lc_dp, "refs": refs})
 
     # ---- phase 44: the kernels line, then the device line -----------------
     # Each kernel's numbers are those of its main-path shape with the most
@@ -5565,7 +5861,10 @@ def run(work: str, t_script: float) -> int:
     # faba_annotate_enrichment: none of the four kernels is on slice 17's
     # paths, so each of its counts is 0, as the slice17_launches line says;
     # topic_dp1, topic_dp2_rank0, topic_dp2_rank1, svd_dp1, vae_dp1: phase
-    # 43's runs, the two ranks of (b) each on its own).
+    # 43's runs, the two ranks of (b) each on its own; cocoa_dp1, bge_dp1,
+    # bge_posterior_dp1, masked_topic_dp1, gem_raw_dp1, gem_posterior_dp1,
+    # gem_encoder_dp1, pinto_lc_dp1, bge_dp2_rank0, bge_dp2_rank1,
+    # pinto_lc_dp2_rank0, pinto_lc_dp2_rank1: its (d) and (e) runs).
     meta = {
         "project_normed": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:352"),
         "project_raw": ("legume_tpu_torch/csrc/project.cu", "legume_tpu/ops/pallas_kernels.py:93"),

@@ -2,7 +2,8 @@
 package's `cli/faba_cli.py` tree, every subcommand and flag). Every
 subcommand runs; `gem`, `gem-encoder`, `lineage`, `dyn-assoc`, `annotate`
 and `plot` take `--device` (default `cuda`), the others run on the host.
-`--data-parallel` raises `NotImplementedError` (`ROADMAP.md` §1 item 4)."""
+`gem` and `gem-encoder --data-parallel` run one rank a GPU
+(`cli/faba_cmds/gem_cmds.py`)."""
 
 from __future__ import annotations
 

@@ -8,8 +8,12 @@ handlers (the port's copy of the JAX package's
 one launch per `--block-size` columns), sorts them into pseudobulks and
 sums both tracks by the JAX package's dense one-hot product on the host.
 `lineage` takes its k-means, kNN and layouts on `--device`
-(`faba/lineage_run.py`); `--data-parallel` raises `NotImplementedError`
-(`ROADMAP.md` §1 item 4). `_cmd_gem` and `_cmd_lineage` return their stage seconds.
+(`faba/lineage_run.py`). `gem` / `gem-encoder --data-parallel` run one
+rank a GPU (`parallel/`): every rank reads both tracks and, with `--raw`,
+repeats the projection (K1) and the pseudobulk sums; the fit shards the
+pseudobulk rows and `--posterior` the Gibbs anchors over the ranks; rank
+0 alone writes. A world of one is the plain run. `_cmd_gem` and
+`_cmd_lineage` return their stage seconds.
 """
 
 from __future__ import annotations
@@ -18,12 +22,6 @@ import os
 import time
 
 import numpy as np
-
-
-def _no_data_parallel(args):
-    if getattr(args, "data_parallel", False):
-        raise NotImplementedError(f"faba {args.cmd} port does not support --data-parallel yet "
-                                  "(ROADMAP.md §1 item 4)")
 
 
 def add_parsers(sub):
@@ -237,8 +235,11 @@ def _cmd_gem(args):
 
     from ...data.sparse_io import open_sparse_matrix
     from ...embedding.gem import fit_gem, fit_gem_encoder
+    from ...parallel.mesh import live, make_mesh
+    from ...parallel.multihost import barrier
 
-    _no_data_parallel(args)
+    mesh = make_mesh(args.device) if args.data_parallel else None
+    primary = live(mesh) is None or mesh.primary
     timings = {}
     t0 = time.perf_counter()
     sb = open_sparse_matrix(args.spliced)
@@ -286,14 +287,16 @@ def _cmd_gem(args):
         s = onehot.T @ s
         u = onehot.T @ u
         pb_names = [f"pb{j}" for j in range(n_pb)]
-        np.savez(
-            f"{args.output}.partition.npz",
-            fine_groups=groups.astype(np.int32),
-        )
+        if primary:
+            np.savez(
+                f"{args.output}.partition.npz",
+                fine_groups=groups.astype(np.int32),
+            )
         timings["pseudobulk_s"] = time.perf_counter() - t0
-        print(f"collapse: {len(groups)} cells -> {n_pb} pseudobulks "
-              f"(sort_dim={args.sort_dim}); wrote "
-              f"{args.output}.partition.npz")
+        if primary:
+            print(f"collapse: {len(groups)} cells -> {n_pb} pseudobulks "
+                  f"(sort_dim={args.sort_dim}); wrote "
+                  f"{args.output}.partition.npz")
     t0 = time.perf_counter()
     if args.cmd == "gem":
         if args.lineage_dag and args.posterior > 0:
@@ -314,11 +317,12 @@ def _cmd_gem(args):
             lineage_smooth=args.lineage_smooth,
             lineage_mst=not args.dense_dag,
             seed=args.seed,
+            mesh=mesh,
             device=args.device,
         )
         timings["fit_s"] = time.perf_counter() - t0
         timings["losses"] = res.losses
-        if res.dag_pseudotime is not None:
+        if res.dag_pseudotime is not None and primary:
             pd.DataFrame({
                 "cell": pb_names,
                 "pseudotime": res.dag_pseudotime,
@@ -348,21 +352,23 @@ def _cmd_gem(args):
                 stick_alpha=args.ibp_alpha,
                 half_cauchy_scale=args.half_cauchy_scale,
                 seed=args.seed,
+                mesh=mesh,
                 device=args.device,
             )
             timings["posterior_s"] = time.perf_counter() - t0
             timings["posterior_rhat_max"] = float(post.rhat.max())
-            pd.DataFrame({
-                "gene": genes,
-                "delta_pip": post.delta_pip.max(axis=1),
-                "delta_norm": np.linalg.norm(post.delta_mean, axis=1),
-                "beta_pip": post.beta_pip.max(axis=1),
-                "identified": post.delta_identified,
-            }).to_parquet(f"{args.output}.delta_posterior.parquet")
-            print(
-                f"posterior: {args.posterior} sweeps, rhat max "
-                f"{post.rhat.max():.2f}"
-            )
+            if primary:
+                pd.DataFrame({
+                    "gene": genes,
+                    "delta_pip": post.delta_pip.max(axis=1),
+                    "delta_norm": np.linalg.norm(post.delta_mean, axis=1),
+                    "beta_pip": post.beta_pip.max(axis=1),
+                    "identified": post.delta_identified,
+                }).to_parquet(f"{args.output}.delta_posterior.parquet")
+                print(
+                    f"posterior: {args.posterior} sweeps, rhat max "
+                    f"{post.rhat.max():.2f}"
+                )
     else:
         res = fit_gem_encoder(
             s, u, latent_dim=args.embedding_dim, epochs=args.epochs,
@@ -370,13 +376,16 @@ def _cmd_gem(args):
             mask_frac=args.mask_fraction, delta_l2=args.delta_l2,
             weight_decay=args.weight_decay,
             grad_clip=args.grad_clip, seed=args.seed,
-            device=args.device,
+            mesh=mesh, device=args.device,
         )
         timings["fit_s"] = time.perf_counter() - t0
         timings["losses"] = res.losses
         delta, emb = res.delta, res.rho
         vel = res.cell_velocity(u)
         cell_emb = res.encode(u)
+    if not primary:  # rank 0 writes the outputs
+        barrier(live(mesh))
+        return timings
     t0 = time.perf_counter()
     pd.DataFrame(
         emb, index=genes, columns=[f"h{j}" for j in range(emb.shape[1])]
@@ -429,6 +438,7 @@ def _cmd_gem(args):
         "{gene_embedding,velocity,gene_velocity,latent,"
         "cell_embedding,feature_embedding,gem.json}"
     )
+    barrier(live(mesh))
     return timings
 
 
@@ -499,7 +509,6 @@ def _cmd_dyn_assoc(args):
     from ...data.sparse_io import open_sparse_matrix
     from ...faba.assoc import dyn_assoc, dyn_assoc_pseudotime
 
-    _no_data_parallel(args)
     if args.branches is None and args.frm is None:
         raise SystemExit("dyn-assoc: need --from PREFIX or --branches")
     branches_path = args.branches or f"{args.frm}.pseudotime.parquet"

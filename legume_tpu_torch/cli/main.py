@@ -7,8 +7,8 @@ annotate-by-enrichment,annotate-by-projection,deconvolve,probe,impute}
 simulate-collider} ...`, `python -m legume_tpu_torch data-beans ...`
 (`cli/beans_cli.py`), `python -m legume_tpu_torch data-beans-sim ...`
 (`cli/sim_cli.py`) and `python -m legume_tpu_torch faba {index,genes,gem,
-gem-encoder,dyn-assoc} ...` (`cli/faba_cli.py`, whose other subcommands
-raise `NotImplementedError`) and `python -m legume_tpu_torch pinto {lc,
+gem-encoder,dyn-assoc,...} ...` (`cli/faba_cli.py`, every subcommand of
+the JAX package's) and `python -m legume_tpu_torch pinto {lc,
 cascade,annotate,p,interfaces,prop,dsvd,cage,lc-etm,lra} ...`
 (`cli/pinto_cli.py`), `python -m legume_tpu_torch fagioli {map-sumstat,
 fit-sumstat-sgvb,fit-prs-susie,fit-sumstat-mcmc,sim-sumstat,sim-geno,sim-qtl,
@@ -17,8 +17,7 @@ map-qtl,fit-qtl-sgvb,sim-mediation,fit-regression,pseudobulk} ...`
 from-multiome} ...` (`cli/chickpea_cli.py`) (or `python -m
 legume_tpu_torch.cli.main`, or the `legume-torch` script).
 
-The flags are those of the JAX package's commands; the ones the port
-does not carry yet are accepted and raise `NotImplementedError` when set.
+The flags are those of the JAX package's commands, and every one runs.
 `--device` picks the torch device (default `cuda`); the commands that
 run on the host alone (`plot`, `plot-topic`, `plot-strand`,
 `annotate-ontology`, `annotate-by-enrichment`, and every `data-beans`
@@ -37,9 +36,10 @@ Data parallelism runs one process per GPU: with `LEGUME_COORDINATOR`
 (host:port), `LEGUME_NUM_PROCESSES` and `LEGUME_PROCESS_ID` set, or
 `LEGUME_DISTRIBUTED=1` under torchrun, `main` starts the process group
 before it dispatches (`parallel/multihost.py`) and destroys it at exit.
-`senna topic`, `vae` and `svd` run over it (`--data-parallel`); every
-other `--data-parallel` raises `NotImplementedError` (`ROADMAP.md` §1
-item 4).
+Every command with `--data-parallel` runs over it: `senna topic`, `vae`,
+`svd`, `bge`, `masked-topic`, `masked-vae`, `masked-sbp`, `cocoa diff`,
+`faba gem`, `gem-encoder` and `pinto lc`. Without the switches
+`--data-parallel` is a world of one, the plain run.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 package's `cli/pinto_cli.py` tree, every subcommand and flag). `lc`,
 `cascade`, `prop`, `dsvd`, `cage`, `lc-etm` and `lra` take `--device`
 (default `cuda`); `annotate`, `interfaces` and `p` run on the host (the
-last two draw with matplotlib). `--data-parallel` raises
-`NotImplementedError` (`ROADMAP.md` §1 item 4). A caller holding the cells in
+last two draw with matplotlib). `lc --data-parallel` shards the sweeps'
+edges over the ranks, one a GPU (`pinto/lc.py`). A caller holding the cells in
 memory passes them as `run_pinto(argv, vec=)`; the command then reads
 them instead of `--data-files`."""
 

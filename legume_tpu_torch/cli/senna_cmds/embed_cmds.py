@@ -24,8 +24,12 @@ and `_cmd_rest`).
 `senna rest --from RUN` fits the shared cell + gene space with RUN's
 cell proportions frozen (`embedding/resolve.py::rest_fit`); `senna rest
 --runs A B ...` Procrustes-aligns the feature (and cell) embeddings of
-finished runs. `--data-parallel` is not ported and raises
-`NotImplementedError`.
+finished runs.
+
+`senna bge --data-parallel` runs one rank a GPU (`parallel/`): every rank
+repeats steps 1-3; `fit_bge` shards the pseudobulk rows (phase 1) and
+each block's cells (phase 2), `pb_gibbs` the anchors; rank 0 alone runs
+Leiden and the ETM layout and writes. A world of one is the plain run.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from ...embedding.nce import NceConfig, fit_bge
 from ...ops import collapse as clp
 from ...ops import random_projection as rp
 from ...ops.leiden import knn_adjacency, leiden_clustering
+from ...ops.sparse import segment_add
 from ...senna.deconvolve import leiden_at_count
 from ...senna.topic import load_data_vec, read_batch_labels
 from ...utils.manifest import RunManifest
@@ -76,14 +81,6 @@ class BgeArgs:
     skip_etm: bool = False
     compute_dtype: str = "float32"
     data_parallel: bool = False
-
-
-def check_supported(args: BgeArgs):
-    """Options the port does not carry yet raise instead of running
-    something else."""
-    if args.data_parallel:
-        raise NotImplementedError("senna bge port does not support --data-parallel yet "
-                                  "(ROADMAP.md §1 item 4)")
 
 
 def multiome_vec(backends, bridge_weight: float = 1.0, batch_files=None) -> SparseIoVec:
@@ -125,7 +122,10 @@ def etm_layout(e_cell: np.ndarray, e_feat: np.ndarray, labels: np.ndarray, devic
     del w
     k_top = int(labels.max()) + 1
     lab = torch.from_numpy(np.asarray(labels, np.int64)).to(device)
-    sums = torch.zeros(k_top, ec.shape[1], dtype=torch.float32, device=device).index_add_(0, lab, ec)
+    # the cluster sums in a fixed order (`segment_add`): a CUDA `index_add_`
+    # adds with float atomics, and the layout then moves from run to run
+    sums = segment_add(torch.zeros(k_top, ec.shape[1], dtype=torch.float32, device=device), 0,
+                       lab, ec)
     sizes = torch.bincount(lab, minlength=k_top).to(torch.float32)
     cent = sums / sizes[:, None]  # [K, H]
     s_nk = ec @ cent.T
@@ -140,8 +140,12 @@ def etm_layout(e_cell: np.ndarray, e_feat: np.ndarray, labels: np.ndarray, devic
 def run_bge(args: BgeArgs, *, vec=None, backends=None, device="cuda") -> dict:
     """End-to-end `senna bge`. `vec` overrides `args.data_files`; with
     `--multiome`, `backends` (the two modalities, open) does."""
-    check_supported(args)
+    from ...parallel.mesh import live, make_mesh
+    from ...parallel.multihost import barrier
+
     device = torch.device(device)
+    mesh = make_mesh(device) if args.data_parallel else None
+    primary = live(mesh) is None or mesh.primary
     timings: dict[str, float] = {}
     t_all = time.time()
     if args.multiome:
@@ -186,14 +190,14 @@ def run_bge(args: BgeArgs, *, vec=None, backends=None, device="cuda") -> dict:
             hvg_min_excess=args.hvg_min_excess, min_nnz_rows=args.min_nnz_rows,
             compute_dtype=args.compute_dtype,
         ),
-        pb_batches=pb_batches, cell_batches=cell_batches, device=device,
+        pb_batches=pb_batches, cell_batches=cell_batches, mesh=mesh, device=device,
     )
     timings.update(res.timings)
 
     e_feat_out = res.e_feat
     labels = log_theta = log_beta = None
     timings["leiden_s"] = timings["etm_s"] = 0.0
-    if not args.skip_etm:
+    if not args.skip_etm and primary:
         # one Leiden clustering of the cell embedding seeds both the
         # co-embed (which replaces the raw feature embedding, as in the
         # reference) and the ETM layout
@@ -211,13 +215,16 @@ def run_bge(args: BgeArgs, *, vec=None, backends=None, device="cuda") -> dict:
 
     t0 = time.time()
     genes, cells = vec.row_names(), vec.column_names()
-    written = {
-        "latent": write_table(f"{args.out}.latent", matrix_columns(res.e_cell, "h", "cell", cells)),
-        "feature_embedding": write_table(
-            f"{args.out}.feature_embedding", matrix_columns(e_feat_out, "h", "gene", genes)
-        ),
-    }
-    if not args.skip_etm:
+    written = {}
+    if primary:  # rank 0 writes the outputs
+        written = {
+            "latent": write_table(f"{args.out}.latent",
+                                  matrix_columns(res.e_cell, "h", "cell", cells)),
+            "feature_embedding": write_table(
+                f"{args.out}.feature_embedding", matrix_columns(e_feat_out, "h", "gene", genes)
+            ),
+        }
+    if not args.skip_etm and primary:
         written["dictionary"] = write_table(
             f"{args.out}.dictionary", matrix_columns(log_beta.T, "topic", "gene", genes)
         )
@@ -232,24 +239,28 @@ def run_bge(args: BgeArgs, *, vec=None, backends=None, device="cuda") -> dict:
         t0 = time.time()
         post = pb_gibbs(
             pb, res.e_feat, res.b_feat, res.pb_embeddings[0], np.zeros(pb.shape[0]),
-            n_sweeps=args.posterior, burnin=max(args.posterior // 4, 2), device=device,
+            n_sweeps=args.posterior, burnin=max(args.posterior // 4, 2), mesh=mesh,
+            device=device,
         )
-        written["feature_posterior"] = write_table(f"{args.out}.feature_posterior", {
-            "gene": np.asarray(genes), "pip": post.pip.max(axis=1),
-            "posterior_norm": np.linalg.norm(post.e_feat_mean, axis=1),
-        })
+        if primary:
+            written["feature_posterior"] = write_table(f"{args.out}.feature_posterior", {
+                "gene": np.asarray(genes), "pip": post.pip.max(axis=1),
+                "posterior_norm": np.linalg.norm(post.e_feat_mean, axis=1),
+            })
         timings["posterior_s"] = time.time() - t0
         log.info("posterior: %d sweeps, rhat max %.2f", args.posterior, post.rhat.max())
     timings["total_s"] = time.time() - t_all
-    RunManifest(
-        command="bge",
-        inputs={"data_files": list(args.data_files)},
-        outputs=written,
-        params=dataclasses.asdict(args),
-        timings=timings,
-        engine="legume-tpu-torch",
-    ).save(args.out, "gem.json")
-    log.info("wrote %s", written["latent"])
+    if primary:
+        RunManifest(
+            command="bge",
+            inputs={"data_files": list(args.data_files)},
+            outputs=written,
+            params=dataclasses.asdict(args),
+            timings=timings,
+            engine="legume-tpu-torch",
+        ).save(args.out, "gem.json")
+        log.info("wrote %s", written["latent"])
+    barrier(live(mesh))
     return {
         "latent": res.e_cell,
         "feature_embedding": e_feat_out,

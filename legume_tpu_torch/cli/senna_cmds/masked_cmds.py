@@ -15,8 +15,11 @@ window models (the port of the JAX package's
 5. outputs: `{out}.latent` (`topic{k}`, or `z{k}` for masked-vae),
    `{out}.loss`, `{out}.model.{npz,json}` and `{out}.senna.json`.
 
-Runs on the card unless `--device cpu`; `--data-parallel` raises
-`NotImplementedError`.
+Runs on the card unless `--device cpu`. `--data-parallel` runs one rank
+a GPU (`parallel/`): every rank repeats steps 1-3 (the window build and
+the null stream), the trainer shares each minibatch over the ranks
+(`models/indexed.py`), and rank 0 alone runs the eval, encodes and
+writes. A world of one is the plain run.
 """
 
 from __future__ import annotations
@@ -147,10 +150,12 @@ def _prior_rho(path: str, vec) -> tuple[np.ndarray, np.ndarray, int]:
 def run_masked(args, *, vec=None) -> dict:
     """One masked command from its parsed arguments; `vec` overrides
     `--data-files` (with `--batch-files`, their labels are registered on it)."""
-    if args.data_parallel:
-        raise NotImplementedError(f"senna {args.cmd} port does not support --data-parallel yet "
-                                  "(ROADMAP.md §1 item 4)")
+    from ...parallel.mesh import live, make_mesh
+    from ...parallel.multihost import barrier
+
     device = torch.device(args.device)
+    mesh = make_mesh(device) if args.data_parallel else None
+    shared = live(mesh)
     timings: dict[str, float] = {}
     t_all = time.time()
     latent = LATENTS.get(args.cmd, getattr(args, "latent", "simplex"))
@@ -188,11 +193,16 @@ def run_masked(args, *, vec=None) -> dict:
         feature_embedding_l2=args.feature_embedding_l2, eval_mask_frac=args.eval_mask_fraction,
         eval_seed=args.eval_seed, seed=args.seed, frozen_rho_init=frozen_init,
         frozen_rho_mask=frozen_mask, init_rho=init_rho, null_plane=null_plane,
-        null_membership=null_membership,
+        null_membership=null_membership, mesh=mesh,
     )
     t0 = time.time()
     model, trace, eval_loss = train_masked(model, data, cfg, device=device)
     timings["train_s"] = time.time() - t0
+    result = {"model": model, "data": data, "trace": trace, "eval_loss": eval_loss,
+              "null_plane": null_plane, "null_membership": null_membership, "timings": timings}
+    if shared is not None and not shared.primary:  # rank 0 encodes and writes
+        barrier(shared)
+        return result
     if eval_loss is not None:
         with open(f"{args.out}.eval.json", "w") as f:
             json.dump({"eval_mask_fraction": args.eval_mask_fraction, "eval_seed": args.eval_seed,
@@ -216,5 +226,5 @@ def run_masked(args, *, vec=None) -> dict:
     timings["total_s"] = time.time() - t_all
     RunManifest(command=args.cmd, inputs={"data_files": list(args.data_files)}, outputs=outputs,
                 timings=timings, engine="legume-tpu-torch").save(args.out)
-    return {"model": model, "data": data, "latent": z, "trace": trace, "eval_loss": eval_loss,
-            "null_plane": null_plane, "null_membership": null_membership, "timings": timings}
+    barrier(shared)
+    return {**result, "latent": z}

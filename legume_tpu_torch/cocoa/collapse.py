@@ -60,10 +60,9 @@ def build_match_cache(
     """The k nearest cells of every individual for every cell of the
     others. Each individual's search runs against its own cells only
     (the JAX package masks the other cells out of a search over all N:
-    the same neighbours, without the I x N^2 distance plane)."""
-    if mesh is not None:
-        raise NotImplementedError("the query-sharded match cache (--data-parallel) is not ported "
-                                  "(ROADMAP.md §1 item 4)")
+    the same neighbours, without the I x N^2 distance plane). `mesh`
+    shards each search's queries over the ranks (`knn_search`); every
+    rank ends with the whole cache."""
     n = proj_nk.shape[0]
     m = max(n_indv - 1, 1) * knn
     idx = np.zeros((n, m), np.int32)
@@ -74,7 +73,7 @@ def build_match_cache(
         if members.size == 0:
             continue
         kk = min(knn, members.size)
-        d, ix = knn_search(proj_nk, proj_nk[members], kk, chunk=chunk, device=device)
+        d, ix = knn_search(proj_nk, proj_nk[members], kk, chunk=chunk, mesh=mesh, device=device)
         ix = members[ix]
         for q_i in range(n_indv):
             if q_i == i:
@@ -269,25 +268,41 @@ def collect_cocoa_stat_multi(
     """The replay collector: one CocoaStat per exposure row, row t equal
     to `collect_cocoa_stat` under that exposure to float rounding. W holds
     T N P K floats, so T runs in chunks of `t_chunk` rows (default: what
-    fits in `W_BUDGET` bytes), each re-reading the data once."""
-    if mesh is not None:
-        raise NotImplementedError("the exposure-sharded replay (--data-parallel) is not ported "
-                                  "(ROADMAP.md §1 item 4)")
+    fits in `W_BUDGET` bytes), each re-reading the data once.
+
+    `mesh` shards the exposure rows over the ranks, as the JAX package's
+    `shard_map` over its devices does: the budget scales by the world,
+    `t_chunk` rounds down to a multiple of it, each chunk pads to a
+    multiple with rows of exposure 0, each rank replays its equal share
+    of the chunk (W and A for its rows only), and the planes are gathered
+    in exposure order with the pad rows dropped."""
+    from ..parallel.mesh import live, padded_share
+    from ..parallel.multihost import gather_padded
+
+    mesh = live(mesh)
+    world = 1 if mesh is None else mesh.size
     n, k = cell_topic_nk.shape
     d = data.num_rows
     t_total, n_indv = exposures_ti.shape
     m = cache.idx.shape[1]
     if t_chunk is None:
-        t_chunk = max(int(W_BUDGET // max(n * (n_samples + 1) * k * 4, 1)), 1)
+        t_chunk = max(int(W_BUDGET * world // max(n * (n_samples + 1) * k * 4, 1)), world)
     t_chunk = min(t_chunk, t_total)
+    if mesh is not None:
+        t_chunk = max(t_chunk - t_chunk % world, world)
     as_long = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)  # noqa: E731
     z_all = torch.from_numpy(np.ascontiguousarray(cell_topic_nk, np.float32)).to(device)
     indv_t, pb_t = as_long(cell_indv), as_long(pb_sample)
     stats: list[CocoaStat] = []
     for t_lo in range(0, t_total, t_chunk):
         t_hi = min(t_lo + t_chunk, t_total)
-        tc = t_hi - t_lo
-        exp_t = as_long(exposures_ti[t_lo:t_hi])
+        tc_real = t_hi - t_lo
+        exp_chunk = exposures_ti[t_lo:t_hi]
+        tc_pad, a, b = padded_share(mesh, tc_real)
+        if tc_pad > tc_real:  # pad rows replay exposure 0
+            exp_chunk = np.concatenate([exp_chunk, np.repeat(exposures_ti[:1], tc_pad - tc_real, 0)])
+        tc = b - a
+        exp_t = as_long(exp_chunk[a:b])
         w_acc = torch.zeros(tc, n * n_samples, k, device=device)
         a_acc = torch.zeros(tc, n, k, device=device)
         for lb in range(0, n, cell_block):
@@ -314,10 +329,12 @@ def collect_cocoa_stat_multi(
         szkp = segment_add(torch.zeros(tc, n_samples, k, device=device), 1, pb_t, a_acc)
         szkip = segment_add(torch.zeros(tc, n_indv * n_samples, k, device=device), 1,
                             indv_t * n_samples + pb_t, a_acc)
-        y0_np, y1_np, y1i_np = (v.permute(1, 3, 0, 2).cpu().numpy() for v in (y0, y1, y1i))
-        szkp_np = szkp.cpu().numpy()
-        szkip_np = szkip.reshape(tc, n_indv, n_samples, k).cpu().numpy()
-        for t in range(tc):
+        # [T, ...] planes; under a mesh every rank's rows in exposure order
+        y0_np, y1_np, y1i_np = (gather_padded(mesh, v.permute(1, 3, 0, 2).contiguous(), tc_real)
+                                for v in (y0, y1, y1i))
+        szkp_np = gather_padded(mesh, szkp, tc_real)
+        szkip_np = gather_padded(mesh, szkip.reshape(tc, n_indv, n_samples, k), tc_real)
+        for t in range(tc_real):
             stat = CocoaStat.zeros(k, d, n_indv, n_samples)
             stat.y0_sum_kdp, stat.y1_sum_kdp, stat.y1_sum_kdi = y0_np[t], y1_np[t], y1i_np[t]
             stat.size_kp = szkp_np[t].T.copy()

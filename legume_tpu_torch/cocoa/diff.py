@@ -10,8 +10,11 @@ exposures, every column read once for all of them) -> optional CNV
 side-channel on the exposure posteriors -> tables (effect, shared,
 residual, pvalue, cnv.*) and a `{out}.cocoa.json` manifest.
 
-`--data-parallel` (the multi-GPU layer) is not ported and raises
-`NotImplementedError`. The CNV side-channel orders genes by `--gff`
+`--data-parallel` runs one rank a GPU (`parallel/`): every rank repeats
+the steps up to the match cache; the cache's kNN shards its queries and
+the permutation replay its exposure rows over the ranks; rank 0 alone
+writes the cache file, fits the Gamma models, runs the CNV side-channel
+and writes the tables. A world of one is the plain run. The CNV side-channel orders genes by `--gff`
 (faba's GFF reader), which takes precedence over `--cnv-ground-truth`.
 """
 
@@ -82,12 +85,6 @@ class CocoaDiffArgs:
     match_cache: bool = True
 
 
-def check_supported(args: CocoaDiffArgs):
-    if args.data_parallel:
-        raise NotImplementedError("cocoa diff port does not support --data-parallel yet "
-                                  "(ROADMAP.md §1 item 4)")
-
-
 def assign_pseudobulk(cell_indv: np.ndarray, proj_nk: np.ndarray, n_samples: int, seed: int,
                       *, device="cuda") -> np.ndarray:
     """Cells into pseudobulk samples by projection sign codes."""
@@ -108,10 +105,15 @@ def run_cocoa_diff(args: CocoaDiffArgs, *, vec=None, device="cuda") -> dict:
     """End-to-end `cocoa diff`. `vec`, when given, holds the cells in
     place of reading `args.data_files`; the match cache is still read
     from and written beside `args.data_files[0]` when files are named."""
+    from ..parallel.mesh import live, make_mesh
+    from ..parallel.multihost import barrier, sum_across_ranks
     from ..senna.topic import load_data_vec
 
-    check_supported(args)
     device = torch.device(device)
+    mesh = make_mesh(device) if args.data_parallel else None
+    if mesh is not None:
+        log.info("data-parallel: rank %d of %d", mesh.rank, mesh.size)
+    ranks = live(mesh)
     timings: dict = {}
     if vec is None:
         vec = load_data_vec(args.data_files)
@@ -171,16 +173,22 @@ def run_cocoa_diff(args: CocoaDiffArgs, *, vec=None, device="cuda") -> dict:
     if args.match_cache and args.data_files:
         key = match_cache_key(n, args.knn, n_indv, args.proj_dim, args.seed, cell_indv)
         cache_path = match_cache_file(args.data_files[0], key)
-        cache = load_match_cache(cache_path)
+        # rank 0 looks for the file and every rank follows its finding
+        if ranks is None or ranks.primary:
+            cache = load_match_cache(cache_path)
+        found = sum_across_ranks(ranks, torch.tensor([float(cache is not None)]))
+        if float(found[0]) > 0 and cache is None:
+            cache = load_match_cache(cache_path)
         if cache is not None:
             log.info("match cache reused: %s", cache_path)
             timings["match_cache_reused"] = True
     if cache is None:
-        cache = build_match_cache(proj_nk, cell_indv, n_indv, args.knn, device=device)
-        if cache_path is not None:
+        cache = build_match_cache(proj_nk, cell_indv, n_indv, args.knn, mesh=mesh, device=device)
+        if cache_path is not None and (ranks is None or ranks.primary):
             t1 = time.time()
             save_match_cache(cache, cache_path)
             timings["match_cache_save_s"] = time.time() - t1
+        barrier(ranks)  # the file is whole before any rank goes on
     timings["match_cache_s"] = time.time() - t0
 
     pvalue = zscore = None
@@ -192,8 +200,12 @@ def run_cocoa_diff(args: CocoaDiffArgs, *, vec=None, device="cuda") -> dict:
         t0 = time.time()
         stats = collect_cocoa_stat_multi(vec, z, cell_indv, pb, n_samples,
                                          np.stack([exposure] + perms), cache,
-                                         gene_weights=gene_weights, device=device)
+                                         gene_weights=gene_weights, mesh=mesh, device=device)
         timings["stat_collect_all_exposures_s"] = time.time() - t0
+        if ranks is not None and not ranks.primary:  # rank 0 runs the rest
+            barrier(ranks)
+            return {"stat": stats[0], "stats": stats, "cache": cache, "proj_nk": proj_nk,
+                    "pb": pb, "timings": timings}
         stat = stats[0]
         t0 = time.time()
         params = estimate_parameters(stat, **fit)
@@ -205,6 +217,9 @@ def run_cocoa_diff(args: CocoaDiffArgs, *, vec=None, device="cuda") -> dict:
         zscore = (effect - null.mean(0)) / np.maximum(null.std(0), 1e-12)
         pvalue = z_to_pvalue(zscore)
     else:
+        if ranks is not None and not ranks.primary:
+            barrier(ranks)
+            return {"cache": cache, "proj_nk": proj_nk, "pb": pb, "timings": timings}
         t0 = time.time()
         stat = collect_cocoa_stat(vec, z, cell_indv, pb, n_samples, exposure, cache,
                                   gene_weights=gene_weights, device=device)
@@ -267,6 +282,7 @@ def run_cocoa_diff(args: CocoaDiffArgs, *, vec=None, device="cuda") -> dict:
         command="cocoa-diff", inputs={"data_files": list(args.data_files)}, outputs=outputs,
         timings=timings, engine="legume-tpu-torch",
     ).save(args.out, "cocoa.json")
+    barrier(ranks)
     return {"effect": effect, "pvalue": pvalue, "z": zscore, "params": params, "stat": stat,
             "cache": cache, "proj_nk": proj_nk, "pb": pb, "cnv": cnv_run, "outputs": outputs,
             "timings": timings}

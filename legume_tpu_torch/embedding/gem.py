@@ -18,6 +18,15 @@ initial parameters, so its run is deterministic; `fit_gem_encoder`
 draws one mask a epoch. The initial parameters are the JAX package's
 threefry normals bit for bit. `dtype=torch.float64` runs the same fit in
 float64 (the reference a float32 run is held to).
+
+`mesh` shards the pseudobulk rows over the ranks (`data_sharding`), as
+the JAX package's placements do: the pb-side parameters and their
+optimiser state live with their rows, the gene side and its state are
+replicated, every loss keeps the global normaliser (summed across the
+ranks in rank order), the terms without rows count on rank 0 alone, and
+the gene-side gradients (and, for the clip, the squared norm of the
+pb-side ones) are summed across the ranks before each step. A world of
+one is the plain run.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ import numpy as np
 import torch
 
 from ..models.losses import log_sigmoid
+from ..parallel.mesh import data_sharding, live, share_sizes, sum_grads_
+from ..parallel.multihost import gather_shares, sum_across_ranks
 from ..utils import prng
 
 log = logging.getLogger(__name__)
@@ -62,16 +73,27 @@ class _Optimizer:
     tensors updated in place (b1 0.9, b2 0.999, eps 1e-8; the bias
     corrections in the parameters' precision, as optax takes them)."""
 
-    def __init__(self, params: dict, lr: float, weight_decay: float, grad_clip: float):
+    def __init__(self, params: dict, lr: float, weight_decay: float, grad_clip: float,
+                 mesh=None, sharded=()):
         self.params, self.lr, self.wd, self.clip = params, lr, weight_decay, grad_clip
         self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
         self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
         self.t = 0
+        # under a mesh: the parameters whose rows shard (the rest replicate)
+        self.mesh, self.sharded = live(mesh), set(sharded)
 
     def step(self, grads: dict):
         b1, b2, eps = 0.9, 0.999, 1e-8
+        if self.mesh is not None:
+            sum_grads_(self.mesh, [g for k, g in grads.items() if k not in self.sharded])
         if self.clip > 0:
-            g_norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+            if self.mesh is None:
+                g_norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+            else:
+                rep = sum((g * g).sum() for k, g in grads.items() if k not in self.sharded)
+                own = sum(((g * g).sum() for k, g in grads.items() if k in self.sharded),
+                          torch.zeros_like(rep))
+                g_norm = torch.sqrt(rep + sum_across_ranks(self.mesh, own))
             if not bool(g_norm < self.clip):
                 grads = {k: (g / g_norm) * self.clip for k, g in grads.items()}
         self.t += 1
@@ -96,9 +118,11 @@ def _grads(loss: torch.Tensor, params: dict) -> dict:
     return {k: (torch.zeros_like(params[k]) if g is None else g) for k, g in zip(keys, gs)}
 
 
-def _fold(loss_fn, params: dict, opt: _Optimizer, epochs: int, keys=None) -> list[float]:
+def _fold(loss_fn, params: dict, opt: _Optimizer, epochs: int, keys=None, *,
+          mesh=None) -> list[float]:
     """`epochs` full-batch steps of `loss_fn(params, key)`; the loss of
-    each epoch is taken before its update, as the JAX scan returns it."""
+    each epoch is taken before its update, as the JAX scan returns it
+    (under a mesh, the ranks' shares of it summed)."""
     losses = []
     for e in range(epochs):
         for v in params.values():
@@ -110,7 +134,7 @@ def _fold(loss_fn, params: dict, opt: _Optimizer, epochs: int, keys=None) -> lis
                 v.requires_grad_(False)
             opt.step(grads)
         losses.append(loss.detach())
-    return torch.stack(losses).cpu().tolist() if losses else []
+    return sum_across_ranks(mesh, torch.stack(losses)).cpu().tolist() if losses else []
 
 
 def gem_init(p: int, d: int, embedding_dim: int, seed: int) -> dict:
@@ -158,40 +182,48 @@ def fit_gem(
     the pb gene axis). `sequential_velocity` fits theta on the spliced
     track first, then delta with theta frozen; `lineage_dag` orients a
     velocity-kNN lineage over the rows, runs a second pass with a
-    velocity-drift residual and lifts pseudotime + fate."""
-    if mesh is not None:
-        raise NotImplementedError("fit_gem's data-parallel mesh is not ported "
-                                  "(ROADMAP.md §1 item 4)")
+    velocity-drift residual and lifts pseudotime + fate. `mesh` shards
+    the pb rows (the module's docstring); every rank builds the lineage
+    DAG from the whole planes and the replicated gene side."""
+    mesh = live(mesh)
     p, d = spliced_pd.shape
     dev = torch.device(device)
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dtype)  # noqa: E731
-    params = {k: as_t(v) for k, v in gem_init(p, d, embedding_dim, seed).items()}
+    lb, ub = (0, p) if mesh is None else data_sharding(mesh, p)
+    pb_keys = ("pb_e", "pb_b")
+    params = {k: as_t(v[lb:ub] if k in pb_keys else v)
+              for k, v in gem_init(p, d, embedding_dim, seed).items()}
 
     def neg_q(c):
         q = c.sum(0) ** neg_alpha
         return as_t((q / max(q.sum(), 1e-30)).astype(np.float32))
 
-    s_j, u_j = as_t(spliced_pd), as_t(unspliced_pd)
+    s_j, u_j = as_t(spliced_pd[lb:ub]), as_t(unspliced_pd[lb:ub])
     q_s, q_u = neg_q(spliced_pd), neg_q(unspliced_pd)
     m_s, m_u = s_j.sum(1), u_j.sum(1)
+    # the normalisers of the whole plane (each rank's share summed in rank order)
+    tot_s, tot_u = (torch.clamp_min(sum_across_ranks(mesh, c.sum()), 1.0) for c in (s_j, u_j))
+    primary = mesh is None or mesh.primary
 
-    def track_loss(counts, q, m, feat, bias, pb_e, pb_b):
+    def track_loss(counts, total, q, m, feat, bias, pb_e, pb_b):
         scores = pb_e @ feat.T + bias[None, :] + pb_b[:, None]
         if objective == "softmax":
             logp = torch.log_softmax(scores, dim=1)
-            return -(counts * logp).sum() / torch.clamp_min(counts.sum(), 1.0)
+            return -(counts * logp).sum() / total
         pos = counts * log_sigmoid(scores)
         neg = (n_negatives * m[:, None] * q[None, :]) * log_sigmoid(-scores)
-        return -(pos.sum() + neg.sum()) / torch.clamp_min(counts.sum(), 1.0)
+        return -(pos.sum() + neg.sum()) / total
 
     def loss_full(pr, _key, *, freeze_theta=False, drift=None):
         beta, pb_e = pr["beta"], pr["pb_e"]
         if freeze_theta:
             beta, pb_e = beta.detach(), pb_e.detach()
-        ls = track_loss(s_j, q_s, m_s, beta, pr["b_s"], pb_e, pr["pb_b"])
-        lu = track_loss(u_j, q_u, m_u, beta + pr["delta"], pr["b_u"], pb_e, pr["pb_b"])
-        loss = ls + lu + delta_l2 * torch.mean(torch.sum(pr["delta"] ** 2, dim=1))
-        if drift is not None:
+        ls = track_loss(s_j, tot_s, q_s, m_s, beta, pr["b_s"], pb_e, pr["pb_b"])
+        lu = track_loss(u_j, tot_u, q_u, m_u, beta + pr["delta"], pr["b_u"], pb_e, pr["pb_b"])
+        loss = ls + lu
+        if primary:
+            loss = loss + delta_l2 * torch.mean(torch.sum(pr["delta"] ** 2, dim=1))
+        if drift is not None and primary:
             # velocity-drift residual: DAG edge i -> j pulls the row state
             # e(i) = s_w[i] @ beta toward e(j) along eta * v_i
             sw_src, sw_dst, v_src = drift
@@ -202,16 +234,17 @@ def fit_gem(
         return loss
 
     def new_opt():
-        return _Optimizer(params, learning_rate, weight_decay, grad_clip)
+        return _Optimizer(params, learning_rate, weight_decay, grad_clip, mesh, pb_keys)
 
     if sequential_velocity:
         def loss_a(pr, _key):
-            return track_loss(s_j, q_s, m_s, pr["beta"], pr["b_s"], pr["pb_e"], pr["pb_b"])
+            return track_loss(s_j, tot_s, q_s, m_s, pr["beta"], pr["b_s"], pr["pb_e"], pr["pb_b"])
 
-        ls = _fold(loss_a, params, new_opt(), epochs)
-        ls += _fold(lambda pr, k: loss_full(pr, k, freeze_theta=True), params, new_opt(), epochs)
+        ls = _fold(loss_a, params, new_opt(), epochs, mesh=mesh)
+        ls += _fold(lambda pr, k: loss_full(pr, k, freeze_theta=True), params, new_opt(), epochs,
+                    mesh=mesh)
     else:
-        ls = _fold(loss_full, params, new_opt(), epochs)
+        ls = _fold(loss_full, params, new_opt(), epochs, mesh=mesh)
     losses = ls[::50]
 
     dag_edges = dag_pt = dag_fate = dag_leaves = None
@@ -236,11 +269,14 @@ def fit_gem(
             params["eta"] = torch.ones((), dtype=dtype, device=dev)
             drift = (as_t(s_w[dag_edges[:, 0]]), as_t(s_w[dag_edges[:, 1]]),
                      as_t(v_np[dag_edges[:, 0]]))
-            ls2 = _fold(lambda pr, k: loss_full(pr, k, drift=drift), params, new_opt(), epochs)
+            ls2 = _fold(lambda pr, k: loss_full(pr, k, drift=drift), params, new_opt(), epochs,
+                        mesh=mesh)
             losses += ls2[::50]
         dag_pt, dag_fate, dag_leaves = _dag_readout(dag_edges, p, phi)
 
     out = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    if mesh is not None:
+        out.update({k: gather_shares(mesh, out[k], share_sizes(mesh, p)) for k in pb_keys})
     return GemResult(
         e_feat=out["beta"],
         delta=out["delta"],
@@ -398,30 +434,35 @@ def fit_gem_encoder(
     cell state from the unspliced profile through shared gene embeddings
     rho, then score the spliced counts against rho + delta. Each epoch
     masks the genes where `uniform(key_e, [P, D]) <= mask_frac` out of
-    the encoder's input and scores the spliced multinomial everywhere."""
-    if mesh is not None:
-        raise NotImplementedError("fit_gem_encoder's data-parallel mesh is not ported "
-                                  "(ROADMAP.md §1 item 4)")
+    the encoder's input and scores the spliced multinomial everywhere.
+    `mesh` shards the pb rows, the parameters replicate (the module's
+    docstring); each epoch's mask is drawn for every row and sliced."""
+    mesh = live(mesh)
     p, d = spliced_pd.shape
     dev = torch.device(device)
     as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, dtype)  # noqa: E731
     init, key = gem_encoder_init(d, latent_dim, seed)
     params = {k: as_t(v) for k, v in init.items()}
-    u_log = as_t(np.log1p(unspliced_pd))
+    lb, ub = (0, p) if mesh is None else data_sharding(mesh, p)
+    u_log = as_t(np.log1p(unspliced_pd[lb:ub]))
     u_log = u_log / torch.clamp_min(torch.linalg.norm(u_log, dim=1, keepdim=True), 1e-9)
-    s_j = as_t(spliced_pd)
+    s_j = as_t(spliced_pd[lb:ub])
+    total = torch.clamp_min(sum_across_ranks(mesh, s_j.sum()), 1.0)
+    primary = mesh is None or mesh.primary
     keys = epoch_keys(key, epochs)
 
     def loss_fn(pr, kmask):
-        keep = prng.uniform_keys(kmask[None], p * d, dev)[0].reshape(p, d) > mask_frac
+        keep = prng.uniform_keys(kmask[None], p * d, dev)[0].reshape(p, d)[lb:ub] > mask_frac
         h = (u_log * keep) @ pr["rho"]
         z = torch.relu(h @ pr["w1"] + pr["b1"])  # [P, H]
         logits = z @ (pr["rho"] + pr["delta"]).T + pr["bias_s"][None, :]
-        ll = torch.sum(s_j * torch.log_softmax(logits, dim=1)) / torch.clamp_min(s_j.sum(), 1.0)
+        ll = torch.sum(s_j * torch.log_softmax(logits, dim=1)) / total
+        if not primary:
+            return -ll
         return -ll + delta_l2 * torch.mean(torch.sum(pr["delta"] ** 2, dim=1))
 
-    opt = _Optimizer(params, learning_rate, weight_decay, grad_clip)
-    ls = _fold(loss_fn, params, opt, epochs, keys)
+    opt = _Optimizer(params, learning_rate, weight_decay, grad_clip, mesh)
+    ls = _fold(loss_fn, params, opt, epochs, keys, mesh=mesh)
     out = {k: v.detach().cpu().numpy() for k, v in params.items()}
     return GemEncoderResult(
         rho=out["rho"], delta=out["delta"], w1=out["w1"], b1=out["b1"],

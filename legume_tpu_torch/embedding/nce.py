@@ -24,6 +24,19 @@ package does (its fused kernel is off for that option).
 The optimiser is optax's Adam(W) written in torch ops on one flat buffer
 of parameters, and the initial weights are the JAX package's threefry
 draws (`utils/prng.py`), so CPU runs follow the JAX trajectories.
+
+`fit_bge(mesh=)` shards the rows over the ranks, one rank a GPU, as the
+JAX package's placements do. Phase 1: the pseudobulk rows pad with
+zero-count rows to a multiple of the world and shard (the initial axis
+draws taken over the padded rows); the feature side and its AdamW state
+replicate; each rank runs K4's full form on its rows, scales by the
+global count total and adds the ridge on rank 0 alone; the feature-side
+gradients (and the loss) are summed across the ranks before each step.
+Phase 2: each rank fits its share of every streamed block against the
+frozen features (K4's axis form), the block's initial noise drawn for
+the whole block and the loss scaled by the whole block's total; the
+cell embeddings are gathered in cell order. A world of one is the plain
+run.
 """
 
 from __future__ import annotations
@@ -36,10 +49,12 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..data.visitors import visit_columns_by_block
+from ..data.visitors import CooBlock, visit_columns_by_block
 from ..ops import kernels
 from ..ops.random_projection import block_to_device
 from ..ops.sparse import col_ids_from_ptr, densify_block
+from ..parallel.mesh import data_sharding, live, padded_share, share_sizes, sum_grads_
+from ..parallel.multihost import gather_padded, gather_shares, sum_across_ranks
 from ..utils import prng
 from .nce_kernel import nce_epoch_grads
 
@@ -144,9 +159,12 @@ def expected_nce_loss(
     k_neg: float,
     ridge: float,
     dtype: str = "float32",
+    total: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The objective in torch ops (the counterpart of the JAX package's
-    `_expected_nce_loss`): scores in `dtype`, reductions in f32."""
+    `_expected_nce_loss`): scores in `dtype`, reductions in f32. `total`
+    overrides the normaliser max(sum of counts, 1) (a rank's rows scale
+    by the whole plane's)."""
     dt = _store_dtype(dtype)
     scores = (
         axis.e.to(dt) @ feat.e_feat.to(dt).T
@@ -156,7 +174,8 @@ def expected_nce_loss(
     pos = counts_pd.to(dt) * _log_sigmoid(scores)
     q2 = q_d if q_d.dim() == 2 else q_d[None, :]
     neg = (k_neg * m_p[:, None] * q2).to(dt) * _log_sigmoid(-scores)
-    total = torch.clamp_min(counts_pd.sum(dtype=torch.float32), 1.0)
+    if total is None:
+        total = torch.clamp_min(counts_pd.sum(dtype=torch.float32), 1.0)
     loss = -(pos.sum(dtype=torch.float32) + neg.sum(dtype=torch.float32)) / total
     if ridge > 0:
         loss = loss + ridge * (feat.e_feat**2).sum(dim=1).mean()
@@ -174,6 +193,7 @@ def expected_nce_loss_chunked(
     ridge: float,
     gene_chunk: int,
     dtype: str = "float32",
+    total: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The objective summed over gene chunks (the counterpart of the JAX
     package's `_expected_nce_loss_chunked`): one [P, gene_chunk] score
@@ -193,7 +213,9 @@ def expected_nce_loss_chunked(
         pos = counts_pd[:, sl].to(dt) * _log_sigmoid(scores)
         neg = (k_neg * m_p[:, None] * q).to(dt) * _log_sigmoid(-scores)
         num = num + pos.sum(dtype=torch.float32) + neg.sum(dtype=torch.float32)
-    loss = -num / torch.clamp_min(counts_pd.sum(dtype=torch.float32), 1.0)
+    if total is None:
+        total = torch.clamp_min(counts_pd.sum(dtype=torch.float32), 1.0)
+    loss = -num / total
     if ridge > 0:
         loss = loss + ridge * (feat.e_feat**2).sum(dim=1).mean()
     return loss
@@ -265,12 +287,16 @@ def fit_bge(
     config: NceConfig | None = None,
     pb_batches: Sequence[np.ndarray] | None = None,  # per level [P_l] labels
     cell_batches: np.ndarray | None = None,  # [N] phase-2 labels
+    mesh=None,
     device="cuda",
 ) -> BgeResult:
     """Two-phase fit. `pb_batches` / `cell_batches` switch the negative
     marginal to the batch-stratified form (negatives from the row's own
-    batch, in exact expectation)."""
+    batch, in exact expectation). `mesh` shards the rows (the module's
+    docstring)."""
     cfg = config or NceConfig()
+    mesh = live(mesh)
+    primary = mesh is None or mesh.primary
     device = torch.device(device)
     store_dt = _store_dtype(cfg.compute_dtype)
     timings: dict[str, float] = {}
@@ -300,29 +326,45 @@ def fit_bge(
                      for pc in pb_counts]
     n_lv = len(pb_counts)
     use_kernel = pb_batches is None and h <= kernels.MAX_H and cfg.gene_chunk <= 0
+    # under a mesh the rows pad with zero-count rows (zero mass: no loss
+    # terms) to a multiple of the world, and each rank holds its share
+    p_orig = [pc.shape[0] for pc in pb_counts]
+    shares = [padded_share(mesh, p0) for p0 in p_orig]
+    if mesh is not None:
+        pb_counts = [np.pad(np.asarray(pc, np.float32), ((0, sh[0] - pc.shape[0]), (0, 0)))
+                     for pc, sh in zip(pb_counts, shares)]
+        if pb_batches is not None:
+            pb_batches = [np.pad(np.asarray(bt), (0, sh[0] - len(bt)), mode="edge")
+                          for bt, sh in zip(pb_batches, shares)]
+        for p0, (p_pad, lb, ub) in zip(p_orig, shares):
+            log.info("bge: rank %d holds pseudobulk rows [%d, %d) of %d (%d with padding)",
+                     mesh.rank, min(lb, p0), min(ub, p0), p0, p_pad)
 
     # initial weights: the JAX package's draws (its kernel path draws
-    # e_feat at (D rounded up to 128, H); the first D*H draws are these)
+    # e_feat at (D rounded up to 128, H); the first D*H draws are these),
+    # the axes over their padded rows, of which a rank keeps its share
     k_f, *k_axes = prng.split(prng.key(cfg.seed), 1 + n_lv)
     init = [0.1 * prng.normal(k_f, (d_pad, h)), np.zeros(d_pad, np.float32)]
-    for k, pc in zip(k_axes, pb_counts):
-        init += [0.1 * prng.normal(k, (pc.shape[0], h)), np.zeros(pc.shape[0], np.float32)]
+    for k, pc, (_, lb, ub) in zip(k_axes, pb_counts, shares):
+        init += [(0.1 * prng.normal(k, (pc.shape[0], h)))[lb:ub], np.zeros(ub - lb, np.float32)]
     theta, views = _flat(init, device)
+    n_feat = views[0].numel() + views[1].numel()  # the replicated head of theta
 
     # count planes on the device in the storage dtype; masses and totals
-    # reduced in f32 before the downcast
+    # reduced in f32 before the downcast (the total over every rank's rows)
     counts, ms, totals, qs = [], [], [], []
-    for i, pc in enumerate(pb_counts):
-        c32 = _device_counts(pc, device)
+    for i, (pc, (_, lb, ub)) in enumerate(zip(pb_counts, shares)):
+        c32 = _device_counts(pc[lb:ub], device)
         ms.append(c32.sum(dim=1))
-        totals.append(torch.clamp_min(c32.sum(), 1.0))
+        totals.append(torch.clamp_min(sum_across_ranks(mesh, c32.sum()), 1.0))
         counts.append(c32.to(store_dt))
         if pb_batches is not None:
-            q = _neg_marginal_stratified(pc, pb_batches[i], cfg.neg_alpha)
-            qs.append(torch.from_numpy(q).to(device).to(store_dt))
+            q = _neg_marginal_stratified(pc, pb_batches[i], cfg.neg_alpha)[lb:ub]
+            qs.append(torch.from_numpy(np.ascontiguousarray(q)).to(device).to(store_dt))
         else:
             qs.append(torch.from_numpy(_neg_marginal(pc, cfg.neg_alpha)).to(device))
         del c32
+    ridge = cfg.ridge if primary else 0.0  # the ridge counts once
 
     # ---- phase 1: one AdamW step per epoch, all levels, shared feat side
     opt = _Adam(theta, cfg.learning_rate, weight_decay=cfg.weight_decay)
@@ -336,7 +378,7 @@ def fit_bge(
             for i in range(n_lv):
                 li, g_ef, g_bf, g_ea, g_ba = nce_epoch_grads(
                     e_f, b_f, views[2 + 2 * i], views[3 + 2 * i], counts[i], qs[i], ms[i],
-                    k_neg=cfg.n_negatives, total=totals[i], ridge=cfg.ridge, d_real=d,
+                    k_neg=cfg.n_negatives, total=totals[i], ridge=ridge, d_real=d,
                 )
                 loss_t = loss_t + li
                 gf_e = gf_e + g_ef
@@ -351,7 +393,8 @@ def fit_bge(
             loss = 0.0
             for i in range(n_lv):
                 args = (feat, AxisSide(tv[2 + 2 * i], tv[3 + 2 * i]), counts[i], qs[i], ms[i])
-                kw = dict(k_neg=cfg.n_negatives, ridge=cfg.ridge, dtype=cfg.compute_dtype)
+                kw = dict(k_neg=cfg.n_negatives, ridge=ridge, dtype=cfg.compute_dtype,
+                          total=None if mesh is None else totals[i])
                 loss = loss + (
                     expected_nce_loss_chunked(*args, gene_chunk=cfg.gene_chunk, **kw)
                     if cfg.gene_chunk > 0 else expected_nce_loss(*args, **kw)
@@ -359,13 +402,17 @@ def fit_bge(
             loss = loss / n_lv
             (g,) = torch.autograd.grad(loss, th)
             loss = loss.detach()
+        if mesh is not None:  # the feature side's gradients and the loss, summed
+            loss = loss.reshape(1).clone()
+            sum_grads_(mesh, [g[:n_feat], loss])
+            loss = loss[0]
         loss_trace[ep] = loss
         opt.step(g)
     p1_losses = loss_trace.cpu().numpy()[::50].tolist()
     e_feat = views[0][:d].cpu().numpy()  # without the chunk padding
     b_feat = views[1][:d].cpu().numpy()
-    pb_embeddings = [views[2 + 2 * i].cpu().numpy() for i in range(n_lv)]
-    pb_biases = [views[3 + 2 * i].cpu().numpy() for i in range(n_lv)]
+    pb_embeddings = [gather_padded(mesh, views[2 + 2 * i], p_orig[i]) for i in range(n_lv)]
+    pb_biases = [gather_padded(mesh, views[3 + 2 * i], p_orig[i]) for i in range(n_lv)]
     del counts, qs, ms
     timings["phase1_s"] = time.time() - t_p1
 
@@ -375,7 +422,7 @@ def fit_bge(
     if data is not None:
         e_cell, b_cell, p2_losses = _fit_cells(
             data, cfg, pb_counts, views[0][:d], views[1][:d], keep, keep_idx, d_full,
-            pb_batches, cell_batches, device,
+            pb_batches, cell_batches, device, mesh,
         )
     else:
         e_cell = np.zeros((0, h), np.float32)
@@ -399,11 +446,22 @@ def fit_bge(
     )
 
 
+def _rows_of_block(blk, a: int, b: int):
+    """Columns `[a, b)` of a column block, as a block of their own."""
+    if (a, b) == (0, blk.ncols):
+        return blk
+    ptr = blk.col_ptr
+    lo, hi = int(ptr[a]), int(ptr[b])
+    return CooBlock(blk.lb + a, b - a, blk.row_ids[lo:hi], blk.vals[lo:hi], blk.col_counts[a:b])
+
+
 def _fit_cells(data, cfg: NceConfig, pb_counts, e_feat, b_feat, keep, keep_idx, d_full,
-               pb_batches, cell_batches, device):
+               pb_batches, cell_batches, device, mesh=None):
     """Phase 2: blocks of `cfg.cell_batch` cells, each fitted by
     `phase2_epochs` Adam steps against the frozen feature side (separable
-    per cell). Returns `(e_cell [N, H], b_cell [N], last loss per block)`."""
+    per cell). Returns `(e_cell [N, H], b_cell [N], last loss per block)`.
+    Under `mesh` each rank fits its share (`data_sharding`) of every
+    block; the shares are gathered in cell order at the end."""
     n, h = data.num_columns, cfg.embedding_dim
     store_dt = _store_dtype(cfg.compute_dtype)
     d = e_feat.shape[0]
@@ -425,14 +483,21 @@ def _fit_cells(data, cfg: NceConfig, pb_counts, e_feat, b_feat, keep, keep_idx, 
     e_cell = torch.zeros(n, h, dtype=torch.float32, device=device)
     b_cell = torch.zeros(n, dtype=torch.float32, device=device)
     last_losses = []
+    block_ncols = []  # under a mesh: each block's width, for the gather
+    done = 0  # this rank's cells so far (its rows of e_cell, b_cell)
     key2 = prng.key(cfg.seed + 1)
-    for blk in visit_columns_by_block(data, block_size=cfg.cell_batch):
+    for full in visit_columns_by_block(data, block_size=cfg.cell_batch):
         key2, kb = prng.split(key2)
+        a, b = (0, full.ncols) if mesh is None else data_sharding(mesh, full.ncols)
+        block_ncols.append(full.ncols)
+        blk = _rows_of_block(full, a, b)
         rows, ptr, vals = block_to_device(blk, device)
         x = densify_block(rows, col_ids_from_ptr(ptr), vals, ncols=blk.ncols, num_genes=d_full)
         if keep_t is not None:
             x = x[:, keep_t].contiguous()
         m_b = x.sum(dim=1)
+        # the whole block's total (Adam's eps makes the step depend on scale)
+        total_b = torch.clamp_min(sum_across_ranks(mesh, x.sum()), 1.0)
         if q_table is not None:
             bl = np.asarray(cell_batches)[blk.lb : blk.lb + blk.ncols]
             pos = np.searchsorted(q_batch_ids, bl).clip(0, len(q_batch_ids) - 1)
@@ -442,12 +507,15 @@ def _fit_cells(data, cfg: NceConfig, pb_counts, e_feat, b_feat, keep, keep_idx, 
         else:
             q_bd = q_global
         theta, (e_a, b_a) = _flat(
-            [0.01 * prng.normal(kb, (blk.ncols, h)), np.zeros(blk.ncols, np.float32)], device
+            [(0.01 * prng.normal(kb, (full.ncols, h)))[a:b], np.zeros(blk.ncols, np.float32)],
+            device,
         )
         opt = _Adam(theta, cfg.learning_rate * 2)
         if use_kernel:
-            total_b = torch.clamp_min(x.sum(), 1.0)
             x = x.to(store_dt)
+        if blk.ncols == 0:  # an empty share: nothing to fit
+            last_losses.append(torch.zeros((), dtype=torch.float32, device=device))
+            continue
         for _ in range(cfg.phase2_epochs):
             if use_kernel:  # the feature side is frozen: axis gradients only
                 loss, _, _, g_ea, g_ba = nce_epoch_grads(
@@ -461,11 +529,26 @@ def _fit_cells(data, cfg: NceConfig, pb_counts, e_feat, b_feat, keep, keep_idx, 
                 loss = expected_nce_loss(
                     feat, AxisSide(ta, tb), x, q_bd, m_b,
                     k_neg=cfg.n_negatives, ridge=0.0, dtype=cfg.compute_dtype,
+                    total=None if mesh is None else total_b,
                 )
                 (g,) = torch.autograd.grad(loss, th)
             opt.step(g)
         last_losses.append(loss.detach())
-        e_cell[blk.lb : blk.lb + blk.ncols] = e_a
-        b_cell[blk.lb : blk.lb + blk.ncols] = b_a
-    losses = torch.stack(last_losses).cpu().tolist() if last_losses else []
-    return e_cell.cpu().numpy(), b_cell.cpu().numpy(), losses
+        e_cell[done : done + blk.ncols] = e_a
+        b_cell[done : done + blk.ncols] = b_a
+        done += blk.ncols
+    losses = (sum_across_ranks(mesh, torch.stack(last_losses)).cpu().tolist()
+              if last_losses else [])
+    if mesh is None:
+        return e_cell.cpu().numpy(), b_cell.cpu().numpy(), losses
+    # every rank's cells, its blocks' shares in order, back in cell order
+    per_rank = [[share_sizes(mesh, nc)[r] for nc in block_ncols] for r in range(mesh.size)]
+    eb = gather_shares(mesh, torch.cat([e_cell[:done], b_cell[:done, None]], dim=1),
+                       [sum(sz) for sz in per_rank])
+    starts = np.cumsum([0] + [sum(sz) for sz in per_rank])
+    order = np.concatenate([
+        starts[r] + sum(per_rank[r][:j]) + np.arange(per_rank[r][j])
+        for j in range(len(block_ncols)) for r in range(mesh.size)
+    ] or [np.zeros(0)]).astype(np.int64)
+    eb = eb[order]
+    return np.ascontiguousarray(eb[:, :h]), np.ascontiguousarray(eb[:, h]), losses

@@ -22,8 +22,13 @@ per-element keys, and the port draws Marsaglia-Tsang from the same
 threefry key in its own order (`_gamma`). So chains match the JAX
 package's in distribution, not draw for draw.
 
-The anchor-axis `mesh` of the JAX package waits for the port's
-multi-GPU layer and raises `NotImplementedError`.
+`mesh` shards the anchor (pseudobulk) axis over the ranks, as the JAX
+package's placements do (`_Anchors`): anchors pad to a multiple of the
+world with masked zero rows, each rank holds the chains of its equal
+share, every draw over anchors is made for the whole padded axis and
+sliced, and every feature-side conditional sums its anchors' terms
+across the ranks (in rank order) before it draws. A world of one is the
+plain run.
 """
 
 from __future__ import annotations
@@ -34,18 +39,58 @@ import numpy as np
 import torch
 
 from ..ops.mcmc import elliptical_slice_step_batched, ess, run_ess_chains, split_rhat
+from ..parallel.mesh import live, padded_share
+from ..parallel.multihost import gather_padded, sum_across_ranks
 from ..utils import prng
 from .nce import _log_sigmoid
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("the anchor-axis mesh of the posterior samplers is not ported "
-                                  "(ROADMAP.md §1 item 4)")
-
-
 def _t(x, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+
+class _Anchors:
+    """The anchor axis of `p` rows over `mesh` (the port of the JAX
+    package's `_pad_anchors` and `_anchor_putters`): padded to a multiple
+    of the world, this rank's equal share `[lb, ub)` of the padded rows.
+    Without a mesh (or in a world of one) nothing pads and every helper
+    is the identity."""
+
+    def __init__(self, mesh, p: int, device):
+        self.mesh = live(mesh)
+        self.p, self.device = p, device
+        self.p_pad, self.lb, self.ub = padded_share(self.mesh, p)
+        self.span = None if self.mesh is None else (self.lb, self.ub, self.p_pad)
+
+    def rows(self, a) -> torch.Tensor:
+        """This rank's rows of `a` [P, ...], zero past the real anchors."""
+        a = np.asarray(a, np.float32)
+        if self.mesh is None:
+            return _t(a, self.device)
+        out = np.zeros((self.ub - self.lb,) + a.shape[1:], np.float32)
+        real = a[self.lb : min(self.ub, self.p)]
+        out[: real.shape[0]] = real
+        return _t(out, self.device)
+
+    def mask(self) -> torch.Tensor | None:
+        """1 for this rank's real anchors, 0 for pad rows (None: no pad)."""
+        if self.p_pad == self.p:
+            return None
+        return self.rows(np.ones(self.p, np.float32))
+
+    def normal(self, key, shape) -> torch.Tensor:
+        """This rank's rows of `normal(key, [P_pad, ...])`."""
+        n = int(np.prod(shape[1:], dtype=np.int64))
+        draw = prng.normal_keys(key[None], self.p_pad * n, self.device)[0]
+        return draw.reshape((self.p_pad,) + tuple(shape[1:]))[self.lb : self.ub]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over the ranks (a feature-side sum over anchors)."""
+        return sum_across_ranks(self.mesh, t)
+
+    def gather(self, t: torch.Tensor) -> np.ndarray:
+        """Every rank's rows [share, ...] gathered, the pad rows dropped."""
+        return gather_padded(self.mesh, t, self.p)
 
 
 def pb_posterior_ess(
@@ -62,12 +107,13 @@ def pb_posterior_ess(
 ) -> dict:
     """Posterior draws of pb embeddings (and bias) under
     y_pg ~ Poisson(exp(e_p . f_g + b_g + b_p)), with split-Rhat and ESS
-    of the first 20 anchors' first coordinate."""
-    _no_mesh(mesh)
+    of the first 20 anchors' first coordinate. `mesh` shards the
+    anchors: their chains are independent, so no rank waits on another."""
     device = torch.device(device)
     p, _ = counts_pd.shape
     h = feat_e.shape[1]
-    y, f, fb = _t(counts_pd, device), _t(feat_e, device), _t(feat_b, device)
+    anchors = _Anchors(mesh, p, device)
+    y, f, fb = anchors.rows(counts_pd), _t(feat_e, device), _t(feat_b, device)
 
     def lnpdf(state, idx):  # [n, H+1] states of anchors idx -> [n]
         eta = state[:, :h] @ f.T + fb[None, :] + state[:, h][:, None]
@@ -75,20 +121,23 @@ def pb_posterior_ess(
         return ((y if idx is None else y[idx]) * eta - torch.exp(eta)).sum(dim=1)
 
     def prior_draw(k, shape):
-        return prior_sd * prng.normal_keys(k[None], int(np.prod(shape)), device)[0].reshape(shape)
+        return prior_sd * anchors.normal(k, shape)
 
     samples, lnp = run_ess_chains(
-        prng.key(seed), torch.zeros(p, h + 1, device=device), prior_draw, lnpdf,
-        num_samples=num_samples, burn_in=burn_in,
+        prng.key(seed), torch.zeros(y.shape[0], h + 1, device=device), prior_draw, lnpdf,
+        num_samples=num_samples, burn_in=burn_in, span=anchors.span,
     )
-    draws = samples.cpu().numpy()  # [T, P, H+1]
+    # [T, P, H+1], the anchors gathered in order
+    draws = np.ascontiguousarray(
+        anchors.gather(samples.transpose(0, 1).contiguous()).transpose(1, 0, 2))
+    lnp_np = np.ascontiguousarray(anchors.gather(lnp.T.contiguous()).T)
     return {
         "e_mean": draws[:, :, :h].mean(0),
         "b_mean": draws[:, :, h].mean(0),
         "draws": draws,
         "rhat": np.asarray([split_rhat(draws[:, i, 0]) for i in range(min(p, 20))]),
         "ess": np.asarray([ess(draws[:, i, 0]) for i in range(min(p, 20))]),
-        "lnpdf": lnp.cpu().numpy(),
+        "lnpdf": lnp_np,
     }
 
 
@@ -221,11 +270,14 @@ def _gamma(key: np.ndarray, alpha: torch.Tensor) -> torch.Tensor:
     return torch.where(alpha >= 1.0, out, out * boost ** (1.0 / alpha))
 
 
-def _poisson_ll_cols(y_pd, eta_pd):
+def _poisson_ll_cols(y_pd, eta_pd, mask_p=None):
     """Per-column Poisson log-likelihood given the full eta plane (which
-    it overwrites)."""
+    it overwrites). `mask_p` zeroes the anchors added as padding (their
+    counts are zero already)."""
     eta = torch.clamp_(eta_pd, -20.0, 20.0)
-    return (y_pd * eta).sum(dim=0) - torch.exp_(eta).sum(dim=0)
+    if mask_p is None:
+        return (y_pd * eta).sum(dim=0) - torch.exp_(eta).sum(dim=0)
+    return (y_pd * eta).sum(dim=0) - (torch.exp_(eta) * mask_p[:, None]).sum(dim=0)
 
 
 @dataclass
@@ -239,14 +291,20 @@ class PbGibbsResult:
     ess: np.ndarray  # [P]
 
 
-def _ess_run(key, init, scale, lnpdf, transitions, stats):
-    """`transitions` ESS steps from `init` with prior draws scale * N(0, 1)."""
+def _ess_run(key, init, scale, lnpdf, transitions, stats, anchors=None):
+    """`transitions` ESS steps from `init` with prior draws scale * N(0, 1).
+    `anchors`: the chains are this rank's anchors, drawn over all of them."""
     cur, cur_ln = init, lnpdf(init, None)
     n = cur.numel()
     for k in prng.split(key, transitions):
         k1, k2 = prng.split(k)
-        nu = scale * prng.normal_keys(k1[None], n, cur.device)[0].reshape(cur.shape)
-        cur, cur_ln = elliptical_slice_step_batched(k2, cur, nu, lnpdf, cur_ln, stats=stats)
+        if anchors is None:
+            nu = scale * prng.normal_keys(k1[None], n, cur.device)[0].reshape(cur.shape)
+        else:
+            nu = scale * anchors.normal(k1, tuple(cur.shape))
+        cur, cur_ln = elliptical_slice_step_batched(
+            k2, cur, nu, lnpdf, cur_ln, stats=stats,
+            span=None if anchors is None else anchors.span)
     return cur
 
 
@@ -277,13 +335,16 @@ def pb_gibbs(
     with per-dim slab variances under half-Cauchy hyperpriors resampled
     between the blocks, warm-started from the NCE point estimate. The
     full eta plane is carried through the dim loop and rank-1 updated.
-    `stats` (if given) receives the ESS step and shrink-iteration counts."""
-    _no_mesh(mesh)
+    `stats` (if given) receives the ESS step and shrink-iteration counts.
+    `mesh` shards the anchors (`_Anchors`): the gene block's column sums
+    add across the ranks, the pb block's chains stay on their rank."""
     device = torch.device(device)
     p, d = counts_pd.shape
     h = e_feat.shape[1]
-    y = _t(counts_pd, device)
-    ep, bp = _t(e_pb, device), _t(b_pb, device)
+    anchors = _Anchors(mesh, p, device)
+    mask = anchors.mask()
+    y = anchors.rows(counts_pd)
+    ep, bp = anchors.rows(e_pb), anchors.rows(b_pb)
     ef, bf = _t(e_feat, device), _t(b_feat, device)
     gates = torch.ones(d, h, device=device)
     pi0 = ibp_pi0(stick_alpha, h) if stick_alpha is not None else np.full(h, 0.5)
@@ -295,8 +356,8 @@ def pb_gibbs(
     aux = torch.full((h,), half_cauchy_scale**2, device=device)
     fa = torch.zeros(d, h, device=device)
     pa = torch.zeros(d, h, device=device)
-    ea = torch.zeros(p, h, device=device)
-    ba = torch.zeros(p, device=device)
+    ea = torch.zeros_like(ep)
+    ba = torch.zeros_like(bp)
     sig_tr, chain = [], []
     key = prng.key(seed & 0x7FFFFFFF)
     for sweep in range(burnin + n_sweeps):
@@ -312,8 +373,11 @@ def pb_gibbs(
             def lnpdf(state, idx, eta_off=eta_off, contrib=contrib):
                 # chains are genes: the columns idx of the plane
                 if idx is None:
-                    return _poisson_ll_cols(y, torch.addr(eta_off, contrib, state[:, 0]))
-                return _poisson_ll_cols(y[:, idx], torch.addr(eta_off[:, idx], contrib, state[:, 0]))
+                    ll = _poisson_ll_cols(y, torch.addr(eta_off, contrib, state[:, 0]), mask)
+                else:
+                    ll = _poisson_ll_cols(y[:, idx], torch.addr(eta_off[:, idx], contrib,
+                                                                state[:, 0]), mask)
+                return anchors.sum(ll)
 
             k_d, k_e, k_g = prng.split(k_d, 3)
             new = _ess_run(k_e, cur[:, None], float(sd[dim]), lnpdf, transitions_per_dim,
@@ -346,7 +410,7 @@ def pb_gibbs(
 
         key, k_p = prng.split(key)
         last = _ess_run(k_p, torch.cat([ep, bp[:, None]], dim=1), 1.0, lnpdf_pb,
-                        transitions_per_dim, stats)
+                        transitions_per_dim, stats, anchors)
         ep, bp = last[:, :h].contiguous(), last[:, h].contiguous()
         if sweep >= burnin:
             fa += ef * gates
@@ -358,14 +422,14 @@ def pb_gibbs(
 
     kept = max(n_sweeps, 1)
     sigma2_trace = torch.stack(sig_tr).cpu().numpy()[burnin:]
-    chain_np = torch.stack(chain).cpu().numpy()[burnin:]
+    chain_np = np.ascontiguousarray(anchors.gather(torch.stack(chain).T.contiguous()).T[burnin:])
     if len(chain_np) == 0:
         chain_np = np.zeros((1, p))
     return PbGibbsResult(
         e_feat_mean=fa.cpu().numpy() / kept,
         pip=pa.cpu().numpy() / kept,
-        e_pb_mean=ea.cpu().numpy() / kept,
-        b_pb_mean=ba.cpu().numpy() / kept,
+        e_pb_mean=anchors.gather(ea) / kept,
+        b_pb_mean=anchors.gather(ba) / kept,
         sigma2_trace=sigma2_trace if len(sigma2_trace) else np.zeros((0, h)),
         rhat=_split_rhat_all(chain_np),
         ess=np.asarray([ess(chain_np[:, i]) for i in range(chain_np.shape[1])]),
@@ -437,15 +501,16 @@ def gem_gibbs(
     planes are carried through the dim loops and rank-1 updated, as
     `pb_gibbs` carries its one. The keys split as the JAX package's
     scan splits them; the Gamma draws of the hyperpriors are the port's
-    own (`_gamma`)."""
-    _no_mesh(mesh)
+    own (`_gamma`). `mesh` shards the anchors as `pb_gibbs` does."""
     device = torch.device(device)
     p, d = s_pd.shape
     h = beta.shape[1]
-    ys, yu = _t(s_pd, device), _t(u_pd, device)
+    anchors = _Anchors(mesh, p, device)
+    mask = anchors.mask()
+    ys, yu = anchors.rows(s_pd), anchors.rows(u_pd)
     bs, bu = _t(b_s, device), _t(b_u, device)
     beta_t, delta_t = _t(beta, device).clone(), _t(delta, device).clone()
-    ep, bp = _t(e_pb, device), _t(b_pb, device)
+    ep, bp = anchors.rows(e_pb), anchors.rows(b_pb)
     gb = torch.ones(d, h, device=device)
     gd = torch.ones(d, h, device=device)
     lo_s2 = float(np.exp(-2.0 * HalfCauchyVar.LOG_SD_CLAMP))
@@ -459,8 +524,8 @@ def gem_gibbs(
     sig_d = sig_b.clone()
     aux_d = sig_b.clone()
     bm, bpip, dm, dpip = (torch.zeros(d, h, device=device) for _ in range(4))
-    ea = torch.zeros(p, h, device=device)
-    ba = torch.zeros(p, device=device)
+    ea = torch.zeros_like(ep)
+    ba = torch.zeros_like(bp)
     sb_tr, sd_tr, chain = [], [], []
 
     def gate_dim(k, cur, contrib, lnpdf, sd, lop):
@@ -497,10 +562,14 @@ def gem_gibbs(
 
             def lnpdf(state, idx, es=eta_s_off, eu=eta_u_off, contrib=contrib):
                 if idx is None:
-                    return (_poisson_ll_cols(ys, torch.addr(es, contrib, state[:, 0]))
-                            + _poisson_ll_cols(yu, torch.addr(eu, contrib, state[:, 0])))
-                return (_poisson_ll_cols(ys[:, idx], torch.addr(es[:, idx], contrib, state[:, 0]))
-                        + _poisson_ll_cols(yu[:, idx], torch.addr(eu[:, idx], contrib, state[:, 0])))
+                    ll = (_poisson_ll_cols(ys, torch.addr(es, contrib, state[:, 0]), mask)
+                          + _poisson_ll_cols(yu, torch.addr(eu, contrib, state[:, 0]), mask))
+                else:
+                    ll = (_poisson_ll_cols(ys[:, idx], torch.addr(es[:, idx], contrib,
+                                                                  state[:, 0]), mask)
+                          + _poisson_ll_cols(yu[:, idx], torch.addr(eu[:, idx], contrib,
+                                                                    state[:, 0]), mask))
+                return anchors.sum(ll)
 
             k_b, k_e, k_g = prng.split(k_b, 3)
             new, on = gate_dim((k_e, k_g), cur, contrib, lnpdf, float(sd[dim]), log_odds[dim])
@@ -519,8 +588,11 @@ def gem_gibbs(
 
             def lnpdf_d(state, idx, eu=eta_u_off, contrib=contrib):
                 if idx is None:
-                    return _poisson_ll_cols(yu, torch.addr(eu, contrib, state[:, 0]))
-                return _poisson_ll_cols(yu[:, idx], torch.addr(eu[:, idx], contrib, state[:, 0]))
+                    ll = _poisson_ll_cols(yu, torch.addr(eu, contrib, state[:, 0]), mask)
+                else:
+                    ll = _poisson_ll_cols(yu[:, idx], torch.addr(eu[:, idx], contrib,
+                                                                 state[:, 0]), mask)
+                return anchors.sum(ll)
 
             k_d, k_e, k_g = prng.split(k_d, 3)
             new, on = gate_dim((k_e, k_g), cur, contrib, lnpdf_d, float(sd[dim]), log_odds[dim])
@@ -548,7 +620,7 @@ def gem_gibbs(
 
         key, k_p = prng.split(key)
         last = _ess_run(k_p, torch.cat([ep, bp[:, None]], dim=1), 1.0, lnpdf_pb,
-                        transitions_per_dim, stats)
+                        transitions_per_dim, stats, anchors)
         ep, bp = last[:, :h].contiguous(), last[:, h].contiguous()
         if sweep >= burnin:
             bm += beta_t * gb
@@ -562,7 +634,7 @@ def gem_gibbs(
         chain.append(ep[:, 0])
 
     kept = max(n_sweeps, 1)
-    chain_np = torch.stack(chain).cpu().numpy()[burnin:]
+    chain_np = np.ascontiguousarray(anchors.gather(torch.stack(chain).T.contiguous()).T[burnin:])
     if len(chain_np) == 0:
         chain_np = np.zeros((1, p))
     return GemGibbsResult(
@@ -570,8 +642,8 @@ def gem_gibbs(
         beta_pip=bpip.cpu().numpy() / kept,
         delta_mean=dm.cpu().numpy() / kept,
         delta_pip=dpip.cpu().numpy() / kept,
-        e_pb_mean=ea.cpu().numpy() / kept,
-        b_pb_mean=ba.cpu().numpy() / kept,
+        e_pb_mean=anchors.gather(ea) / kept,
+        b_pb_mean=anchors.gather(ba) / kept,
         delta_identified=identified,
         beta_sigma2_trace=torch.stack(sb_tr).cpu().numpy()[burnin:],
         delta_sigma2_trace=torch.stack(sd_tr).cpu().numpy()[burnin:],

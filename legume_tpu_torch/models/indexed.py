@@ -25,6 +25,16 @@ On the card the gathers of rho and log phi by the windows' gene ids take
 their backward through K3 (`gather_rows`), so two runs from the same
 seed give the same bits: autograd's own scatter adds a gene's gradients
 from many cells with float atomics, in another order each run.
+
+Under a data-parallel mesh (`MaskedTrainConfig.mesh`, one rank a GPU)
+every rank holds every window and draws the same permutation, mask
+rate, mask and noise over the whole minibatch, takes its share
+(`data_sharding`) of the minibatch's rows and scores them against the
+union of the whole minibatch; the loss is the mean over the minibatch's
+rows, the rho L2 counts on rank 0 alone, the BatchNorm statistics span
+the ranks, and the gradients are summed across the ranks before the
+clip, the non-finite skip and the AdamW step. A world of one is the
+plain run.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from ..ops import kernels
 from ..ops import sparse as sparse_ops
 from ..ops.random_projection import block_to_device
 from ..ops.transforms import anscombe_lite
+from ..parallel.mesh import data_sharding, live, replicate, sum_grads_
 from ..utils import prng
 from . import losses
 from .encoders import FlaxBatchNorm, dense, soft_clamp
@@ -291,7 +302,8 @@ class MaskedTopicModel(nn.Module):
 
 @dataclass
 class MaskedTrainConfig:
-    """The JAX package's `MaskedTrainConfig` (without its mesh)."""
+    """The JAX package's `MaskedTrainConfig`; `mesh` is the port's
+    (`parallel/mesh.py::Mesh`)."""
 
     epochs: int = 100
     minibatch: int = 256
@@ -314,6 +326,7 @@ class MaskedTrainConfig:
     # batch-null stream: plane [n_genes + 1, M] indexed per cell by membership [N]
     null_plane: "np.ndarray | None" = None
     null_membership: "np.ndarray | None" = None
+    mesh: "object | None" = None
 
 
 def masked_keys(seed: int) -> tuple[np.ndarray, np.ndarray]:
@@ -347,8 +360,10 @@ class _Batcher:
         self.memb = torch.from_numpy(
             np.asarray(cfg.null_membership if self.use_null else np.zeros(n), np.int64)).to(device)
 
-    def __call__(self, ids_b, memb_b):
-        union = union_ids(ids_b, self.u_cap, self.d)
+    def __call__(self, ids_b, memb_b, union_of=None):
+        """`union_of`: the ids whose union is taken (the whole minibatch's
+        when `ids_b` is a rank's share of it)."""
+        union = union_ids(ids_b if union_of is None else union_of, self.u_cap, self.d)
         null_b = self.plane[ids_b.long(), memb_b[:, None]] if self.use_null else None
         return union, self.log_q[union], union < self.d, null_b
 
@@ -389,9 +404,10 @@ def train_masked(model: MaskedTopicModel, data: IndexedData,
     global-norm clip (a non-finite norm skips the step), the optional
     L2 on rho, and rows of rho held fixed (their whole update zeroed,
     decay included). Returns (model, per-epoch mean loss trace, held-out
-    eval loss or None)."""
+    eval loss or None; under a mesh the eval runs on rank 0 alone)."""
     cfg = config or MaskedTrainConfig()
     device = torch.device(device)
+    mesh = live(cfg.mesh)
     n, k = data.ids.shape
     mb = cfg.minibatch
     model.to(device)
@@ -404,6 +420,12 @@ def train_masked(model: MaskedTopicModel, data: IndexedData,
             model.rho.copy_(torch.from_numpy(np.asarray(cfg.frozen_rho_init, np.float32)))
             frozen = torch.from_numpy(np.asarray(cfg.frozen_rho_mask) > 0).to(device)
     params = list(model.parameters())
+    if mesh is not None:
+        model.encoder.bn.mesh = mesh  # the batch statistics span the ranks
+        with torch.no_grad():  # rank 0's initial state on every rank
+            for t in [*params, *model.buffers()]:
+                replicate(mesh, t)
+    a, b_ = (0, mb) if mesh is None else data_sharding(mesh, mb)
     opt = torch.optim.AdamW(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=cfg.weight_decay)
     batch = _Batcher(data, cfg, device)
@@ -426,18 +448,27 @@ def train_masked(model: MaskedTopicModel, data: IndexedData,
             rates = torch.full((num_mb,), cfg.mask_frac, dtype=torch.float32, device=device)
         losses_mb = torch.zeros(num_mb, dtype=torch.float32, device=device)
         for b in range(num_mb):
-            idx = perm[b * mb : (b + 1) * mb]
+            whole = perm[b * mb : (b + 1) * mb]
+            idx = whole if mesh is None else whole[a:b_]
             ids_b, vals_b = ids_all[idx], vals_all[idx]
             rows = ids_b.shape[0]
-            mask = (mask_u[b, :rows] < rates[b]) & (vals_b > 0)
-            union, lq, valid, null_b = batch(ids_b, batch.memb[idx])
+            mask = (mask_u[b, a : a + rows] < rates[b]) & (vals_b > 0)
+            union, lq, valid, null_b = batch(ids_b, batch.memb[idx],
+                                             None if mesh is None else ids_all[whole])
             loss, _ = model(ids_b, vals_b, union, lq, valid, mask, train=True,
-                            eps=noise[b, :rows], null_vals=null_b)
-            loss = loss.mean()
-            if cfg.feature_embedding_l2 > 0:
+                            eps=noise[b, a : a + rows], null_vals=null_b)
+            loss = loss.mean() if mesh is None else loss.sum() / whole.shape[0]
+            if cfg.feature_embedding_l2 > 0 and (mesh is None or mesh.primary):
                 loss = loss + cfg.feature_embedding_l2 * torch.mean(torch.sum(model.rho**2, dim=1))
             opt.zero_grad(set_to_none=False)
             loss.backward()
+            if mesh is not None:  # the gradients and the loss, summed across the ranks
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                loss = loss.detach().reshape(1).clone()
+                sum_grads_(mesh, [*(p.grad for p in params), loss])
+                loss = loss[0]
             if cfg.grad_clip > 0:
                 clip_grads_nonfinite_(params, cfg.grad_clip)
             if frozen is not None:
@@ -450,7 +481,7 @@ def train_masked(model: MaskedTopicModel, data: IndexedData,
         trace.append(losses_mb.mean())
     trace = torch.stack(trace).cpu().numpy().tolist() if trace else []
     eval_loss = (masked_eval_loss(model, data, cfg, device=device)
-                 if cfg.eval_mask_frac > 0 else None)
+                 if cfg.eval_mask_frac > 0 and (mesh is None or mesh.primary) else None)
     return model, trace, eval_loss
 
 

@@ -45,7 +45,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..parallel.mesh import Mesh, data_sharding, replicate
+from ..parallel.mesh import Mesh, data_sharding, replicate, sum_grads_
 from ..utils.stop import stop_requested
 from .encoders import FlaxBatchNorm, GaussianTrunk
 from .losses import smooth_topics
@@ -208,12 +208,7 @@ class MixedTrainer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        flat = torch.cat([p.grad.reshape(-1) for p in self.params])
-        torch.distributed.all_reduce(flat, group=self.mesh.group)
-        off = 0
-        for p in self.params:
-            p.grad.copy_(flat[off : off + p.numel()].view_as(p))
-            off += p.numel()
+        sum_grads_(self.mesh, [p.grad for p in self.params])
 
     def _clip_and_step(self):
         """Global-norm clip with the non-finite skip, then AdamW."""

@@ -59,11 +59,23 @@ def knn_search(
     chunk: int = 4096,
     mask: np.ndarray | None = None,
     exclude_self_offset: int | None = None,
+    mesh=None,
     device="cuda",
 ) -> tuple[np.ndarray, np.ndarray]:
     """Exact kNN: (L2 distances [M, k], indices [M, k]). `mask` restricts
     the candidates; with `exclude_self_offset` the queries are
-    points[offset:offset + M] and each query's own point is removed."""
+    points[offset:offset + M] and each query's own point is removed.
+
+    `mesh` shards the query rows over the ranks as the JAX package's
+    placement does: the chunk rounds up to a multiple of the world, each
+    rank searches its equal share of every chunk padded to that length
+    (the points on every rank), and the shares are gathered once, in rank
+    order. Each row's search is its own, so the indices are the plain
+    run's."""
+    from ..parallel.mesh import live, padded_share
+    from ..parallel.multihost import gather_padded
+
+    mesh = live(mesh)
     m = queries.shape[0]
     n = points.shape[0]
     k = min(k, n)
@@ -75,17 +87,26 @@ def knn_search(
         else torch.as_tensor(np.asarray(mask, bool), device=device)
     )
     q_all = torch.as_tensor(np.asarray(queries, np.float32), device=device)
-    dists = np.empty((m, k), np.float32)
-    idxs = np.empty((m, k), np.int64)
-    for lb in range(0, m, chunk):
-        ub = min(lb + chunk, m)
+    # this rank's share [a, b) of every padded chunk, one [share, n_chunks, k]
+    # plane a rank, gathered once (the whole chunk without a mesh)
+    chunk, a, b = padded_share(mesh, chunk)
+    starts = range(0, m, chunk)
+    dists = np.full((b - a, len(starts), k), np.inf, np.float32)
+    idxs = np.zeros((b - a, len(starts), k), np.int64)
+    for c, lb in enumerate(starts):
+        lo, hi = min(lb + a, m), min(lb + b, m)
+        if hi <= lo:
+            continue
         self_ids = None
         if exclude_self_offset is not None:
-            self_ids = torch.arange(lb, ub, device=device) + exclude_self_offset
-        d2, idx = _topk_chunk(q_all[lb:ub], r, r_sq, mask_n, k, self_ids)
-        dists[lb:ub] = torch.sqrt(d2).float().cpu().numpy()
-        idxs[lb:ub] = idx.cpu().numpy()
-    return dists, idxs
+            self_ids = torch.arange(lo, hi, device=device) + exclude_self_offset
+        d2, idx = _topk_chunk(q_all[lo:hi], r, r_sq, mask_n, k, self_ids)
+        dists[: hi - lo, c] = torch.sqrt(d2).float().cpu().numpy()
+        idxs[: hi - lo, c] = idx.cpu().numpy()
+    # [rank * share + row, chunk, k] -> rows in query order
+    dists = gather_padded(mesh, dists, chunk).transpose(1, 0, 2).reshape(-1, k)[:m]
+    idxs = gather_padded(mesh, idxs, chunk).transpose(1, 0, 2).reshape(-1, k)[:m]
+    return np.ascontiguousarray(dists), np.ascontiguousarray(idxs)
 
 
 def knn_within(points: np.ndarray, k: int, *, chunk: int = 4096, device="cuda"):

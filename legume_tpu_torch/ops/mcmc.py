@@ -44,16 +44,24 @@ def elliptical_slice_step_batched(
     cur_lnpdf: torch.Tensor,  # [B]
     *,
     stats: dict | None = None,
+    span: tuple[int, int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One ESS transition for B independent chains (Murray et al. 2010).
     `lnpdf(states [n, D], idx [n])` is the log density of chains `idx` at
     `states` (`idx` None: all B). A chain whose bracket collapses keeps
     its current state. Each shrink iteration evaluates only the chains
-    still running, so its cost follows the number left."""
+    still running, so its cost follows the number left.
+
+    `span = (lb, ub, total)`: the B chains are chains `[lb, ub)` of a
+    batch of `total` sharded over ranks; every draw is made for all
+    `total` and this rank keeps its slice, so a chain's draws are those
+    of the whole batch. The loop ends when this rank's chains are done:
+    a chain's path does not depend on how long the others run."""
     dev = current.device
     b = current.shape[0]
+    lb, ub, b_draw = (0, b, b) if span is None else span
     k_u, k_phi, k_loop = prng.split(key, 3)
-    u_h, u_phi = prng.uniform_keys(np.stack([k_u, k_phi]), b, dev)
+    u_h, u_phi = prng.uniform_keys(np.stack([k_u, k_phi]), b_draw, dev)[:, lb:ub]
     hh = torch.log(u_h) + cur_lnpdf
     phi = torch.clamp_min(u_phi * _TWO_PI, 0.0)  # uniform on [0, 2 pi), as drawn
     out, out_ln = current.clone(), cur_lnpdf.clone()
@@ -69,7 +77,7 @@ def elliptical_slice_step_batched(
             for _ in range(min(_DRAW_BLOCK, MAX_BRACKET_ITERS - it)):
                 k_loop, k_next = prng.split(k_loop)
                 keys.append(k_next)
-            u_all = prng.uniform_keys(np.stack(keys), b, dev)
+            u_all = prng.uniform_keys(np.stack(keys), b_draw, dev)[:, lb:ub]
         ang, lo, hi, h = sc
         proposal = _fma(cur, torch.cos(ang)[:, None], nu * torch.sin(ang)[:, None])
         new_ln = lnpdf(proposal, idx)
@@ -99,16 +107,19 @@ def run_ess_chains(
     num_samples: int,
     burn_in: int = 0,
     thin: int = 1,
+    span: tuple[int, int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(samples [num_samples, B, D], lnpdfs [num_samples, B]) after
-    burn-in and thinning. `lnpdf` as `elliptical_slice_step_batched` takes it."""
+    burn-in and thinning. `lnpdf` and `span` as
+    `elliptical_slice_step_batched` takes them; `prior_draw` gives this
+    rank's rows."""
     total = burn_in + num_samples * thin
     cur, cur_ln = init, lnpdf(init, None)
     all_s, all_ln = [], []
     for k in prng.split(key, total):
         k1, k2 = prng.split(k)
         nu = prior_draw(k1, tuple(cur.shape))
-        cur, cur_ln = elliptical_slice_step_batched(k2, cur, nu, lnpdf, cur_ln)
+        cur, cur_ln = elliptical_slice_step_batched(k2, cur, nu, lnpdf, cur_ln, span=span)
         all_s.append(cur)
         all_ln.append(cur_ln)
     sel = [burn_in + thin * i + (thin - 1) for i in range(num_samples)]

@@ -90,6 +90,31 @@ def data_sharding(mesh: Mesh, n: int) -> tuple[int, int]:
     return lb, min(lb + per, n)
 
 
+def share_sizes(mesh: Mesh, n: int) -> list[int]:
+    """The rows of `n` each rank holds under `data_sharding`, in rank order."""
+    dp = mesh.shape[DATA_AXIS]
+    per = -(-n // dp)
+    return [min(per, max(n - (r // (mesh.size // dp)) * per, 0)) for r in range(mesh.size)]
+
+
+def live(mesh: Mesh | None) -> Mesh | None:
+    """`mesh` when it spans more than one rank, else None: `mesh=None` and
+    a world of one run the same code, the plain run's."""
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def padded_share(mesh: Mesh | None, n: int) -> tuple[int, int, int]:
+    """`(n_pad, lb, ub)`: `n` rows padded to a multiple of the data axis,
+    as the JAX package pads an axis it shards, and this rank's equal share
+    `[lb, ub)` of the padded rows (`(n, 0, n)` without a mesh)."""
+    if mesh is None:
+        return n, 0, n
+    dp = mesh.shape[DATA_AXIS]
+    per = -(-n // dp)
+    index = mesh.rank // (mesh.size // dp)
+    return per * dp, index * per, (index + 1) * per
+
+
 def shard_rows(mesh: Mesh, arr) -> torch.Tensor:
     """This rank's rows of `arr` on its device, zero-padded to the full
     share of `data_sharding`."""
@@ -116,6 +141,19 @@ class _SumAcrossRanks(torch.autograd.Function):
         grad = grad.clone()
         dist.all_reduce(grad, group=ctx.group)
         return grad, None
+
+
+def sum_grads_(mesh: Mesh, tensors) -> None:
+    """Sum `tensors` (gradients) across the ranks in place: one flat
+    all_reduce on the mesh's group, as the data-parallel trainer sums its
+    gradients (`models/train.py`)."""
+    tensors = list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=mesh.group)
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off : off + t.numel()].view_as(t))
+        off += t.numel()
 
 
 def row_moments(x: torch.Tensor, mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:

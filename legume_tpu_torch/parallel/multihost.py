@@ -172,6 +172,48 @@ def _sum_across(mesh: Mesh, plane: np.ndarray) -> np.ndarray:
     return _sum_in_rank_order(_gather(plane, mesh.host_group), plane.dtype)
 
 
+def _gather_rows(local: np.ndarray, sizes, group) -> np.ndarray:
+    """Every rank's rows concatenated in rank order, rank r holding
+    `sizes[r]` rows (each padded to the widest for the gather)."""
+    padded = np.zeros((max(max(int(s) for s in sizes), 1),) + local.shape[1:], local.dtype)
+    padded[: local.shape[0]] = local
+    parts = _gather(padded, group)
+    return np.concatenate([p[: int(s)] for p, s in zip(parts, sizes)], axis=0)
+
+
+def sum_across_ranks(mesh: Mesh | None, t: torch.Tensor) -> torch.Tensor:
+    """`t` summed over the ranks in rank order (gathered on the host), on
+    `t`'s device; `t` itself without a mesh or in a world of one."""
+    if mesh is None or mesh.size == 1:
+        return t
+    a = t.detach().cpu().numpy()
+    return torch.from_numpy(_sum_across(mesh, a).reshape(a.shape)).to(t.device)
+
+
+def gather_shares(mesh: Mesh | None, local, sizes) -> np.ndarray:
+    """Every rank's rows concatenated in rank order (rank r holds `sizes[r]`
+    rows of `local`), on the host; `local` itself without a mesh."""
+    local = local.detach().cpu().numpy() if isinstance(local, torch.Tensor) else np.asarray(local)
+    if mesh is None or mesh.size == 1:
+        return local
+    return _gather_rows(local, sizes, mesh.host_group)
+
+
+def gather_padded(mesh: Mesh | None, local, n: int) -> np.ndarray:
+    """The first `n` rows of the equal shares of `padded_share`, gathered
+    in rank order: the unpadded global array."""
+    local = local.detach().cpu().numpy() if isinstance(local, torch.Tensor) else np.asarray(local)
+    if mesh is None or mesh.size == 1:
+        return local[:n]
+    return np.concatenate(_gather(np.ascontiguousarray(local), mesh.host_group), axis=0)[:n]
+
+
+def barrier(mesh: Mesh | None) -> None:
+    """Wait for every rank (nothing without a mesh or in a world of one)."""
+    if mesh is not None and mesh.size > 1:
+        dist.barrier(group=mesh.host_group)
+
+
 # ----------------------------------------------------------------------------
 # sharded collapse reduction
 # ----------------------------------------------------------------------------
@@ -329,15 +371,11 @@ class DistContext:
         """Concatenate the ranks' row blocks into the global [N, ...] array
         on every rank (pad to the widest range, gather, slice)."""
         local = np.asarray(local)
-        widths = np.diff(bounds)
         lb, ub = self.local_range(bounds)
         if local.shape[0] != ub - lb:
             raise ValueError(f"rank {self.process_index} holds {local.shape[0]} rows "
                              f"of its range [{lb}, {ub})")
-        padded = np.zeros((max(int(widths.max()), 1),) + local.shape[1:], local.dtype)
-        padded[: local.shape[0]] = local
-        parts = _gather(padded, self.group)
-        return np.concatenate([parts[p][: widths[p]] for p in range(self.process_count)], axis=0)
+        return _gather_rows(local, np.diff(bounds), self.group)
 
     def reduce_sums(self, *arrays: np.ndarray) -> list[np.ndarray]:
         """Elementwise sums of same-shaped per-rank partials, in rank order."""

@@ -16,6 +16,16 @@ package's `pinto/lc.py`).
 
 On the card every sum of a sweep goes through K3 and K2, which add in
 a fixed order, so a chain is bit-equal from run to run.
+
+`--data-parallel` (`mesh`) shards the edges over the ranks, one rank a
+GPU, as the JAX package's placements do: the edges pad to a multiple of
+the world (empty profiles, kept out of the community sizes and the
+trace), each rank sweeps its own edges (its K3 partials summed across
+the ranks in rank order, K2 against the replicated rates), every draw
+over edges is made for the whole padded axis and sliced, and the greedy
+stage stops when the gathered labels stop moving. Every rank repeats the
+kNN and the edge profiles; rank 0 writes. A world of one is the plain
+run.
 """
 
 from __future__ import annotations
@@ -31,6 +41,8 @@ import torch
 
 from ..ops import kernels
 from ..ops.gamma import digamma
+from ..parallel.mesh import live, padded_share
+from ..parallel.multihost import gather_padded, sum_across_ranks
 from ..utils import prng
 from ..utils.manifest import RunManifest
 from ..utils.prng import DEFAULT_PROJECTION_SEED
@@ -158,15 +170,26 @@ def sweep(
     alpha: float,
     a0: float = 1.0,
     b0: float = 1.0,
+    mesh=None,
+    mask_e: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One blocked sweep (JAX's `_sweep`): refresh the Gamma rates from
     the labels, score every edge against every community, and take the
-    (noisy) argmax. Returns (labels [E] int32, scores [E, K])."""
+    (noisy) argmax. Returns (labels [E] int32, scores [E, K]). Under
+    `mesh` the plane holds this rank's edges (`mask_e` 0 on pad edges):
+    the count, size and membership sums add across the ranks."""
     cnt_dk = kernels.collapse(plane.rows, plane.ptr, plane.vals, labels,
                               num_genes=plane.n_genes, num_groups=k)
     size_k = kernels.collapse(plane.tot_rows, plane.tot_ptr, plane.edge_tot, labels,
                               num_genes=1, num_groups=k)[0]
-    n_k = torch.bincount(labels.long(), minlength=k).float()
+    if mask_e is None:
+        n_k = torch.bincount(labels.long(), minlength=k).float()
+    else:
+        n_k = torch.bincount(labels.long(), weights=mask_e, minlength=k).float()
+    if live(mesh) is not None:
+        d = plane.n_genes
+        tot = sum_across_ranks(mesh, torch.cat([cnt_dk.reshape(-1), size_k, n_k]))
+        cnt_dk, size_k, n_k = tot[: d * k].view(d, k), tot[d * k : d * k + k], tot[d * k + k :]
     log_rate = digamma(a0 + cnt_dk) - torch.log(b0 + size_k)[None, :]  # [D, K]
     log_pi = torch.log(alpha + n_k) - torch.log(alpha * k + n_k.sum())
     scores = kernels.project(log_rate.contiguous(), plane.rows, plane.ptr, plane.vals,
@@ -223,23 +246,38 @@ def _fit_edge_labels(
     incidence_a: float = 1.0,
     incidence_b: float = 1.0,
     init_labels: np.ndarray | None = None,
+    mesh=None,
     device="cuda",
 ) -> tuple[np.ndarray, list]:
     """Blocked Gibbs over edge labels on an [E, D] sparse profile matrix,
     with JAX's key schedule: `key(seed & 0x7FFFFFFF)`, split once for the
     `randint` init labels and once per sweep for that sweep's Gumbel
     draw. With `em_sweeps > 0` (and `edges` / `n_cells`), a component-EM
-    stage follows with the incidence frozen from the post-Gibbs labels."""
+    stage follows with the incidence frozen from the post-Gibbs labels.
+    `mesh` shards the edges (the module's docstring); every rank returns
+    all the labels."""
+    mesh = live(mesh)
     e = profiles.shape[0]
     if profiles.shape[1] != n_genes:
         raise ValueError(f"profiles have {profiles.shape[1]} features, expected {n_genes}")
-    plane = SweepPlane.from_csr(sp.csr_matrix(profiles), device)
+    e_pad, lb, ub = padded_share(mesh, e)
+    csr = sp.csr_matrix(profiles)
+    mask_e = None
+    if mesh is not None:  # this rank's edges, the pad edges empty
+        own = csr[lb : min(ub, e)]
+        csr = sp.vstack([own, sp.csr_matrix((ub - lb - own.shape[0], csr.shape[1]),
+                                            dtype=np.float32)], format="csr")
+        mask_e = torch.from_numpy((np.arange(lb, ub) < e).astype(np.float32)).to(device)
+        log.info("lc: rank %d sweeps edges [%d, %d) of %d", mesh.rank, lb, min(ub, e), e)
+    plane = SweepPlane.from_csr(csr, device)
     key = prng.key(seed & 0x7FFFFFFF)
     key, k_init = prng.split(key)
     if init_labels is not None:
-        labels = torch.from_numpy(np.asarray(init_labels, np.int32)).to(device)
+        lab0 = np.zeros(e_pad, np.int32)
+        lab0[:e] = np.asarray(init_labels, np.int32)
+        labels = torch.from_numpy(lab0[lb:ub]).to(device)
     else:
-        labels = prng.randint_rows(prng.key_rows(k_init[None], device), e, 0, k)[0]
+        labels = prng.randint_rows(prng.key_rows(k_init[None], device), e_pad, 0, k)[0][lb:ub]
         labels = labels.to(torch.int32)
     trace = []
 
@@ -248,26 +286,35 @@ def _fit_edge_labels(
         prev = None
         for s in range(n_sample + n_max):
             key, k_s = prng.split(key)
-            noise = (prng.gumbel_keys(k_s[None], e * k, device).view(e, k)
+            noise = (prng.gumbel_keys(k_s[None], e_pad * k, device).view(e_pad, k)[lb:ub]
                      if s < n_sample else None)
-            labels, scores = sweep(plane, labels, noise, inc, k=k, alpha=alpha)
+            labels, scores = sweep(plane, labels, noise, inc, k=k, alpha=alpha, mesh=mesh,
+                                   mask_e=mask_e)
             chosen = torch.gather(scores, 1, labels[:, None].long())
-            trace.append((phase, float(chosen.sum())))
+            if mesh is None:
+                trace.append((phase, float(chosen.sum())))
+            else:
+                trace.append((phase, float(sum_across_ranks(mesh, (chosen[:, 0] * mask_e).sum()))))
             if s >= n_sample:
-                if prev is not None and torch.equal(prev, labels):
+                # the gathered labels decide, so every rank stops at the same sweep
+                now = labels if mesh is None else gather_padded(mesh, labels, e)
+                if prev is not None and (torch.equal(prev, now) if mesh is None
+                                         else np.array_equal(prev, now)):
                     break  # greedy converged
-                prev = labels
+                prev = now
         return labels
 
     labels = run(labels, n_sweeps, n_greedy, None, "gibbs")
     if em_sweeps > 0 and edges is not None and n_cells is not None:
-        lab_np = labels.cpu().numpy()
+        lab_np = gather_padded(mesh, labels, e)
         theta = compute_node_membership(edges, lab_np, n_cells, k)
         log_b = fit_log_incidence(edges, lab_np, theta, k, a=incidence_a, b=incidence_b)
         th_e = theta[edges[:, 0]] + theta[edges[:, 1]]
-        inc = torch.from_numpy((th_e @ log_b.T).astype(np.float32)).to(device)
+        inc_np = np.zeros((e_pad, k), np.float32)
+        inc_np[:e] = th_e @ log_b.T
+        inc = torch.from_numpy(inc_np[lb:ub]).to(device)
         labels = run(labels, em_sweeps, n_greedy, inc, "em")
-    return labels.cpu().numpy(), trace
+    return gather_padded(mesh, labels, e), trace
 
 
 @dataclass
@@ -302,9 +349,12 @@ def fit_link_community(
     gene_trim_min_degree: int = 2,
     gene_modules_resolution: float = 1.0,
     reciprocal: bool = False,
+    mesh=None,
     seed: int = DEFAULT_PROJECTION_SEED,
     device="cuda",
 ) -> LinkCommunityResult:
+    """`pinto lc`'s fit: the kNN edges, their profiles and the sweeps
+    (`mesh` shards the sweeps' edges; the rest runs on every rank)."""
     n = data.num_columns
     d = data.num_rows
     k = n_communities
@@ -352,7 +402,7 @@ def fit_link_community(
     labels_np, trace = _fit_edge_labels(
         profiles, k, n_genes=n_feat, n_sweeps=n_sweeps, n_greedy=n_greedy,
         alpha=alpha, incidence_a=incidence_a, incidence_b=incidence_b, seed=seed,
-        edges=edges, n_cells=n, em_sweeps=em_sweeps, device=device,
+        edges=edges, n_cells=n, em_sweeps=em_sweeps, mesh=mesh, device=device,
     )
     timings["sweeps_s"] = time.perf_counter() - t0
     timings["sweeps"] = len(trace)
@@ -432,11 +482,13 @@ def run_lc(args: PintoLcArgs, *, vec=None) -> LinkCommunityResult:
 
     from ..ops.gene_stats import nb_fisher_weights
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "pinto --data-parallel is not ported yet (ROADMAP.md §1 item 4)")
+    from ..parallel.mesh import make_mesh
+    from ..parallel.multihost import barrier
+
     t_run = time.perf_counter()
     dev = args.device
+    mesh = make_mesh(dev) if args.data_parallel else None
+    shared = live(mesh)
     if vec is None:
         from ..senna.topic import load_data_vec
 
@@ -488,9 +540,12 @@ def run_lc(args: PintoLcArgs, *, vec=None) -> LinkCommunityResult:
         snn_min_shared=args.snn_min_shared,
         gene_trim_min_degree=args.gene_trim_min_degree,
         gene_modules_resolution=args.gene_modules_resolution,
-        reciprocal=args.reciprocal, seed=args.seed, device=dev,
+        reciprocal=args.reciprocal, mesh=mesh, seed=args.seed, device=dev,
     )
     res.timings["gene_weights_s"] = gene_weights_s
+    if shared is not None and not shared.primary:  # rank 0 writes
+        barrier(shared)
+        return res
     t0 = time.perf_counter()
     cells = vec.column_names()
     pd.DataFrame(
@@ -528,4 +583,5 @@ def run_lc(args: PintoLcArgs, *, vec=None) -> LinkCommunityResult:
         params={"edges": int(len(res.edges)), "profile_nnz": res.profile_nnz},
         timings=res.timings,
     ).save(args.out, "metadata.json")
+    barrier(shared)
     return res

@@ -21,6 +21,7 @@ from legume_tpu.ops import random_projection as jrp
 from legume_tpu.senna.topic import load_data_vec as j_load_data_vec
 from legume_tpu_torch.cli.main import main as port_cli
 from legume_tpu_torch.cli.senna_cmds.embed_cmds import BgeArgs, run_bge
+from torch_cpu import one_thread
 
 REPO = Path(__file__).resolve().parents[1]
 FLAGS = ["-d", "8", "--epochs", "120", "--sort-dim", "5", "--proj-dim", "16"]
@@ -105,11 +106,17 @@ def test_cli_runs_and_rejects_unported_options(runs, tmp_path):
 
     doc = json.loads((tmp_path / "cli_post.gem.json").read_text())
     assert doc["outputs"]["feature_posterior"].endswith("cli_post.feature_posterior.parquet")
-    # --multiome needs two files; data parallelism is not ported
+    # --multiome needs two files
     with pytest.raises(SystemExit, match="exactly 2"):
         port_cli(argv + ["--multiome"])
-    with pytest.raises(NotImplementedError, match="--data-parallel"):
-        port_cli(argv + ["--data-parallel"])
+    # --data-parallel without a process group is a world of one: the plain run
+    with one_thread():
+        assert port_cli(argv + ["--out", out + "_plain"]) == 0
+        assert port_cli(argv + ["--data-parallel", "--out", out + "_dp"]) == 0
+    pd.testing.assert_frame_equal(pd.read_parquet(out + "_dp.latent.parquet"),
+                                  pd.read_parquet(out + "_plain.latent.parquet"))
+    pd.testing.assert_frame_equal(pd.read_parquet(out + "_dp.feature_embedding.parquet"),
+                                  pd.read_parquet(out + "_plain.feature_embedding.parquet"))
 
 
 def test_multiome_outputs_named_and_shaped_as_jax(tmp_path):

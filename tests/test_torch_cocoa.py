@@ -30,6 +30,7 @@ from legume_tpu_torch.cocoa import collapse as tcol
 from legume_tpu_torch.cocoa import sim as tsim
 from legume_tpu_torch.cocoa import stat as tstat
 from legume_tpu_torch.data import MemoryBackend
+from torch_cpu import one_thread
 
 STAT_FIELDS = ("y1_sum_kdp", "y0_sum_kdp", "y1_sum_kdi", "size_kp", "size_kip")
 
@@ -213,14 +214,14 @@ def test_cli_simulators_and_unported_options(e2e, tmp_path):
         assert pd.read_parquet(out + ".truth.parquet").equals(
             pd.read_parquet(out + "_j.truth.parquet"))
     assert (tmp_path / "simulate-collider.celltype.parquet").exists()
-    base = ["cocoa", "diff", *e2e["flags"], "--out", str(tmp_path / "x"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="--data-parallel"):
-        port_cli(base + ["--data-parallel"])
-    # --gff is ported (faba's GFF reader): no longer refused up front
-    from legume_tpu_torch.cocoa.diff import CocoaDiffArgs, check_supported
-
-    assert check_supported(CocoaDiffArgs(data_files=["x"], out="x", indv_file="i",
-                                         exposure_file="e", gff="x.gff")) is None
+    # --data-parallel without a process group is a world of one: the plain run
+    base = ["cocoa", "diff", *e2e["flags"], "--device", "cpu"]
+    with one_thread():
+        assert port_cli(base + ["--out", str(tmp_path / "x")]) == 0
+        assert port_cli(base + ["--out", str(tmp_path / "x_dp"), "--data-parallel"]) == 0
+    for table in ("effect", "pvalue", "shared", "residual"):
+        pd.testing.assert_frame_equal(pd.read_parquet(tmp_path / f"x_dp.{table}.parquet"),
+                                      pd.read_parquet(tmp_path / f"x.{table}.parquet"))
 
 
 def test_match_cache_reused_across_packages(e2e, tmp_path):

@@ -1727,3 +1727,95 @@ def test_topic_data_parallel_on_the_card(dev, tmp_path):
     np.testing.assert_allclose(read_table(f"{b}.log_likelihood.parquet")["llik"],
                                read_table(f"{plain}.log_likelihood.parquet")["llik"],
                                rtol=2e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("cmd", ["cocoa", "bge", "gem", "gem_encoder", "masked", "lc"])
+def test_slice19_data_parallel_on_the_card(dev, tmp_path, cmd):
+    """`cocoa diff`, `senna bge`, `faba gem` / `gem-encoder`, `senna
+    masked-topic` and `pinto lc` with `--data-parallel` on the two-rank
+    CPU test's inputs (`tests/torch_dp.py`): (d) a world of one over NCCL
+    writes the plain run's tables bit for bit; (e) for bge and lc, two
+    ranks sharing the card over gloo hold bge's cell and feature
+    embeddings within rtol 5e-3, atol 5e-5 and lc's planted stripes above
+    0.85, and only rank 0 writes (chip_smoke.py's phase 43 at a small
+    size)."""
+    import socket
+    import sys
+    from pathlib import Path
+
+    from legume_tpu_torch.utils.output import read_table
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_dp import slice19_commands, slice19_stores
+
+    def world(size, rank, port):
+        return {"LEGUME_COORDINATOR": f"127.0.0.1:{port}", "LEGUME_NUM_PROCESSES": str(size),
+                "LEGUME_PROCESS_ID": str(rank)}
+
+    def port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    two = cmd in ("bge", "lc")
+    runs = {"plain": ({}, False), "a": (world(1, 0, port()), True)}
+    if two:
+        p2 = port()
+        runs.update({f"b{r}": (world(2, r, p2), True) for r in range(2)})
+    procs, stores = [], {}
+    for d, (env, dp) in runs.items():
+        (tmp_path / d).mkdir()
+        stores[d] = slice19_stores(tmp_path, f"_{d}")
+        argv = slice19_commands(stores[d], ".", "cuda", dp)[cmd]
+        procs.append(_dp_run(argv, tmp_path / d, env))
+    _dp_wait(procs)
+    names = {"cocoa": ("effect", "pvalue", "shared", "residual"),
+             "bge": ("latent", "feature_embedding", "feature_posterior"),
+             "gem": ("gene_embedding", "velocity", "latent", "delta_posterior"),
+             "gem_encoder": ("gene_embedding", "velocity", "latent"),
+             "masked": ("latent", "loss"),
+             "lc": ("propensity", "edges", "score_trace", "gene_community", "consensus")}[cmd]
+    plain, a = (str(tmp_path / d / cmd) for d in ("plain", "a"))
+    for name in names:
+        x, y = read_table(f"{plain}.{name}.parquet"), read_table(f"{a}.{name}.parquet")
+        assert list(x) == list(y)
+        for k in x:
+            np.testing.assert_array_equal(y[k], x[k])
+    if not two:
+        return
+    assert list((tmp_path / "b1").iterdir()) == []
+    b = str(tmp_path / "b0" / cmd)
+    if cmd == "bge":
+        for name in ("latent", "feature_embedding"):
+            x, y = (np.column_stack(list(read_table(f"{p}.{name}.parquet").values())[1:])
+                    for p in (plain, b))
+            np.testing.assert_allclose(y, x, rtol=5e-3, atol=5e-5)
+    else:
+        domain = stores["b0"]["domain"]
+        prop = np.column_stack([v for k, v in read_table(f"{b}.propensity.parquet").items()
+                                if k.startswith("c") and k != "cell"])
+        lab = prop.argmax(1)
+        acc = sum(np.bincount(domain[lab == k], minlength=3).max()
+                  for k in range(3) if (lab == k).any()) / len(domain)
+        assert acc > 0.85, acc
+
+
+def test_bge_etm_layout_bit_equal_between_card_runs(dev, tmp_path):
+    """Two card runs of `senna bge` with the ETM layout on write the same
+    dictionary and topic latent, bit for bit: the layout's cluster sums
+    take a fixed order (`segment_add`; with `index_add_`'s float atomics
+    the two tables moved between runs, as chip_smoke.py's phase 43 found)."""
+    from legume_tpu_torch.cli.senna_cmds.embed_cmds import BgeArgs, run_bge
+    from legume_tpu_torch.utils.output import read_table
+
+    sim = simulate_topic(rows=200, cols=3000, factors=5, batches=1, seed=3)
+    vec = SparseIoVec()
+    vec.push(MemoryBackend(sim.counts, sim.row_names, sim.col_names))
+    for run in ("r1", "r2"):
+        run_bge(BgeArgs(epochs=200, sort_dim=5, proj_dim=16, out=str(tmp_path / run)), vec=vec,
+                device=dev)
+    for name in ("latent", "feature_embedding", "dictionary", "topic_latent"):
+        x, y = (read_table(str(tmp_path / f"{r}.{name}.parquet")) for r in ("r1", "r2"))
+        assert list(x) == list(y)
+        for k in x:
+            np.testing.assert_array_equal(y[k], x[k], err_msg=f"{name}.{k}")

@@ -29,6 +29,7 @@ from legume_tpu_torch.faba import bam_sim
 from legume_tpu_torch.faba import cell_calling as tcc
 from legume_tpu_torch.faba import genes as tgenes
 from legume_tpu_torch.utils import prng
+from torch_cpu import one_thread
 
 
 @pytest.fixture(scope="module")
@@ -245,5 +246,27 @@ def test_faba_parser_carries_jax_flags_and_defaults(monkeypatch):
 
 
 def test_data_parallel_raises(sim, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 4"):
-        t_faba(["gem", "--spliced", "x", "--unspliced", "y", "--output", "o", "--data-parallel"])
+    """`faba gem --posterior` and `gem-encoder` with `--data-parallel` and
+    no process group run as a world of one: the plain run's tables."""
+    import pandas as pd
+
+    rng = np.random.default_rng(3)
+    stores = []
+    for name, lam in (("s", 3.0), ("u", 1.5)):
+        stores.append(str(tmp_path / f"{name}.zarr"))
+        tsio.create_sparse_from_csc(sp.csc_matrix(rng.poisson(lam, (30, 23)).astype(np.float32)),
+                                    stores[-1], [f"g{i}" for i in range(30)],
+                                    [f"pb{j}" for j in range(23)])
+    ins = ["--spliced", stores[0], "--unspliced", stores[1], "--epochs", "20", "-d", "4",
+           "--device", "cpu"]
+    runs = {"gem": ["gem", *ins, "--posterior", "3"], "enc": ["gem-encoder", *ins]}
+    with one_thread():
+        for tag, argv in runs.items():
+            t_faba(argv + ["--output", str(tmp_path / tag)])
+            t_faba(argv + ["--output", str(tmp_path / f"{tag}_dp"), "--data-parallel"])
+    tables = {"gem": ("gene_embedding", "velocity", "latent", "delta_posterior"),
+              "enc": ("gene_embedding", "velocity", "latent")}
+    for tag, names in tables.items():
+        for name in names:
+            pd.testing.assert_frame_equal(pd.read_parquet(tmp_path / f"{tag}_dp.{name}.parquet"),
+                                          pd.read_parquet(tmp_path / f"{tag}.{name}.parquet"))

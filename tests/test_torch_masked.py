@@ -26,6 +26,7 @@ from legume_tpu_torch.models import indexed as tidx
 from legume_tpu_torch.models.convert import masked_params_from_jax, masked_params_to_jax
 from legume_tpu_torch.senna import predict as tpred
 from legume_tpu_torch.utils.output import read_table
+from torch_cpu import one_thread
 
 D, N, WIN, T, H = 60, 200, 16, 4, 8
 
@@ -293,9 +294,20 @@ def test_batch_null_model_predict_fails_in_both(files):
 
 
 def test_data_parallel_raises(files, tmp_path):
-    with pytest.raises(NotImplementedError, match="--data-parallel"):
-        port_cli(_cli_argv("masked-topic", files, str(tmp_path / "dp"), "--data-parallel",
-                           "--device", "cpu"))
+    """`--data-parallel` with no process group is a world of one: the plain
+    run's latent, loss trace and eval."""
+    flags = ("--eval-mask-fraction", "0.2", "--grad-clip", "1.0", "--device", "cpu")
+    with one_thread():
+        for tag in ("plain", "dp"):
+            extra = ("--data-parallel",) if tag == "dp" else ()
+            assert port_cli(_cli_argv("masked-topic", files, str(tmp_path / tag), *flags,
+                                      *extra)) == 0
+    for name in ("latent", "loss"):
+        np.testing.assert_array_equal(
+            np.column_stack(list(read_table(str(tmp_path / f"dp.{name}.parquet")).values())[1:]),
+            np.column_stack(list(read_table(str(tmp_path / f"plain.{name}.parquet")).values())[1:]))
+    assert json.loads((tmp_path / "dp.eval.json").read_text()) == \
+        json.loads((tmp_path / "plain.eval.json").read_text())
 
 
 def test_frozen_rho_rows_hold_and_follow_jax(windows):

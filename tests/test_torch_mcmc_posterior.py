@@ -21,7 +21,9 @@ from legume_tpu.embedding import posterior as jpost
 from legume_tpu.ops import mcmc as jmcmc
 from legume_tpu_torch.embedding import posterior as tpost
 from legume_tpu_torch.ops import mcmc as tmcmc
+from legume_tpu_torch.parallel.mesh import make_mesh
 from legume_tpu_torch.utils import prng
+from torch_cpu import one_thread
 
 
 def _rows(a, idx):
@@ -125,13 +127,16 @@ def test_pb_posterior_ess_recovers_embedding():
     feat_b = np.full(d, -1.0, np.float32)
     e_true = rng.normal(0, 0.8, size=(p, h)).astype(np.float32)
     y = rng.poisson(np.exp(e_true @ feat.T + feat_b[None, :])).astype(np.float32)
-    out = tpost.pb_posterior_ess(y, feat, feat_b, num_samples=60, burn_in=20, seed=1,
-                                 device="cpu")
+    kw = dict(num_samples=60, burn_in=20, seed=1, device="cpu")
+    with one_thread():
+        out = tpost.pb_posterior_ess(y, feat, feat_b, **kw)
+        # the mesh of a world of one (no process group) is the plain run
+        one = tpost.pb_posterior_ess(y, feat, feat_b, mesh=make_mesh("cpu"), **kw)
     for hh in range(h):
         assert np.corrcoef(out["e_mean"][:, hh], e_true[:, hh])[0, 1] > 0.8
     assert np.isfinite(out["lnpdf"]).all() and out["draws"].shape == (60, p, h + 1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpost.pb_posterior_ess(y, feat, feat_b, mesh=object(), device="cpu")
+    for name in ("draws", "lnpdf", "rhat", "ess"):
+        np.testing.assert_array_equal(one[name], out[name])
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,10 @@ balanced and the uniform split, a plane wider than the groups present
 and the simulated two-process view (the same reads, partials summing to
 the whole); the gene moments' merge equals JAX's; and in a gloo world of
 one the synced BatchNorm and the data-parallel trainer are bit-equal to
-the plain module and trainer. Two ranks: `tests/test_torch_multiprocess.py`."""
+the plain module and trainer, and every path the second slice shards
+(the kNN, cocoa's match cache and replay, the posterior samplers, gem,
+bge, the masked trainer, lc) equals its run without a mesh. Two ranks:
+`tests/test_torch_multiprocess.py`."""
 
 import numpy as np
 import pytest
@@ -26,7 +29,7 @@ from legume_tpu_torch.ops import gene_stats as tgs
 from legume_tpu_torch.parallel import mesh as tmesh
 from legume_tpu_torch.parallel import multihost as tmh
 from torch_cpu import one_torch_thread  # noqa: F401  (autouse)
-from torch_dp import trainer_fit
+from torch_dp import WORLD_OF_ONE_CASES, trainer_fit
 
 
 def _counts(seed: int, d: int, n: int, lam: float = 1.0) -> np.ndarray:
@@ -211,3 +214,18 @@ def test_trainer_world_of_one_equals_plain(world_of_one):
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     np.testing.assert_array_equal(z_mesh, z_plain)
     assert llik_mesh == llik_plain
+
+
+@pytest.mark.parametrize("item", sorted(WORLD_OF_ONE_CASES))
+def test_world_of_one_is_the_plain_run(world_of_one, item):
+    """The kNN, the match cache, the replay, the posterior samplers, gem's
+    fits, bge's two phases, the masked trainer and lc's sweeps on the mesh
+    of a gloo world of one: bit-equal to `mesh=None` (the JAX package's
+    one-device rule, `tests/test_posterior.py::test_pb_gibbs_mesh_single_device_exact`)."""
+    mesh = tmesh.make_mesh("cpu")
+    assert mesh.size == 1
+    plain = WORLD_OF_ONE_CASES[item](None, "cpu")
+    one = WORLD_OF_ONE_CASES[item](mesh, "cpu")
+    assert sorted(one) == sorted(plain)
+    for name, want in plain.items():
+        np.testing.assert_array_equal(one[name], want, err_msg=name)

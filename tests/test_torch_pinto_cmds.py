@@ -33,6 +33,7 @@ from legume_tpu_torch.pinto import cage as tcage
 from legume_tpu_torch.pinto import gene_network as tgn
 from legume_tpu_torch.pinto import lc_etm as tetm
 from legume_tpu_torch.pinto import lra as tlra
+from torch_cpu import one_thread
 
 SIDE, D, K = 12, 40, 3
 
@@ -133,9 +134,16 @@ def test_lc_cli_matches_jax(files, variant):
 
 
 def test_lc_data_parallel_raises(files):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 4"):
-        t_pinto(["lc", "--data-files", files["store"], "--coords", files["coords"], "--out",
-                 str(files["tmp"] / "dp"), "--data-parallel", "--device", "cpu"])
+    """`lc --data-parallel` with no process group is a world of one: the
+    plain run's tables."""
+    argv = ["lc", "--data-files", files["store"], "--coords", files["coords"], "--device", "cpu"]
+    tmp = files["tmp"]
+    with one_thread():
+        t_pinto(argv + ["--out", str(tmp / "lc_plain")])
+        t_pinto(argv + ["--out", str(tmp / "lc_dp"), "--data-parallel"])
+    for name in ("propensity", "edges", "score_trace", "gene_community", "consensus"):
+        pd.testing.assert_frame_equal(pd.read_parquet(tmp / f"lc_dp.{name}.parquet"),
+                                      pd.read_parquet(tmp / f"lc_plain.{name}.parquet"))
 
 
 def test_gene_network_modules_and_profiles_match_jax(files):
